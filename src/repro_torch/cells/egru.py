@@ -1,0 +1,113 @@
+"""EGRU/ERNN closed-form per-step partials, in PyTorch.
+
+Counterpart of `repro.cells.egru`.  Exploiting the paper's Eqs. (6)-(10):
+
+  * J_t    = D(H'(v_t)) . J-hat_t          -> beta_t . n rows exactly zero
+  * Mbar_t = D(H'(v_t)) . (per-unit groups) -> same rows zero; one parameter
+    group (W[:,k'], R[:,k'], b_k' [, theta_k']) per unit k'.
+
+`cell_partials_full` (the input Jacobian of stacked L >= 2 networks) is
+not ported yet (ROADMAP Queue 1 item 7).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.core import cells
+from repro_torch.core.cells import EGRUConfig
+
+Tree = Any
+
+
+def _gru_forward(w, a, x):
+    u = torch.sigmoid(x @ w["u"]["W"] + a @ w["u"]["R"] + w["u"]["b"])
+    r = torch.sigmoid(x @ w["r"]["W"] + a @ w["r"]["R"] + w["r"]["b"])
+    z = torch.tanh(x @ w["z"]["W"] + (r * a) @ w["z"]["R"] + w["z"]["b"])
+    v = u * z + (1.0 - u) * a - w["theta"]
+    return v, (u, r, z)
+
+
+def cell_partials(cfg: EGRUConfig, w: Tree, a_prev: torch.Tensor,
+                  x_t: torch.Tensor):
+    """Closed-form (a_new, hp, J-hat [B,n,n], Mbar pieces).
+
+    J = D(hp) @ J-hat;  Mbar rows are D(hp)-gated by construction."""
+    return _cell_partials_impl(cfg, w, a_prev, x_t)
+
+
+def _cell_partials_impl(cfg: EGRUConfig, w: Tree, a_prev: torch.Tensor,
+                        x_t: torch.Tensor):
+    B, n = a_prev.shape
+    ones = a_prev.new_ones((B, 1))
+    if cfg.kind == "rnn":
+        v = x_t @ w["v"]["W"] + a_prev @ w["v"]["R"] + w["v"]["b"] - w["theta"]
+        a_new, hp = _activation(cfg, v)
+        Jhat = w["v"]["R"].T[None].expand(B, n, n)
+        # group vector g = (x, a_prev, 1, -1): diag Mbar coefficient = 1
+        g = torch.cat([x_t, a_prev, ones, -ones], dim=1)
+        mbar = {"v_diag_coef": a_prev.new_ones((B, n)), "v_g": g}
+        return a_new, hp, Jhat, mbar
+
+    v, (u, r, z) = _gru_forward(w, a_prev, x_t)
+    a_new, hp = _activation(cfg, v)
+    du = u * (1 - u)
+    dr = r * (1 - r)
+    dz = 1 - z.square()
+    cu = (z - a_prev) * du                     # coef on R_u^T rows
+    cz = u * dz                                # coef on z-path rows
+    Ru, Rr, Rz = w["u"]["R"], w["r"]["R"], w["z"]["R"]
+    term_u = cu[:, :, None] * Ru.T[None]                        # [b,k,l]
+    term_z1 = cz[:, :, None] * (r[:, None, :] * Rz.T[None])
+    inner = torch.einsum("lm,bm,mk->blk", Rr, a_prev * dr, Rz)
+    term_z2 = cz[:, :, None] * inner.transpose(1, 2)
+    Jhat = term_u + term_z1 + term_z2
+    diag = torch.arange(n, device=a_prev.device)
+    Jhat[:, diag, diag] += 1 - u
+    g_u = torch.cat([x_t, a_prev, ones], dim=1)
+    g_z = torch.cat([x_t, r * a_prev, ones], dim=1)
+    # r-gate coupling: dv_k/dw_r[k'] = cz_k R_z[k',k] a_{k'} dr_{k'} * g_r
+    coef_r = cz[:, :, None] * Rz.T[None] * (a_prev * dr)[:, None, :]
+    mbar = {"u_diag_coef": cu, "u_g": g_u,
+            "z_diag_coef": cz, "z_g": g_z,
+            "r_coef": coef_r, "r_g": g_u}
+    return a_new, hp, Jhat, mbar
+
+
+def _activation(cfg: EGRUConfig, v):
+    if cfg.dense:
+        a = torch.tanh(v)
+        return a, 1.0 - a.square()
+    return cells.heaviside(v), cells.pseudo_derivative(v, cfg)
+
+
+class EGRUCell:
+    """The paper's EGRU/ERNN behind the cell protocol of `repro.cells`
+    (jac_kind="dense": partials yield a [B, n, n] J-hat)."""
+
+    name = "egru"
+    jac_kind = "dense"
+
+    def __init__(self, cfg: EGRUConfig):
+        self.cfg = cfg
+
+    def init_params(self, gen: torch.Generator, *, device) -> Tree:
+        return cells.init_params(self.cfg, gen, device=device)
+
+    def rec_params(self, params: Tree) -> Tree:
+        return cells.rec_param_tree(params)
+
+    def init_state(self, batch: int, *, device) -> torch.Tensor:
+        return cells.init_state(self.cfg, batch, device=device)
+
+    def partials(self, w: Tree, a_prev: torch.Tensor, x_t: torch.Tensor):
+        """-> (a_new, hp, J-hat [B,n,n], mbar pieces)."""
+        return cell_partials(self.cfg, w, a_prev, x_t)
+
+    def readout(self, params: Tree, a: torch.Tensor) -> torch.Tensor:
+        return cells.readout(params, a)
+
+    def activity_mask(self, a: torch.Tensor) -> torch.Tensor:
+        """Active (event-emitting) units this step."""
+        return a != 0.0

@@ -1,0 +1,366 @@
+"""Streaming learner API, in PyTorch: one protocol over the gradient engines
+the port has so far.
+
+Counterpart of `repro.core.learner`:
+
+    learner = make_learner(LearnerSpec(engine=..., cfg=..., backend=...))
+    carry   = learner.init(params, masks, (x_0, y_0), t_total=T)
+    carry, out = learner.step(carry, x_t, y_t)    # any number of times
+    grads   = learner.grads(carry)                # whenever a consumer wants
+    carry   = learner.reset_grads(carry, new_params)   # after an update
+
+``carry`` is a dict holding everything that evolves (params, activity,
+influence state, gradient accumulators ``gw``/``gout``, running ``loss``,
+the loss scale ``t_total``); it is O(1) in stream length.  Per-step loss is
+``xent(readout(a_t), y_t) / t_total``.  The spec strings mean what they
+mean in the JAX package.
+
+Ported: engine "sparse" with backends "compact" and "compact_fused" (with
+or without the column-compact carry, f32 or bf16 influence), and engine
+"stacked" at one layer, which delegates to it as the JAX package does.
+Every other engine and backend raises NotImplementedError naming the
+ROADMAP item that brings it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.cells import resolve_cell
+from repro_torch.core import cells, sparse_rtrl as SP
+from repro_torch.core.cells import EGRUConfig, StackedEGRUConfig
+from repro_torch.kernels import compact as CK
+from repro_torch.tree import tree_map
+
+Tree = Any
+
+
+class StepOut(NamedTuple):
+    """What one online step yields to the consumer."""
+    loss: torch.Tensor             # instantaneous loss L_t (1/t_total-scaled)
+    readout: torch.Tensor | None   # logits [B, n_out] at this step
+    stats: dict                    # per-step sparsity/overflow stats
+    grads: Tree | None = None      # THIS step's gradient term (per_step_grads)
+
+
+@dataclasses.dataclass(frozen=True)
+class LearnerSpec:
+    """Everything needed to construct a learner (the JAX package's fields;
+    see `repro.core.learner.LearnerSpec` for their meaning)."""
+    engine: str = "sparse"
+    cfg: Any = None
+    backend: str = "dense"
+    col_compact: bool | None = None
+    influence_dtype: str = "float32"
+    layers: int = 1
+    capacity: float = 1.0
+    interpret: bool | None = None
+    order: int = 1
+    horizon: int | None = None
+    per_step_grads: bool = False
+    delegate_single_layer: bool = True
+    rewirable: bool = False
+
+
+class _LearnerBase:
+    """Shared carry conventions: dict carry with 'params', 'loss', 't_total'
+    and gradient accumulators 'gw'/'gout'."""
+    spec: LearnerSpec
+
+    def rewire(self, carry: Tree, *args, **kw) -> Tree:
+        raise NotImplementedError(
+            "dynamic sparsity (rewire) is not ported yet: ROADMAP Queue 1 "
+            "item 8")
+
+    def opt_mask_of(self, carry: Tree) -> Tree:
+        raise NotImplementedError(
+            "dynamic sparsity (mask state in the carry) is not ported yet: "
+            "ROADMAP Queue 1 item 8")
+
+    def reset_grads(self, carry: Tree, params: Tree | None = None) -> Tree:
+        carry = dict(carry)
+        if params is not None:
+            carry["params"] = params
+        for k in ("gw", "gout"):
+            if k in carry:
+                carry[k] = tree_map(torch.zeros_like, carry[k])
+        carry["loss"] = torch.zeros_like(carry["loss"])
+        return carry
+
+    def params_of(self, carry: Tree) -> Tree:
+        """The current parameters in the structure the optimizer sees."""
+        return carry["params"]
+
+    def _freeze_static(self, **kv):
+        """Bind init-derived static structure (masks, layouts) to this
+        learner instance ONCE; re-initialising with different structure
+        raises (make a new learner instead)."""
+        prev = getattr(self, "_frozen", None)
+        if prev is None:
+            self._frozen = kv
+            return
+        for k, v in kv.items():
+            old = prev[k]
+            same = old is v or (
+                isinstance(v, (int, float, bool, type(None))) and old == v)
+            if not same:
+                raise ValueError(
+                    f"learner already initialized with a different {k!r}; "
+                    "carries are bound to the init-time structure — create "
+                    "a fresh learner via make_learner(spec) instead")
+
+    @staticmethod
+    def _base_carry(params: Tree, t_total: float, device) -> dict:
+        f32 = dict(dtype=torch.float32, device=device)
+        return {"params": params, "loss": torch.zeros((), **f32),
+                "t_total": torch.tensor(float(t_total), **f32)}
+
+    @staticmethod
+    def _inst_loss_and_grads(po: Tree, a: torch.Tensor, y: torch.Tensor,
+                             tt: torch.Tensor):
+        """Instantaneous loss xent(a W + b, y) / tt with its gradients in
+        closed form: (loss, logits, {"W", "b"} readout grads, c-bar =
+        dL/da)."""
+        logits = a @ po["W"] + po["b"]
+        logp = torch.log_softmax(logits, dim=-1)
+        yl = y.long()[:, None]
+        loss = -logp.gather(1, yl).mean() / tt
+        onehot = torch.zeros_like(logp).scatter_(1, yl, 1.0)
+        dlogits = (logp.exp() - onehot) / (a.shape[0] * tt)
+        gout = {"W": a.T @ dlogits, "b": dlogits.sum(dim=0)}
+        return loss, logits, gout, dlogits @ po["W"].T
+
+
+# ---------------------------------------------------------------------------
+# Exact single-layer sparse RTRL (compact / compact_fused x col-compact)
+# ---------------------------------------------------------------------------
+
+_NOT_PORTED_BACKENDS = {
+    "dense": "ROADMAP Queue 1 item 2 (masked-dense reference backend)",
+    "pallas": "ROADMAP Queue 1 item 6 (block-sparse backend, kernel K2)",
+}
+
+
+class SparseLearner(_LearnerBase):
+    """`repro.core.sparse_rtrl` as a streaming learner: backends "compact"
+    and "compact_fused", the influence carried row-compact and (by default
+    whenever masks are given) column-compact.  Exact."""
+
+    def __init__(self, spec: LearnerSpec):
+        if spec.backend not in SP.BACKENDS:
+            raise ValueError(
+                f"backend must be one of {SP.BACKENDS}, got {spec.backend!r}")
+        if spec.backend in _NOT_PORTED_BACKENDS:
+            raise NotImplementedError(
+                f"backend {spec.backend!r} is not ported yet: "
+                f"{_NOT_PORTED_BACKENDS[spec.backend]}")
+        if spec.rewirable:
+            raise NotImplementedError(
+                "rewirable learners are not ported yet: ROADMAP Queue 1 "
+                "item 8")
+        SP.influence_carry_dtype(spec.influence_dtype)      # validates
+        self.spec = spec
+        self.cfg: EGRUConfig = spec.cfg
+        self.cell = resolve_cell(spec.cfg)      # raises for unported cells
+        self.backend = spec.backend
+
+    def init(self, params, masks, batch, t_total: float = 1.0):
+        cfg = self.cfg
+        x0, _ = batch
+        B = x0.shape[0]
+        device = params["out"]["W"].device
+        col_compact = self.spec.col_compact
+        if self.backend == "compact_fused":
+            if col_compact is False:
+                raise ValueError("compact_fused always carries the "
+                                 "parameter axis column-compact")
+            col_compact = True
+        elif col_compact is None:
+            col_compact = masks is not None
+        self._freeze_static(masks=masks, col_compact=col_compact)
+        layout = SP.flat_layout(cfg, self.spec.influence_dtype)
+        self.layout = layout
+        # full-width mode is the column map over ALL columns with the dead
+        # ones masked out of M-bar: the carry is [B, K, P_pad] either way
+        self._cl = SP.col_layout(layout, masks if col_compact else None,
+                                 device=device)
+        self._colm = None if col_compact or masks is None else \
+            SP.flat_col_mask(layout, masks, device=device)
+        if self.backend == "compact_fused":
+            from repro_torch.kernels import compact_fused as CF
+            # checks the fused layout contract: gate columns contiguous
+            self._segs = CF.fused_segments(layout, self._cl)
+        carry = self._base_carry(params, t_total, device)
+        carry["a"] = cells.init_state(cfg, B, device=device)
+        carry["gout"] = tree_map(
+            lambda x: torch.zeros_like(x, dtype=torch.float32), params["out"])
+        carry["beta_prev"] = torch.ones((), dtype=torch.float32,
+                                        device=device)
+        Pc = self._cl.Pc_pad
+        K = SP.capacity_K(cfg.n_hidden, self.spec.capacity)
+        carry["gw"] = torch.zeros((Pc,), dtype=torch.float32, device=device)
+        carry["vals"] = torch.zeros((B, K, Pc), dtype=layout.carry_dtype,
+                                    device=device)
+        carry["idx"] = torch.full((B, K), CK.DEAD, dtype=torch.int32,
+                                  device=device)
+        return carry
+
+    def step(self, carry, x_t, y_t):
+        cfg, params = self.cfg, carry["params"]
+        w = cells.rec_param_tree(params)
+        if self.backend == "compact_fused":
+            a_new, hp, vals_new, idx_new, count, overflow = \
+                SP.flat_compact_fused_step(
+                    cfg, w, self.layout, carry["a"], carry["vals"],
+                    carry["idx"], x_t, cl=self._cl)
+        else:
+            a_new, hp, vals_new, idx_new, count, overflow = \
+                SP.flat_compact_step(cfg, w, self.layout, carry["a"],
+                                     carry["vals"], carry["idx"], x_t,
+                                     cl=self._cl, col_mask=self._colm)
+        lt, logits, gout_t, cbar = self._inst_loss_and_grads(
+            params["out"], a_new, y_t, carry["t_total"])
+        gw_t = CK.compact_grads(vals_new, idx_new, cbar)
+        new = dict(carry)
+        new["gw"] = carry["gw"] + gw_t
+        new["vals"], new["idx"] = vals_new, idx_new
+        new["a"] = a_new
+        new["gout"] = tree_map(torch.add, carry["gout"], gout_t)
+        new["loss"] = carry["loss"] + lt
+        stats = {"alpha": (a_new == 0.0).float().mean(),
+                 "beta": (hp == 0.0).float().mean(),
+                 "beta_prev": carry["beta_prev"],
+                 "m_row_density": ((idx_new >= 0).sum(dim=1).float().mean()
+                                   / cfg.n_hidden),
+                 "overflow": overflow.max()}
+        new["beta_prev"] = stats["beta"]
+        step_grads = None
+        if self.spec.per_step_grads:
+            step_grads = self._finish_gw(gw_t)
+            step_grads["out"] = gout_t
+        return new, StepOut(lt, logits, stats, step_grads)
+
+    def _finish_gw(self, gw):
+        return SP.unflatten_flat_grads(self.cfg, self.layout,
+                                       SP.cols_to_flat(self._cl, gw))
+
+    def grads(self, carry):
+        grads = self._finish_gw(carry["gw"])
+        grads["out"] = carry["gout"]
+        return grads
+
+
+# ---------------------------------------------------------------------------
+# Stacked RTRL: the one-layer delegation
+# ---------------------------------------------------------------------------
+
+class _SingleLayerStackedLearner(_LearnerBase):
+    """Stacked L=1 delegation: the single-layer engine, with params/grads
+    re-wrapped into the stacked {'layers': [...], 'out': ...} structure."""
+
+    def __init__(self, spec: LearnerSpec, scfg: StackedEGRUConfig):
+        self.spec = spec
+        self.cfg = scfg
+        self.inner = SparseLearner(
+            dataclasses.replace(spec, engine="sparse", cfg=scfg.layer_cfg(0)))
+
+    def init(self, params, masks, batch, t_total: float = 1.0):
+        sparams = dict(params["layers"][0])
+        sparams["out"] = params["out"]
+        # memoize the single-layer mask view, so re-init with the SAME
+        # stacked masks hands the inner learner the same object
+        if masks is None:
+            self._smasks = None
+        elif getattr(self, "_smasks_src", None) is not masks:
+            self._smasks_src = masks
+            self._smasks = dict(masks[0])
+            self._smasks["out"] = None
+        return self.inner.init(sparams, self._smasks, batch, t_total)
+
+    def step(self, carry, x_t, y_t):
+        carry, out = self.inner.step(carry, x_t, y_t)
+        stats = dict(out.stats)
+        stats["alpha_layers"] = stats["alpha"][None]
+        stats["beta_layers"] = stats["beta"][None]
+        grads = out.grads
+        if grads is not None:
+            grads = self._rewrap(grads)
+        return carry, StepOut(out.loss, out.readout, stats, grads)
+
+    @staticmethod
+    def _rewrap(g):
+        return {"layers": [{k: v for k, v in g.items() if k != "out"}],
+                "out": g["out"]}
+
+    def grads(self, carry):
+        return self._rewrap(self.inner.grads(carry))
+
+    def params_of(self, carry):
+        return self._rewrap(carry["params"])
+
+    def reset_grads(self, carry, params=None):
+        if params is not None:                  # stacked -> single-layer view
+            sparams = dict(params["layers"][0])
+            sparams["out"] = params["out"]
+            params = sparams
+        return self.inner.reset_grads(carry, params)
+
+
+class StackedLearner(_LearnerBase):
+    """`repro.core.stacked_rtrl` as a streaming learner.  The port runs one
+    layer (delegated to the single-layer engine); L >= 2 is ROADMAP Queue 1
+    item 7."""
+
+    def __new__(cls, spec: LearnerSpec):
+        scfg = spec.cfg if isinstance(spec.cfg, StackedEGRUConfig) \
+            else cells.stacked_config(spec.cfg, spec.layers)
+        if scfg.n_layers == 1 and spec.delegate_single_layer:
+            return _SingleLayerStackedLearner(spec, scfg)
+        raise NotImplementedError(
+            "the stacked engine for L >= 2 (and the undelegated L = 1 block "
+            "engine) is not ported yet: ROADMAP Queue 1 item 7")
+
+
+_NOT_PORTED_ENGINES = {
+    "scaled": "ROADMAP Queue 1 item 13",
+    "diag": "ROADMAP Queue 1 item 12",
+    "diag_exact": "ROADMAP Queue 1 item 12",
+    "eprop": "ROADMAP Queue 1 item 12",
+    "snap": "ROADMAP Queue 1 item 12",
+    "bptt": "ROADMAP Queue 1 item 1 (the BPTT/jacrev oracles)",
+}
+
+ENGINES = {"sparse": SparseLearner, "stacked": StackedLearner}
+
+
+def make_learner(spec: LearnerSpec):
+    """Construct the learner named by `spec.engine`."""
+    if spec.engine in _NOT_PORTED_ENGINES:
+        raise NotImplementedError(
+            f"engine {spec.engine!r} is not ported yet: "
+            f"{_NOT_PORTED_ENGINES[spec.engine]}")
+    if spec.engine not in ENGINES:
+        raise ValueError(
+            f"engine must be one of "
+            f"{tuple(ENGINES) + tuple(_NOT_PORTED_ENGINES)}, "
+            f"got {spec.engine!r}")
+    if spec.cfg is None:
+        raise ValueError("LearnerSpec.cfg is required")
+    return ENGINES[spec.engine](spec)
+
+
+def scan_learner(learner, params: Tree, masks: Tree | None,
+                 xs: torch.Tensor, labels: torch.Tensor):
+    """Whole-sequence driver: step the learner over xs [T, B, ...] with a
+    fixed label, normalizing the per-step loss by T.  Returns (loss, grads,
+    stats) with every stat stacked over T."""
+    T = xs.shape[0]
+    carry = learner.init(params, masks, (xs[0], labels), t_total=T)
+    per_step = []
+    for t in range(T):
+        carry, out = learner.step(carry, xs[t], labels)
+        per_step.append(out.stats)
+    stats = {k: torch.stack([s[k] for s in per_step]) for k in per_step[0]}
+    return carry["loss"], learner.grads(carry), stats

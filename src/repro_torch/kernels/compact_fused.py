@@ -1,0 +1,178 @@
+"""Fused dual-compact influence update: gather + contract + Mbar + scale,
+one kernel launch per step, ragged per example.
+
+Counterpart of `repro.kernels.compact_fused`.  For example b and each live
+new row r < count_new[b]:
+
+    out[b, r, :] = hp_rows[b, r] * ( sum_{l < count_prev[b]}
+                     J-hat[b, idx_new[b, r], idx_prev[b, l]] * vals[b, l, :]
+                   + mbar_rows[b, r, :] )
+
+and rows r >= count_new[b] are exactly 0.  Accumulation is f32; the carry
+(vals, out) is f32 or bf16 and is cast once, on write.
+
+  * `fused_update` — the wrapper the engine calls.  On a CUDA tensor it
+    launches the hand-written kernel (`csrc/compact_fused.cu`, built at
+    first use by `kernels._build`) or raises; on a CPU tensor it runs
+    `fused_reference`.  `fused_update.launches` counts kernel launches.
+  * `fused_reference` — the plain PyTorch version, with the JAX oracle's
+    blockwise (bl=8) f32 accumulation and its zeroing of rows past
+    count_new.
+
+The JAX package's XLA lowering (`fused_update_blocks`, with its capacity
+ladder) has no counterpart: the plain version and the kernel fill its role.
+`capacity_ladder` and `fused_segments` are kept, built from host numpy as
+there: the learner builds the segment table at init, which checks that
+every gate's live columns are contiguous on the compact axis.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build, compact as CK
+
+# gate-segment kinds on the compact column axis (see fused_segments)
+_DIAG, _RGATE, _THETA = "diag", "r", "theta"
+
+
+def _ceil8(v: int) -> int:
+    return -(-int(v) // 8) * 8
+
+
+def capacity_ladder(K: int) -> tuple[int, ...]:
+    """Static capacity rungs: 8-aligned fractions of K (the JAX package's
+    static-shape form of the kernel's per-example row skip)."""
+    return tuple(sorted({_ceil8(K // 2), _ceil8(5 * K // 8),
+                         _ceil8(3 * K // 4), _ceil8(7 * K // 8), int(K)}))
+
+
+def fused_segments(layout, cl, layer: int = 0):
+    """Static per-gate segment table of a ColLayout's compact column axis.
+
+    Returns a tuple of (start, end, kind, coef_key, g_key, q[], j[]) with
+    the column index arrays as host numpy int32.  kind: 'diag' (u/z, rnn v),
+    'r' (the GRU r gate), 'theta' (the -I threshold block).  Raises if a
+    gate's live columns are not contiguous."""
+    from repro_torch.core import sparse_rtrl as SP     # imports this module
+    gate, layr, live, q, j = (SP._np(t) for t in
+                              (cl.gate, cl.layer, cl.live, cl.q, cl.j))
+    segs = []
+    if layout.kind == "rnn":
+        table = [(0, _DIAG, "v_diag_coef", "v_g")]
+    else:
+        gid = {g: i for i, g in enumerate(layout.gates)}
+        table = [(gid["u"], _DIAG, "u_diag_coef", "u_g"),
+                 (gid["r"], _RGATE, "r_coef", "r_g"),
+                 (gid["z"], _DIAG, "z_diag_coef", "z_g"),
+                 (SP.COL_GATE_THETA, _THETA, None, None)]
+    for g, kind, ck, gk in table:
+        sel = np.nonzero((gate == g) & (layr == layer) & (live > 0))[0]
+        if sel.size == 0:
+            continue
+        if not np.all(np.diff(sel) == 1):
+            raise ValueError(f"gate {g} columns not contiguous in ColLayout")
+        segs.append((int(sel[0]), int(sel[-1]) + 1, kind, ck, gk,
+                     q[sel].astype(np.int32), j[sel].astype(np.int32)))
+    segs.sort()
+    return tuple(segs)
+
+
+# ---------------------------------------------------------------------------
+# The plain version
+# ---------------------------------------------------------------------------
+
+def fused_reference(Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev,
+                    count_new, count_prev, *, bl: int = 8):
+    """Plain PyTorch version of the fused update, with the JAX oracle's
+    blockwise accumulation: previous rows in blocks of `bl`, ascending,
+    each block's f32 product added only if the block starts below
+    count_prev[b]; rows at or past count_new[b] zeroed.  (A trailing
+    partial block, when K % bl != 0, is summed too.)"""
+    B, K, Pc_pad = vals.shape
+    Jgg = CK.gather_j_tiles(Jhat, idx_new, idx_prev)
+    acc = torch.zeros((B, K, Pc_pad), dtype=torch.float32, device=vals.device)
+    cp = count_prev.to(vals.device)
+    for l0 in range(0, K, bl):
+        blk = torch.bmm(Jgg[:, :, l0:l0 + bl].float(),
+                        vals[:, l0:l0 + bl].float())
+        live = (l0 < cp).float()[:, None, None]
+        acc = acc + blk * live
+    out = hp_rows[:, :, None] * (acc + mbar_rows.float())
+    krow = torch.arange(K, device=vals.device)[None, :, None]
+    keep = krow < count_new.clamp(max=K)[:, None, None]
+    out = torch.where(keep, out, 0.0)
+    return out.to(vals.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The wrapper: the CUDA kernel on the card, the plain version on the CPU
+# ---------------------------------------------------------------------------
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(name, t, dtype, shape):
+    if t.dtype != dtype:
+        raise TypeError(f"fused_update: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"fused_update: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"fused_update: {name} must be contiguous")
+
+
+def fused_update(Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev,
+                 count_new, count_prev):
+    """One fused dual-compact influence update.
+
+    Jhat [B, n, n] f32 dense step Jacobian; vals [B, K, Pc] compact carry
+    (f32 or bf16); mbar_rows [B, K, Pc] f32 M-bar at the new active rows
+    (hp-ungated); hp_rows [B, K] f32 with dead slots zeroed; idx_new /
+    idx_prev [B, K] int32 (-1 sentinel); count_new / count_prev [B] int32.
+    Returns the new carry [B, K, Pc] in vals.dtype.
+
+    CPU tensors go to `fused_reference`; CUDA tensors launch the kernel
+    (one launch, counted in `fused_update.launches`) or raise."""
+    if vals.device.type == "cpu":
+        return fused_reference(Jhat, vals, mbar_rows, hp_rows, idx_new,
+                               idx_prev, count_new, count_prev)
+    if vals.device.type != "cuda":
+        raise ValueError(f"fused_update: no kernel for device {vals.device}")
+    B, K, Pc = vals.shape
+    n = Jhat.shape[-1]
+    if vals.dtype not in _DTYPE_CODE:
+        raise TypeError(f"fused_update: carry dtype {vals.dtype} not in "
+                        f"{tuple(_DTYPE_CODE)}")
+    _check("vals", vals, vals.dtype, (B, K, Pc))
+    _check("Jhat", Jhat, torch.float32, (B, n, n))
+    _check("mbar_rows", mbar_rows, torch.float32, (B, K, Pc))
+    _check("hp_rows", hp_rows, torch.float32, (B, K))
+    for name, t, shape in (("idx_new", idx_new, (B, K)),
+                           ("idx_prev", idx_prev, (B, K)),
+                           ("count_new", count_new, (B,)),
+                           ("count_prev", count_prev, (B,))):
+        _check(name, t, torch.int32, shape)
+    args = (Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev, count_new,
+            count_prev)
+    if any(t.device != vals.device for t in args):
+        raise ValueError("fused_update: all operands must be on one device")
+    out = torch.empty_like(vals)
+    lib = _build.load("compact_fused")
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    with torch.cuda.device(vals.device):
+        err = lib.repro_fused_update(
+            _DTYPE_CODE[vals.dtype],
+            *(ctypes.c_void_p(t.data_ptr()) for t in args),
+            ctypes.c_void_p(out.data_ptr()), B, n, K, Pc,
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"fused_update: kernel launch failed: "
+                           f"{_build.error_string(lib, err)}")
+    fused_update.launches += 1
+    return out
+
+
+fused_update.launches = 0

@@ -1,0 +1,4 @@
+"""Optimizers of the port (counterpart of `repro.optim`)."""
+from repro_torch.optim.optimizers import Optimizer, adamw, make_optimizer, masked
+
+__all__ = ["Optimizer", "adamw", "make_optimizer", "masked"]

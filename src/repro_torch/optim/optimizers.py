@@ -1,0 +1,100 @@
+"""Optimizers as pure tree transforms on parameter dicts, in PyTorch.
+
+Counterpart of `repro.optim.optimizers` (adamw and the fixed-mask wrapper;
+lion, adafactor, sgdm and the dynamic mask are ROADMAP Queue 1 items 8 and
+14).  An :class:`Optimizer` is (init, update):
+
+    state            = opt.init(params)
+    params', state'  = opt.update(grads, state, params, step)
+
+Updates return new tensors; nothing is modified in place.  ``step`` is the
+integer update count.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.tree import apply_mask_tree, tree_map
+
+Tree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Tree], Tree]
+    update: Callable[[Tree, Tree, Tree, int], tuple[Tree, Tree]]
+
+
+def _ipow1(base: float, step: int) -> np.float32:
+    """``base ** (step + 1)`` in float32 for an integer update count, by
+    binary exponentiation (31 multiply/selects), kept as the JAX package
+    writes it so both round identically.  The count is a host integer, so
+    the 31 rounds run on the host and cost no device launches."""
+    e = int(step) + 1
+    acc = np.float32(1.0)
+    b = np.float32(base)
+    for _ in range(31):
+        if e & 1:
+            acc = np.float32(acc * b)
+        b = np.float32(b * b)
+        e >>= 1
+    return acc
+
+
+def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
+    def init(params):
+        return {"m": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                              params),
+                "v": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                              params)}
+
+    def update(grads, state, params, step):
+        c1 = float(np.float32(1.0) - _ipow1(b1, step))
+        c2 = float(np.float32(1.0) - _ipow1(b2, step))
+
+        def leaf(g, m, v, p):
+            g = g.float()
+            m_new = b1 * m + (1 - b1) * g
+            v_new = b2 * v + (1 - b2) * g.square()
+            upd = (m_new / c1) / ((v_new / c2).sqrt() + eps)
+            if weight_decay:
+                upd = upd + weight_decay * p.float()
+            p_new = p.float() - lr * upd
+            return p_new.to(p.dtype), m_new, v_new
+
+        out = tree_map(leaf, grads, state["m"], state["v"], params)
+        return _pick(out, 0), {"m": _pick(out, 1), "v": _pick(out, 2)}
+
+    return Optimizer(init, update)
+
+
+def _pick(tree, i):
+    """Component i of a tree whose leaves are tuples."""
+    if isinstance(tree, dict):
+        return {k: _pick(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_pick(v, i) for v in tree]
+    return tree[i]
+
+
+def masked(opt: Optimizer, mask: Tree) -> Optimizer:
+    """Zero both gradients and updates where mask == 0 (pruned weights stay
+    pruned and their optimizer state stays zero)."""
+    def update(grads, state, params, step):
+        p_new, s_new = opt.update(apply_mask_tree(mask, grads), state,
+                                  params, step)
+        return apply_mask_tree(mask, p_new), s_new
+
+    return Optimizer(opt.init, update)
+
+
+def make_optimizer(name: str, lr=None, **kw) -> Optimizer:
+    if name == "adamw":
+        return adamw(lr if lr is not None else 1e-3, **kw)
+    raise NotImplementedError(
+        f"optimizer {name!r} is not ported yet (ROADMAP Queue 1 item 14); "
+        "the port has 'adamw'")

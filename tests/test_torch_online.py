@@ -1,0 +1,308 @@
+"""The port's learners, optimizer, online trainer and launcher held against
+the JAX package on the same numpy params, masks and stream.
+
+Tolerances: window gradients and losses agree to 1e-5 of each leaf's
+largest magnitude (float32 sums over 8 steps, associated differently by
+the two libraries); the optimizer's bias-correction scalars and the stream
+agree exactly.  The Heaviside gate makes long trajectories chaotic under
+round-off, so trajectories are compared over 3 updates only.
+"""
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import cells as JC, learner as JL, sparse_rtrl as JSP
+from repro.optim import optimizers as JO
+from repro.runtime import online as JON
+from repro_torch.core import cells as C
+from repro_torch.core.learner import LearnerSpec, make_learner, scan_learner
+from repro_torch.launch import train as TRAIN
+from repro_torch.optim import optimizers as O
+from repro_torch.runtime import online as ON
+from repro_torch.weights import masks_from_numpy, params_from_numpy, to_numpy
+
+REL = 1e-5
+
+
+def _tree_np(t):
+    return jax.tree.map(np.asarray, t)
+
+
+def _assert_trees_close(got, want):
+    got = jax.tree.leaves(to_numpy(got))
+    want = jax.tree.leaves(_tree_np(want))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        scale = max(float(np.abs(w).max()), 1e-3)
+        np.testing.assert_allclose(g, w, rtol=0, atol=REL * scale)
+
+
+def _spiral_setup(stacked, B=8, k=8, seed=0):
+    """JAX-drawn params and masks (sparsity 0.8) of the spiral EGRU, as
+    numpy; a window of k steps with per-example input scales (ragged
+    activity)."""
+    jcfg = JC.EGRUConfig(n_hidden=16, n_in=2, n_out=2, batch_size=B)
+    cfg = C.EGRUConfig(n_hidden=16, n_in=2, n_out=2, batch_size=B)
+    if stacked:
+        jcfg, cfg = JC.stacked_config(jcfg, 1), C.stacked_config(cfg, 1)
+        params = JC.init_stacked_params(jcfg, jax.random.key(seed))
+        from repro.core import stacked_rtrl as JST
+        masks = JST.make_stacked_masks(jcfg, jax.random.key(seed + 1), 0.8)
+        params = JST.apply_stacked_masks(params, masks)
+    else:
+        params = JC.init_params(jcfg, jax.random.key(seed))
+        masks = JSP.make_masks(jcfg, jax.random.key(seed + 1), 0.8)
+        params = JSP.apply_masks(params, masks)
+    rng = np.random.default_rng(seed)
+    xs = (rng.normal(size=(k, B, 2))
+          * np.linspace(0.5, 2.5, B)[None, :, None]).astype(np.float32)
+    ys = np.broadcast_to(rng.integers(0, 2, B).astype(np.int32), (k, B))
+    return jcfg, cfg, _tree_np(params), _tree_np(masks), xs, np.array(ys)
+
+
+def _port_masks(masks_np):
+    if isinstance(masks_np, list):
+        return [masks_from_numpy(m, "cpu") for m in masks_np]
+    return masks_from_numpy(masks_np, "cpu")
+
+
+@pytest.mark.parametrize("engine,backend,dtype,col_compact", [
+    (e, b, d, c) for e in ("sparse", "stacked")
+    for b, d, c in (("compact", "float32", None),
+                    ("compact_fused", "float32", None),
+                    ("compact_fused", "bfloat16", None))
+] + [("sparse", "compact", "float32", False)])
+def test_window_grads_match_reference(engine, backend, dtype, col_compact):
+    stacked = engine == "stacked"
+    jcfg, cfg, params, masks, xs, ys = _spiral_setup(stacked)
+    jl = JL.make_learner(JL.LearnerSpec(
+        engine=engine, cfg=jcfg, backend=backend, influence_dtype=dtype,
+        col_compact=col_compact))
+    jc = jl.init(jax.tree.map(jnp.asarray, params),
+                 jax.tree.map(jnp.asarray, masks),
+                 (jnp.asarray(xs[0]), jnp.asarray(ys[0])), t_total=8.0)
+    jc, jloss, jgrads, jstats = JON.stream_grads(jl, jc, jnp.asarray(xs),
+                                                 jnp.asarray(ys))
+    tl = make_learner(LearnerSpec(engine=engine, cfg=cfg, backend=backend,
+                                  influence_dtype=dtype,
+                                  col_compact=col_compact))
+    tc = tl.init(params_from_numpy(params, "cpu"), _port_masks(masks),
+                 (torch.from_numpy(xs[0]), torch.from_numpy(ys[0])),
+                 t_total=8.0)
+    tc, tloss, tgrads, tstats = ON.stream_grads(tl, tc, torch.from_numpy(xs),
+                                                torch.from_numpy(ys))
+    assert float(tloss) == pytest.approx(float(jloss), rel=REL)
+    if dtype == "float32":
+        _assert_trees_close(tgrads, jgrads)
+    else:   # bf16 carries round at the same points; bound by bf16 steps
+        for g, w in zip(jax.tree.leaves(to_numpy(tgrads)),
+                        jax.tree.leaves(_tree_np(jgrads))):
+            scale = max(float(np.abs(w).max()), 1e-3)
+            np.testing.assert_allclose(g, w, rtol=0, atol=2.0 ** -7 * scale)
+    np.testing.assert_array_equal(to_numpy(tstats["overflow"]),
+                                  np.asarray(jstats["overflow"]))
+    for key in ("alpha", "beta", "m_row_density"):
+        np.testing.assert_allclose(to_numpy(tstats[key]),
+                                   np.asarray(jstats[key]), rtol=1e-6)
+    if stacked:
+        assert tuple(tstats["alpha_layers"].shape) == (8, 1)
+    np.testing.assert_array_equal(to_numpy(tc["idx"]), np.asarray(jc["idx"]))
+
+
+def test_scan_learner_is_the_stream_path_bitwise():
+    _, cfg, params, masks, xs, ys = _spiral_setup(False)
+    spec = LearnerSpec(engine="sparse", cfg=cfg, backend="compact_fused",
+                       per_step_grads=True)
+    loss, grads, stats = scan_learner(
+        make_learner(spec), params_from_numpy(params, "cpu"),
+        _port_masks(masks), torch.from_numpy(xs), torch.from_numpy(ys[0]))
+    tl = make_learner(spec)
+    c = tl.init(params_from_numpy(params, "cpu"), _port_masks(masks),
+                (torch.from_numpy(xs[0]), torch.from_numpy(ys[0])),
+                t_total=8.0)
+    summed = None
+    for t in range(8):
+        c, out = tl.step(c, torch.from_numpy(xs[t]), torch.from_numpy(ys[0]))
+        summed = out.grads if summed is None else jax.tree.map(
+            lambda a, b: a + b, summed, out.grads)
+    assert float(loss) == float(c["loss"])
+    for a, b in zip(jax.tree.leaves(to_numpy(grads)),
+                    jax.tree.leaves(to_numpy(tl.grads(c)))):
+        np.testing.assert_array_equal(a, b)
+    _assert_trees_close(summed, to_numpy(grads))
+
+
+def test_unported_engines_and_backends_raise():
+    cfg = C.EGRUConfig()
+    for engine in ("scaled", "diag_exact", "eprop", "snap", "bptt"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_learner(LearnerSpec(engine=engine, cfg=cfg))
+    for backend in ("dense", "pallas"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_learner(LearnerSpec(engine="sparse", cfg=cfg,
+                                     backend=backend))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        make_learner(LearnerSpec(engine="stacked", cfg=cfg, layers=2,
+                                 backend="compact"))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        make_learner(LearnerSpec(engine="sparse", cfg=cfg,
+                                 backend="compact", rewirable=True))
+    with pytest.raises(ValueError):
+        make_learner(LearnerSpec(engine="nope", cfg=cfg))
+    fused = make_learner(LearnerSpec(engine="sparse", cfg=cfg,
+                                     backend="compact_fused",
+                                     col_compact=False))
+    p = C.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="column-compact"):
+        fused.init(p, None, (torch.zeros(2, 2), torch.zeros(2)), 8.0)
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+# ---------------------------------------------------------------------------
+
+def test_ipow1_bitwise_and_adamw_masked_match_reference():
+    for b in (0.9, 0.95, 0.999):
+        for s in (0, 1, 2, 7, 100, 12345):
+            assert O._ipow1(b, s) == np.asarray(JO._ipow1(b, jnp.int32(s)))
+    rng = np.random.default_rng(0)
+    params = {"a": {"W": rng.normal(size=(3, 4)).astype(np.float32)},
+              "layers": [{"b": rng.normal(size=(5,)).astype(np.float32)}],
+              "out": {"W": rng.normal(size=(4, 2)).astype(np.float32)}}
+    mask = {"a": {"W": (rng.random((3, 4)) > 0.5).astype(np.float32)},
+            "layers": [{"b": np.ones(5, np.float32)}], "out": None}
+    jopt = JO.masked(JO.adamw(5e-3), jax.tree.map(jnp.asarray, mask))
+    topt = O.masked(O.make_optimizer("adamw", lr=5e-3),
+                    masks_from_numpy(mask, "cpu"))
+    jp = jax.tree.map(jnp.asarray, params)
+    tp = params_from_numpy(params, "cpu")
+    js, ts = jopt.init(jp), topt.init(tp)
+    for step in range(3):
+        g = jax.tree.map(lambda a: rng.normal(size=a.shape).astype(np.float32),
+                         params)
+        jp, js = jopt.update(jax.tree.map(jnp.asarray, g), js, jp,
+                             jnp.int32(step))
+        tp, ts = topt.update(params_from_numpy(g, "cpu"), ts, tp, step)
+    _assert_trees_close(tp, jp)
+    _assert_trees_close(ts, js)
+    assert (to_numpy(tp)["a"]["W"][mask["a"]["W"] == 0] == 0).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        O.make_optimizer("lion")
+
+
+# ---------------------------------------------------------------------------
+# the launcher and the online trainer
+# ---------------------------------------------------------------------------
+
+class _Captured(Exception):
+    pass
+
+
+@pytest.fixture(scope="module")
+def jax_launcher_run():
+    """What the JAX launcher hands its OnlineTrainer for `--arch egru-spiral
+    --online --rtrl-backend compact_fused --sparsity 0.8`: the stream, the
+    params, the masks, the learner and the optimizer."""
+    from repro.launch import train as JTRAIN
+    captured = {}
+
+    def fake_trainer(ocfg, learner, opt, params, masks, stream, **kw):
+        captured.update(ocfg=ocfg, learner=learner, opt=opt, params=params,
+                        masks=masks, stream=stream)
+        raise _Captured
+
+    argv = ["train", "--arch", "egru-spiral", "--online", "--rtrl-backend",
+            "compact_fused", "--sparsity", "0.8", "--seed", "0"]
+    mp = pytest.MonkeyPatch()
+    mp.setattr(JON, "OnlineTrainer", fake_trainer)
+    mp.setattr(sys, "argv", argv)
+    try:
+        with pytest.raises(_Captured):
+            JTRAIN.main()
+    finally:
+        mp.undo()
+    return captured
+
+
+def test_launcher_stream_array_equal(jax_launcher_run):
+    jstream = jax_launcher_run["stream"]
+    stream = TRAIN.make_stream(C.stacked_config(C.EGRUConfig(), 1), seed=0)
+    for t in (0, 1, 16, 17, 40, 1000):
+        x, y = stream(t)
+        jx, jy = jstream(t)
+        np.testing.assert_array_equal(x, jx)
+        np.testing.assert_array_equal(y, jy)
+    other = TRAIN.make_stream(C.stacked_config(C.EGRUConfig(), 1), seed=1)
+    assert not np.array_equal(other(0)[0], stream(0)[0])
+
+
+def test_online_trainer_losses_match_reference(jax_launcher_run):
+    """3 updates of k=8 from the JAX launcher's params and masks."""
+    run = jax_launcher_run
+    ocfg = JON.OnlineTrainerConfig(total_steps=24, update_every=8,
+                                   ckpt_every=0, log_every=1)
+    jtr = JON.OnlineTrainer(ocfg, run["learner"], run["opt"], run["params"],
+                            run["masks"], run["stream"])
+    jout = jtr.run()
+    masks = _port_masks(_tree_np(run["masks"]))
+    params = params_from_numpy(_tree_np(run["params"]), "cpu")
+    cfg = C.stacked_config(C.EGRUConfig(), 1)
+    learner = make_learner(LearnerSpec(engine="stacked", cfg=cfg,
+                                       backend="compact_fused"))
+    opt = O.masked(O.make_optimizer("adamw", lr=cfg.lr),
+                   {"layers": masks, "out": None})
+    tr = ON.OnlineTrainer(
+        ON.OnlineTrainerConfig(total_steps=24, update_every=8, log_every=1),
+        learner, opt, params, masks, TRAIN.make_stream(cfg, 0), device="cpu")
+    out = tr.run()
+    assert (out["updates"], out["final_step"]) == (3, 24)
+    assert out["carry_bytes"] == jout["carry_bytes"]
+    jl = [m["loss"] for m in jout["metrics"]]
+    tl = [m["loss"] for m in out["metrics"]]
+    np.testing.assert_allclose(tl, jl, rtol=REL)
+    assert all(m["overflow"] == 0 for m in out["metrics"])
+    for key in ("alpha", "beta"):
+        np.testing.assert_allclose([m[key] for m in out["metrics"]],
+                                   [m[key] for m in jout["metrics"]],
+                                   rtol=1e-6)
+    _assert_trees_close(learner.params_of(tr.carry),
+                        run["learner"].params_of(jtr.carry))
+
+
+def test_launcher_runs_on_cpu_when_asked(capsys):
+    out = TRAIN.main(["--arch", "egru-spiral", "--online", "--rtrl-backend",
+                      "compact_fused", "--sparsity", "0.8", "--device", "cpu",
+                      "--smoke", "--steps", "20", "--update-every", "2"])
+    s = out["summary"]
+    assert (s["updates"], s["final_step"]) == (12, 24)   # --smoke caps at 12
+    assert np.isfinite([s["first_loss"], s["final_loss"]]).all()
+    assert s["overflow"] == 0 and s["device"] == "cpu"
+    assert '"backend": "compact_fused"' in capsys.readouterr().out
+
+
+def test_launcher_raises_without_cuda_unless_cpu_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TRAIN.main(["--arch", "egru-spiral", "--online", "--sparsity", "0.8",
+                    "--steps", "1"])
+
+
+@pytest.mark.parametrize("extra", [
+    ["--layers", "2"], ["--guard"], ["--rewire", "rigl"],
+    ["--metrics-dir", "m"], ["--ckpt-every", "5"], ["--fail-at", "3"],
+    ["--rtrl-backend", "dense"], ["--rtrl-backend", "pallas"],
+    ["--arch", "yi-6b"]])
+def test_launcher_rejects_later_slices(extra):
+    with pytest.raises(SystemExit, match="not ported yet"):
+        TRAIN.main(["--arch", "egru-spiral", "--online", "--device", "cpu",
+                    *extra])
+
+
+def test_launcher_rejects_offline_mode():
+    with pytest.raises(SystemExit, match="--online"):
+        TRAIN.main(["--arch", "egru-spiral", "--device", "cpu"])

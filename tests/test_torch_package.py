@@ -1,0 +1,83 @@
+"""Package hygiene of the port: `repro_torch` imports neither `jax` nor
+anything of `repro`, builds no kernel at import, and its entry points run
+on the CPU only when asked."""
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_importing_every_module_pulls_in_no_jax_and_no_repro():
+    code = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               'repro_torch.')]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'
+             or m == 'repro' or m.startswith('repro.'))
+print(len(names), bad)
+assert not bad, bad
+from repro_torch.kernels import _build
+assert not _build._loaded, 'a kernel was built or loaded at import'
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    n_modules = int(r.stdout.split()[0])
+    assert n_modules >= 20
+
+
+def test_package_mirrors_reference_module_paths():
+    import repro_torch
+    ported = {m.name.replace("repro_torch.", "repro.", 1)
+              for m in pkgutil.walk_packages(repro_torch.__path__,
+                                             "repro_torch.")}
+    own = {"repro.device", "repro.tree", "repro.weights",
+           "repro.kernels._build"}
+    for name in sorted(ported - own):
+        rel = Path(*name.split("."))
+        assert (SRC / rel).is_dir() or (SRC / rel.with_suffix(".py")).is_file(), \
+            f"{name} has no counterpart in the JAX package"
+
+
+def test_entry_point_raises_without_cuda():
+    """`python -m repro_torch.launch.train` with no --device needs a card:
+    without one it raises instead of running on the CPU."""
+    code = """
+import torch
+torch.cuda.is_available = lambda: False
+from repro_torch.launch import train
+try:
+    train.main(['--arch', 'egru-spiral', '--online', '--sparsity', '0.8',
+                '--steps', '1'])
+except RuntimeError as e:
+    print('raised:', e)
+else:
+    raise SystemExit('ran without CUDA')
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "raised: CUDA is not available" in r.stdout
+
+
+def test_resolve_device_only_cpu_when_named(monkeypatch):
+    import torch
+    from repro_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert resolve_device("cpu") == torch.device("cpu")
+    for dev in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device(dev)
