@@ -8,7 +8,8 @@ package (`src/repro`), and it has no CPU path: without CUDA, or outside a
 checkout, it exits non-zero and prints no result.  Phases:
 
   1. device: the card's name and power limit (nvidia-smi), then every
-     kernel of the port built from the sources in the checkout;
+     kernel of the port built from the sources in the checkout (one nvcc
+     per source, all at once);
   2. K1 (`kernels/compact_fused.py::fused_update`, the CUDA kernel) against
      its plain PyTorch version on the card, f32 and bf16 carries, at (a)
      the main path's shapes with operands from a real step, (b) n=256,
@@ -17,20 +18,33 @@ checkout, it exits non-zero and prints no result.  Phases:
      zero.  Times at (a) and (b): kernel, plain version, the bound, and as
      `library_ms` a torch.baddbmm on pre-gathered tiles (a partial
      yardstick the port never calls);
-  3. the main path: `repro_torch.launch.train --arch egru-spiral --online
-     --rtrl-backend compact_fused --sparsity 0.8 --update-every 8 --steps
-     20` on the card, in-process, with K1's launch count read just after;
-     then the same seed with the `compact` backend (torch ops, no kernel),
-     whose first window's loss and gradients must agree with the fused
-     run's, and with the plain run on the CPU; then a torch.profiler trace
-     of two more windows (device busy share, launches per step);
-  4. one JSON line {"kernels": [...]} for every ported kernel, then the
+  3. K2 (`kernels/influence.py::influence_update`, the CUDA kernel) against
+     its plain version, at (a) the pallas main path's shapes with operands
+     from a real step, full width (P_pad=1024) and column-compact
+     (Pc_pad=256), (b) n=256, P=20864, B=4 with all four block skips in
+     play, (c) edge cases (padding, a dead example, M all zero, no masks).
+     Dead row and column blocks must be exactly zero, and the kernel's
+     executed-block counter must equal `realized_block_savings` times the
+     block count.  Times at (a) and (b): kernel, plain version, the bound,
+     and as `library_ms` torch.baddbmm(M-bar, J-hat, M) with TF32 off;
+  4. the main paths: `repro_torch.launch.train --arch egru-spiral --online
+     --rtrl-backend B --sparsity 0.8 --update-every 8 --steps 20` on the
+     card, in-process, for B = compact_fused (K1 launches counted), pallas
+     (K2 launches counted), dense and compact, each with both counts set
+     to 0 just before and read just after; then the first window's loss
+     and gradients of every backend on the card, of pallas and compact on
+     the CPU and of the BPTT oracle on the card must agree; then a
+     torch.profiler trace of two more windows of compact_fused and of
+     pallas (device busy share, launches per step);
+  5. one JSON line {"kernels": [...]} for every ported kernel, then the
      result line {"ok": true, "device": {...}}.
 
 Tolerances: a float32 kernel result is within 1e-5 of the largest
 magnitude of the plain version's (the sums associate differently); a bf16
 result within one bf16 rounding step (2^-7 relative) more.  Window
-gradients across backends and devices: 1e-5 of each leaf's largest entry.
+gradients across backends, devices and BPTT: 1e-5 of each leaf's largest
+entry (BPTT on the surviving parameters: it also gives the pruned ones a
+gradient, which the masked optimizer drops).
 """
 import json
 import math
@@ -202,7 +216,172 @@ def main_path_operands(torch, TRAIN, SP, ON, dev, steps=5):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phase 3: K2 against its plain version
+# ---------------------------------------------------------------------------
+
+def k2_masks(ops):
+    return dict(row_mask=ops[4], prev_mask=ops[5], col_mask=ops[6],
+                jmask=ops[7])
+
+
+def k2_bound(torch, ops):
+    """Least time (ms) for the block-sparse update on these padded
+    operands: the bytes it must move over HBM bandwidth — the live rows of
+    M at live columns, the live blocks of M-bar, the J tiles of executed
+    blocks, hp, and the whole output written — against 2*8*8*128 f32 FLOP
+    per executed (b, kb, lb, pb) block over the CUDA-core peak."""
+    from repro_torch.kernels import influence as IN
+    hp, J, M, Mbar, row, prev, cols, jm = ops
+    B, n_p, P_p = M.shape
+    row, prev, jm = ((t != 0).double().cpu() for t in (row, prev, jm))
+    live_cols = float((cols != 0).sum()) * IN.BP
+    pairs = torch.einsum("bk,bl,kl->bkl", row, prev, jm)   # executed (kb, lb)
+    m_rows = float((pairs.sum(dim=1) > 0).sum()) * IN.BL   # rows of M used
+    out_rows = float(row.sum()) * IN.BK
+    nbytes = (m_rows * live_cols * 4 + out_rows * live_cols * 4
+              + float(pairs.sum()) * IN.BK * IN.BL * 4 + out_rows * 4
+              + B * n_p * P_p * 4)
+    blocks = int(IN.executed_blocks(*(ops[4:])))
+    flops = float(blocks) * 2 * IN.BK * IN.BL * IN.BP
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by, nbytes, flops
+
+
+def compare_k2(torch, IN, OPS, unpadded, label):
+    """Kernel vs plain version on the card, dead blocks exactly zero, and
+    the executed-block counter against realized_block_savings.  Returns
+    (max abs error, padded operands)."""
+    ops = OPS.influence_operands(*unpadded)
+    masks = k2_masks(ops)
+    count = torch.zeros(1, dtype=torch.int64, device=ops[2].device)
+    out = IN.influence_update(*ops[:4], **masks, block_count=count)
+    torch.cuda.synchronize()                    # a fault surfaces here
+    ref = IN.influence_reference(*ops[:4], **masks)
+    check(out.dtype == torch.float32 and out.shape == ops[2].shape,
+          f"K2 {label}: output {out.dtype} {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), f"K2 {label}: non-finite output")
+    err = float((out - ref).abs().max())
+    scale = max(float(ref.abs().max()), 1.0)
+    check(err <= F32_REL * scale, f"K2 {label}: kernel vs plain max abs err "
+                                  f"{err:.3e} (scale {scale:.3e})")
+    live = (ops[4] != 0).repeat_interleave(IN.BK, 1)[:, :, None] \
+        & (ops[6] != 0).repeat_interleave(IN.BP)
+    check(bool((out[~live] == 0).all()),
+          f"K2 {label}: dead row/column blocks not exactly zero")
+    B = ops[2].shape[0]
+    total = B * ops[4].shape[1] * ops[5].shape[1] * ops[6].shape[0]
+    hp, _, M, _, jmask, col_mask = unpadded
+    expect = OPS.realized_block_savings(hp, M, jmask, col_mask) * total
+    check(abs(expect - round(expect)) < 1e-6 and int(count) == round(expect),
+          f"K2 {label}: executed blocks {int(count)} vs "
+          f"realized_block_savings x blocks {expect}")
+    log(f"K2 {label}: B={B} n_p={ops[2].shape[1]} P_p={ops[2].shape[2]}, "
+        f"max_abs_err {err:.3e} (scale {scale:.3e}), dead blocks exactly 0: "
+        f"{int((~live).sum())} elements, executed blocks {int(count)} of "
+        f"{total} = realized_block_savings {expect / total:.6f}")
+    return err, ops
+
+
+def time_k2(torch, IN, ops, iters):
+    """(kernel ms, plain ms, library ms, bound ms, bound_by)."""
+    masks = k2_masks(ops)
+    ms = time_ms(torch, lambda: IN.influence_update(*ops[:4], **masks), iters)
+    plain = time_ms(torch, lambda: IN.influence_reference(*ops[:4], **masks),
+                    max(iters // 10, 3))
+    hp, J, M, Mbar = ops[:4]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib = time_ms(torch, lambda: torch.baddbmm(Mbar, J, M), iters)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    bound, by, nbytes, flops = k2_bound(torch, ops)
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "flops": flops}
+
+
+def k2_main_operands(torch, TRAIN, SP, ON, dev, *extra, steps=5):
+    """K2's unpadded operands (hp, J-hat, M, M-bar, jmask, col_mask) at a
+    live step of the pallas main path: the launcher's run (same seed),
+    stepped a few times from init, then the next step's operands."""
+    run = TRAIN.build_online(TRAIN.parse_args(main_argv("pallas", *extra)))
+    cfg, learner = run["cfg"], run["learner"]
+    xs, ys = stream_window(torch, run, steps + 1)
+    carry = learner.init(run["params"], run["masks"], (xs[0], ys[0]),
+                         t_total=8.0)
+    carry, _, _, _ = ON.stream_grads(learner, carry, xs[:steps], ys[:steps])
+    lcfg, masks = cfg.layer_cfg(0), run["masks"][0]
+    layout = SP.flat_layout(lcfg)
+    compact = carry["M"].shape[-1] != layout.P_pad
+    cl = SP.col_layout(layout, masks, device=dev) if compact else None
+    w = {k: v for k, v in carry["params"].items() if k != "out"}
+    _, _, ops = SP.pallas_step_operands(
+        lcfg, w, layout, carry["a"], carry["M"], xs[steps], cl=cl,
+        col_mask=SP.flat_col_mask(layout, masks, device=dev),
+        jmask=SP.flat_jmask(lcfg, masks))
+    return list(ops)
+
+
+def k2_synthetic(torch, dev, seed=1):
+    """(b): B=4, n=256, P=20864 (K1's (b) width) with live new-row blocks
+    32/18/12/1 and previous-row blocks 32/13/19/8 of 32, the J pattern and
+    the column blocks at block density 0.5 (the J pattern asymmetric)."""
+    B, n, P = 4, 256, 20864
+    nb, npb = n // 8, P // 128
+    g = torch.Generator().manual_seed(seed)
+
+    def some_blocks(counts):
+        m = torch.zeros((B, nb), dtype=torch.bool)
+        for b, c in enumerate(counts):
+            m[b, torch.randperm(nb, generator=g)[:c]] = True
+        return m.repeat_interleave(8, 1).to(dev)
+
+    rows, prev = some_blocks([32, 18, 12, 1]), some_blocks([32, 13, 19, 8])
+    jb = torch.rand((nb, nb), generator=g) < 0.5
+    jb[0, nb - 1], jb[nb - 1, 0] = True, False
+    jmask = jb.repeat_interleave(8, 0).repeat_interleave(8, 1).float().to(dev)
+    col_mask = (torch.rand((npb,), generator=g) < 0.5).repeat_interleave(
+        128).float().to(dev)
+    gd = torch.Generator(device=dev).manual_seed(seed)
+    hp = torch.rand((B, n), generator=gd, device=dev) * rows
+    Jhat = torch.randn((B, n, n), generator=gd, device=dev) * jmask.T
+    M = torch.randn((B, n, P), generator=gd, device=dev)
+    M *= prev[:, :, None]
+    M *= col_mask
+    Mbar = torch.randn((B, n, P), generator=gd, device=dev)
+    Mbar *= col_mask
+    return [hp, Jhat, M, Mbar, jmask, col_mask]
+
+
+def k2_edges(torch, dev, seed=2):
+    """(c): n=20 and P=130 (padded to 24 and 256): a masked case with an
+    example whose rows are all dead, and the first step (M all zero) with
+    neither jmask nor col_mask."""
+    g = torch.Generator().manual_seed(seed)
+    B, n, P = 3, 20, 130
+    hp = torch.rand((B, n), generator=g)
+    hp[torch.rand((B, n), generator=g) < 0.3] = 0.0
+    hp[-1] = 0.0
+    Jhat = torch.randn((B, n, n), generator=g)
+    M = torch.randn((B, n, P), generator=g)
+    M[torch.rand((B, n), generator=g) < 0.3] = 0.0
+    Mbar = torch.randn((B, n, P), generator=g)
+    jb = torch.rand((3, 3), generator=g) < 0.5
+    jb[0, 2], jb[2, 0] = True, False
+    jmask = jb.repeat_interleave(8, 0).repeat_interleave(8, 1)[:n, :n].float()
+    col_mask = (torch.rand((P,), generator=g) < 0.5).float()
+    masked = [hp, Jhat * jmask.T, M * col_mask, Mbar * col_mask, jmask,
+              col_mask]
+    first = [torch.rand((B, n), generator=g), Jhat, torch.zeros_like(M),
+             Mbar, None, None]
+    to = lambda ops: [None if t is None else t.to(dev) for t in ops]
+    return to(masked), to(first)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main paths
 # ---------------------------------------------------------------------------
 
 def stream_window(torch, run, k):
@@ -223,9 +402,38 @@ def first_window_grads(torch, TRAIN, ON, backend, *extra):
     return float(loss), grads
 
 
-def compare_grads(tree_leaves, a, b, label):
+def tree_items(tree, prefix=""):
+    """(path, leaf) pairs of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return [i for k, v in tree.items() for i in tree_items(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [i for k, v in enumerate(tree)
+                for i in tree_items(v, f"{prefix}/{k}")]
+    return [] if tree is None else [(prefix, tree)]
+
+
+def bptt_first_window(torch, TRAIN, BP, ST):
+    """The BPTT oracle's loss and gradients on the main path's first window
+    (same seed, params, masks, 8 steps and label) on the card, the pruned
+    parameters' gradients masked as the optimizer masks them."""
+    run = TRAIN.build_online(TRAIN.parse_args(main_argv("dense")))
+    xs, ys = stream_window(torch, run, 8)
+    check(bool((ys == ys[0]).all()), "first window spans two sequences")
+    params, cfg = run["params"], run["cfg"]
+    single = dict(params["layers"][0], out=params["out"])
+    loss, g, _ = BP.bptt_loss_and_grads(cfg.layer_cfg(0), single, xs, ys[0])
+    grads = {"layers": [{k: v for k, v in g.items() if k != "out"}],
+             "out": g["out"]}
+    return float(loss), ST.apply_stacked_masks(grads, run["masks"])
+
+
+def compare_grads(a, b, label):
     worst = 0.0
-    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+    ia, ib = tree_items(a), tree_items(b)
+    check([k for k, _ in ia] == [k for k, _ in ib],
+          f"{label}: gradient trees differ: {[k for k, _ in ia]} vs "
+          f"{[k for k, _ in ib]}")
+    for (_, x), (_, y) in zip(ia, ib):
         x, y = x.double().cpu(), y.double().cpu()
         scale = max(float(y.abs().max()), 1e-3)
         err = float((x - y).abs().max())
@@ -235,15 +443,17 @@ def compare_grads(tree_leaves, a, b, label):
     log(f"first-window gradients {label}: max rel err {worst:.3e}")
 
 
-def trace_main_path(torch, TRAIN, ON, warm=2, traced=2, k=8):
+def trace_main_path(torch, TRAIN, ON, backend, kernel, warm=2, traced=2,
+                    k=8):
     """Where a main-path window's time goes: a torch.profiler trace of
     `traced` windows after `warm` untraced ones, in a run of its own (the
     window times come from the untraced run).  Reports device kernels per
     stream step, the device's busy and idle share of the traced wall time,
-    K1's device time per launch and the kernels that take the most time."""
+    the port kernel's device time per launch and the kernels that take the
+    most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    run = TRAIN.build_online(TRAIN.parse_args(main_argv()))
+    run = TRAIN.build_online(TRAIN.parse_args(main_argv(backend)))
     tr = ON.OnlineTrainer(
         ON.OnlineTrainerConfig(total_steps=warm * k, update_every=k),
         run["learner"], run["opt"], run["params"], run["masks"],
@@ -271,13 +481,13 @@ def trace_main_path(torch, TRAIN, ON, warm=2, traced=2, k=8):
     for e in dev:
         tot, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
-    k1 = [v for n, v in by_name.items() if "fused_update_kernel" in n]
-    k1_us = sum(v[0] for v in k1) / max(sum(v[1] for v in k1), 1)
-    log(f"trace ({traced} windows, {steps} stream steps, profiler on): "
-        f"{len(dev) / steps:.1f} device ops per stream step, device busy "
+    kern = [v for n, v in by_name.items() if kernel in n]
+    kern_us = sum(v[0] for v in kern) / max(sum(v[1] for v in kern), 1)
+    log(f"trace {backend} ({traced} windows, {steps} stream steps, profiler "
+        f"on): {len(dev) / steps:.1f} device ops per stream step, device busy "
         f"{busy:.0f} us of {wall_us:.0f} us wall "
-        f"(idle share {1 - busy / wall_us:.3f}), K1 device time "
-        f"{k1_us:.2f} us per launch")
+        f"(idle share {1 - busy / wall_us:.3f}), {kernel} device time "
+        f"{kern_us:.2f} us per launch")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     for n, (tot, cnt) in top:
         log(f"  {tot / steps:8.2f} us/step  x{cnt / steps:5.1f}/step  {n[:90]}")
@@ -294,12 +504,13 @@ def main():
               "from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import sparse_rtrl as SP
+    from repro_torch.core import bptt as BP, sparse_rtrl as SP
+    from repro_torch.core import stacked_rtrl as ST
     from repro_torch.kernels import _build, compact as CK
     from repro_torch.kernels import compact_fused as CF
+    from repro_torch.kernels import influence as IN, ops as OPS
     from repro_torch.launch import train as TRAIN
     from repro_torch.runtime import online as ON
-    from repro_torch.tree import tree_leaves
 
     # -- phase 1: device and build ------------------------------------------
     smi = subprocess.run(
@@ -354,48 +565,99 @@ def main():
             f"{t['flops']:.0f} FLOP)")
     log("K1 times json: " + json.dumps(times))
 
-    # -- phase 3: the main path ---------------------------------------------
-    CF.fused_update.launches = 0
-    fused = TRAIN.main(main_argv())
-    launches = CF.fused_update.launches
-    steps = fused["final_step"]
-    log(f"main path: K1 launches {launches} over {steps} stream steps")
-    check(launches == steps and steps == 160,
-          f"K1 launched {launches} times over {steps} stream steps")
-    losses = [w["loss"] for w in fused["windows"]]
-    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
-    check(fused["summary"]["overflow"] == 0, "row capacity overflowed")
-    CF.fused_update.launches = 0
-    plain = TRAIN.main(main_argv("compact"))
-    check(CF.fused_update.launches == 0, "the compact backend launched K1")
-    l_f, l_c = fused["windows"][0]["loss"], plain["windows"][0]["loss"]
-    check(abs(l_f - l_c) <= F32_REL * abs(l_c),
-          f"first window loss: compact_fused {l_f} vs compact {l_c}")
-    lf, gf = first_window_grads(torch, TRAIN, ON, "compact_fused")
+    # -- phase 3: K2 against its plain version ------------------------------
+    k2_full = k2_main_operands(torch, TRAIN, SP, ON, dev, "--col-compact", "off")
+    k2_comp = k2_main_operands(torch, TRAIN, SP, ON, dev)
+    _, k2_full_ops = compare_k2(torch, IN, OPS, k2_full, "(a) full width")
+    err_k2, k2_comp_ops = compare_k2(torch, IN, OPS, k2_comp,
+                                     "(a) column-compact")
+    _, k2_big_ops = compare_k2(torch, IN, OPS, k2_synthetic(torch, dev),
+                               "(b) n=256")
+    edge_masked, edge_first = k2_edges(torch, dev)
+    compare_k2(torch, IN, OPS, edge_masked, "(c) padded, dead example")
+    compare_k2(torch, IN, OPS, edge_first, "(c) first step, no masks")
+    k2_times = {"(a) full width": time_k2(torch, IN, k2_full_ops, 500),
+                "(a) column-compact": time_k2(torch, IN, k2_comp_ops, 500),
+                "(b) n=256": time_k2(torch, IN, k2_big_ops, 20)}
+    del k2_big_ops
+    for label, t in k2_times.items():
+        log(f"K2 time {label}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, baddbmm {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']:.0f} B, "
+            f"{t['flops']:.0f} FLOP)")
+    log("K2 times json: " + json.dumps(k2_times))
+
+    # -- phase 4: the main paths --------------------------------------------
+    runs, launches = {}, {}
+    for backend in ("compact_fused", "pallas", "dense", "compact"):
+        CF.fused_update.launches = 0
+        IN.influence_update.launches = 0
+        runs[backend] = TRAIN.main(main_argv(backend))
+        launches[backend] = (CF.fused_update.launches,
+                             IN.influence_update.launches)
+        out = runs[backend]
+        steps = out["final_step"]
+        log(f"main path {backend}: K1 launches {launches[backend][0]}, K2 "
+            f"launches {launches[backend][1]} over {steps} stream steps")
+        check(steps == 160, f"{backend}: {steps} stream steps, not 160")
+        want = (steps if backend == "compact_fused" else 0,
+                steps if backend == "pallas" else 0)
+        check(launches[backend] == want,
+              f"{backend}: (K1, K2) launches {launches[backend]}, "
+              f"expected {want}")
+        losses = [w["loss"] for w in out["windows"]]
+        check(all(math.isfinite(v) for v in losses),
+              f"{backend}: non-finite loss {losses}")
+        check(out["summary"]["overflow"] == 0, f"{backend}: overflow")
+    l_ref = runs["compact"]["windows"][0]["loss"]
+    for backend, out in runs.items():
+        l_b = out["windows"][0]["loss"]
+        check(abs(l_b - l_ref) <= F32_REL * abs(l_ref),
+              f"first window loss: {backend} {l_b} vs compact {l_ref}")
+    firsts = {
+        "compact_fused (cuda)": first_window_grads(torch, TRAIN, ON,
+                                                   "compact_fused"),
+        "pallas (cuda)": first_window_grads(torch, TRAIN, ON, "pallas"),
+        "dense (cuda)": first_window_grads(torch, TRAIN, ON, "dense"),
+        "pallas (cpu)": first_window_grads(torch, TRAIN, ON, "pallas",
+                                           "--device", "cpu"),
+        "compact (cpu)": first_window_grads(torch, TRAIN, ON, "compact",
+                                            "--device", "cpu"),
+        "BPTT oracle (cuda)": bptt_first_window(torch, TRAIN, BP, ST),
+    }
     lc, gc = first_window_grads(torch, TRAIN, ON, "compact")
-    lp, gp = first_window_grads(torch, TRAIN, ON, "compact", "--device", "cpu")
-    check(abs(lf - lc) <= F32_REL * abs(lc) and abs(lf - lp) <= F32_REL * abs(lp),
-          f"first window loss {lf} (fused) / {lc} (compact) / {lp} (cpu)")
-    compare_grads(tree_leaves, gf, gc, "compact_fused vs compact (cuda)")
-    compare_grads(tree_leaves, gf, gp, "compact_fused (cuda) vs compact (cpu)")
-    s = fused["summary"]
-    log(f"main path: first loss {s['first_loss']:.6f}, final loss "
-        f"{s['final_loss']:.6f}, first window {l_f:.6f} (compact {l_c:.6f}), "
-        f"median window {s['median_window_ms']:.3f} ms "
-        f"(compact {plain['summary']['median_window_ms']:.3f} ms), "
-        f"carry {s['carry_bytes']} bytes")
+    for label, (lb, gb) in firsts.items():
+        check(abs(lb - lc) <= F32_REL * abs(lc),
+              f"first window loss {label} {lb} vs compact (cuda) {lc}")
+        compare_grads(gb, gc, f"{label} vs compact (cuda)")
+    for backend, out in runs.items():
+        s = out["summary"]
+        log(f"main path {backend}: first loss {s['first_loss']:.6f}, final "
+            f"loss {s['final_loss']:.6f}, first window "
+            f"{out['windows'][0]['loss']:.6f}, median window "
+            f"{s['median_window_ms']:.3f} ms, carry {s['carry_bytes']} bytes")
 
-    trace_main_path(torch, TRAIN, ON)
+    trace_main_path(torch, TRAIN, ON, "compact_fused", "fused_update_kernel")
+    trace_main_path(torch, TRAIN, ON, "pallas", "influence_kernel")
 
-    # -- phase 4: the kernels line and the result ---------------------------
-    t = times["(a) f32"]
+    # -- phase 5: the kernels line and the result ---------------------------
+    t1, t2 = times["(a) f32"], k2_times["(a) column-compact"]
     kernels = [{"name": "compact_fused", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/compact_fused.cu",
                 "replaces": "src/repro/kernels/compact_fused.py:295",
-                "launches": launches, "max_abs_err": err_main,
-                "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"]}]
+                "launches": launches["compact_fused"][0],
+                "max_abs_err": err_main,
+                "ms": t1["ms"], "plain_ms": t1["plain_ms"],
+                "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
+                "library_ms": t1["library_ms"]},
+               {"name": "influence", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/influence.cu",
+                "replaces": "src/repro/kernels/influence.py:92",
+                "launches": launches["pallas"][1],
+                "max_abs_err": err_k2,
+                "ms": t2["ms"], "plain_ms": t2["plain_ms"],
+                "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
+                "library_ms": t2["library_ms"]}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -144,6 +144,32 @@ def step(cfg: EGRUConfig, w: dict, a_prev: torch.Tensor, x_t: torch.Tensor):
     return a, stats
 
 
+class _HeavisideST(torch.autograd.Function):
+    """Heaviside forward, pseudo-derivative H'(v) in the backward pass."""
+
+    @staticmethod
+    def forward(ctx, v, gamma, eps):
+        ctx.save_for_backward(v)
+        ctx.gamma, ctx.eps = gamma, eps
+        return heaviside(v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (v,) = ctx.saved_tensors
+        hp = ctx.gamma * torch.clamp(1.0 - v.abs() / (2.0 * ctx.eps), min=0.0)
+        return hp * grad, None, None
+
+
+def step_straight_through(cfg: EGRUConfig, w: dict, a_prev: torch.Tensor,
+                          x_t: torch.Tensor) -> torch.Tensor:
+    """Autograd-compatible step: Heaviside forward, pseudo-derivative in the
+    backward pass (tanh when `cfg.dense`).  This is what BPTT differentiates,
+    so every training algorithm shares one surrogate gradient."""
+    v = pre_activation(cfg, w, a_prev, x_t)
+    return torch.tanh(v) if cfg.dense else _HeavisideST.apply(v, cfg.gamma,
+                                                              cfg.eps)
+
+
 def readout(params: dict, a: torch.Tensor) -> torch.Tensor:
     return a @ params["out"]["W"] + params["out"]["b"]
 
@@ -152,6 +178,27 @@ def xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Softmax cross-entropy, mean over the batch."""
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(1, labels.long()[:, None]).mean()
+
+
+def sequence_logits(cfg: EGRUConfig, params: dict, xs: torch.Tensor):
+    """xs: [T, B, n_in] -> (per-step logits [T, B, n_out], stats)."""
+    w = rec_param_tree(params)
+    a = init_state(cfg, xs.shape[1], device=xs.device)
+    logits, alpha = [], []
+    for x_t in xs:
+        a = step_straight_through(cfg, w, a, x_t)
+        logits.append(readout(params, a))
+        alpha.append((a == 0.0).float().mean())
+    return torch.stack(logits), {"alpha": torch.stack(alpha).mean()}
+
+
+def sequence_loss(cfg: EGRUConfig, params: dict, xs: torch.Tensor,
+                  labels: torch.Tensor):
+    """Online-decomposable loss L = (1/T) sum_t CE(logits_t, y)."""
+    logits_t, stats = sequence_logits(cfg, params, xs)
+    losses = torch.stack([xent(lg, labels) for lg in logits_t])
+    stats["logits_mean"] = logits_t.mean(dim=0)
+    return losses.mean(), stats
 
 
 # ---------------------------------------------------------------------------

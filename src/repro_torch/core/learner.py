@@ -15,10 +15,12 @@ the loss scale ``t_total``); it is O(1) in stream length.  Per-step loss is
 ``xent(readout(a_t), y_t) / t_total``.  The spec strings mean what they
 mean in the JAX package.
 
-Ported: engine "sparse" with backends "compact" and "compact_fused" (with
-or without the column-compact carry, f32 or bf16 influence), and engine
-"stacked" at one layer, which delegates to it as the JAX package does.
-Every other engine and backend raises NotImplementedError naming the
+Ported: engine "sparse" with all four backends — "dense" (masked-dense
+per-gate reference), "pallas" (block-sparse update on the dense flat carry,
+the CUDA kernel of `kernels.influence`), "compact" and "compact_fused" —
+with or without the column-compact carry (f32, or bf16 for the compact
+ones), and engine "stacked" at one layer, which delegates to it as the JAX
+package does.  Every other engine raises NotImplementedError naming the
 ROADMAP item that brings it.
 """
 from __future__ import annotations
@@ -134,33 +136,26 @@ class _LearnerBase:
 
 
 # ---------------------------------------------------------------------------
-# Exact single-layer sparse RTRL (compact / compact_fused x col-compact)
+# Exact single-layer sparse RTRL (dense / pallas / compact x col-compact)
 # ---------------------------------------------------------------------------
 
-_NOT_PORTED_BACKENDS = {
-    "dense": "ROADMAP Queue 1 item 2 (masked-dense reference backend)",
-    "pallas": "ROADMAP Queue 1 item 6 (block-sparse backend, kernel K2)",
-}
-
-
 class SparseLearner(_LearnerBase):
-    """`repro.core.sparse_rtrl` as a streaming learner: backends "compact"
-    and "compact_fused", the influence carried row-compact and (by default
-    whenever masks are given) column-compact.  Exact."""
+    """`repro.core.sparse_rtrl` as a streaming learner — all four backends,
+    the flat ones optionally (by default whenever masks are given)
+    column-compact.  Exact."""
 
     def __init__(self, spec: LearnerSpec):
         if spec.backend not in SP.BACKENDS:
             raise ValueError(
                 f"backend must be one of {SP.BACKENDS}, got {spec.backend!r}")
-        if spec.backend in _NOT_PORTED_BACKENDS:
-            raise NotImplementedError(
-                f"backend {spec.backend!r} is not ported yet: "
-                f"{_NOT_PORTED_BACKENDS[spec.backend]}")
         if spec.rewirable:
             raise NotImplementedError(
                 "rewirable learners are not ported yet: ROADMAP Queue 1 "
                 "item 8")
-        SP.influence_carry_dtype(spec.influence_dtype)      # validates
+        if (SP.influence_carry_dtype(spec.influence_dtype) != torch.float32
+                and spec.backend in ("dense", "pallas")):
+            raise ValueError("influence_dtype='bfloat16' needs a compact "
+                             "carry (backend 'compact' or 'compact_fused')")
         self.spec = spec
         self.cfg: EGRUConfig = spec.cfg
         self.cell = resolve_cell(spec.cfg)      # raises for unported cells
@@ -178,26 +173,46 @@ class SparseLearner(_LearnerBase):
                                  "parameter axis column-compact")
             col_compact = True
         elif col_compact is None:
-            col_compact = masks is not None
+            col_compact = masks is not None and self.backend != "dense"
         self._freeze_static(masks=masks, col_compact=col_compact)
-        layout = SP.flat_layout(cfg, self.spec.influence_dtype)
-        self.layout = layout
-        # full-width mode is the column map over ALL columns with the dead
-        # ones masked out of M-bar: the carry is [B, K, P_pad] either way
-        self._cl = SP.col_layout(layout, masks if col_compact else None,
-                                 device=device)
-        self._colm = None if col_compact or masks is None else \
-            SP.flat_col_mask(layout, masks, device=device)
-        if self.backend == "compact_fused":
-            from repro_torch.kernels import compact_fused as CF
-            # checks the fused layout contract: gate columns contiguous
-            self._segs = CF.fused_segments(layout, self._cl)
+        self.masks = masks
         carry = self._base_carry(params, t_total, device)
         carry["a"] = cells.init_state(cfg, B, device=device)
         carry["gout"] = tree_map(
             lambda x: torch.zeros_like(x, dtype=torch.float32), params["out"])
         carry["beta_prev"] = torch.ones((), dtype=torch.float32,
                                         device=device)
+        if self.backend == "dense":
+            carry["M"] = SP.init_influence(cfg, B, device=device)
+            carry["gw"] = tree_map(
+                lambda x: torch.zeros_like(x, dtype=torch.float32),
+                cells.rec_param_tree(params))
+            return carry
+        layout = SP.flat_layout(cfg, self.spec.influence_dtype)
+        self.layout = layout
+        # [P_pad] liveness; padding columns are dead even without masks
+        colm = SP.flat_col_mask(layout, masks, device=device)
+        if self.backend == "pallas":
+            # full width: the flat axis itself, dead columns zeroed by colm
+            self._cl = SP.col_layout(layout, masks, device=device) \
+                if col_compact else None
+            self._colm = colm
+            self._jm = SP.flat_jmask(cfg, masks)
+            P_carry = self._cl.Pc_pad if col_compact else layout.P_pad
+            carry["gw"] = torch.zeros((P_carry,), dtype=torch.float32,
+                                      device=device)
+            carry["M"] = torch.zeros((B, cfg.n_hidden, P_carry),
+                                     dtype=torch.float32, device=device)
+            return carry
+        # compact backends: full width is the column map over ALL columns
+        # with the dead ones masked out of M-bar; [B, K, P_pad] either way
+        self._cl = SP.col_layout(layout, masks if col_compact else None,
+                                 device=device)
+        self._colm = None if col_compact or masks is None else colm
+        if self.backend == "compact_fused":
+            from repro_torch.kernels import compact_fused as CF
+            # checks the fused layout contract: gate columns contiguous
+            self._segs = CF.fused_segments(layout, self._cl)
         Pc = self._cl.Pc_pad
         K = SP.capacity_K(cfg.n_hidden, self.spec.capacity)
         carry["gw"] = torch.zeros((Pc,), dtype=torch.float32, device=device)
@@ -210,31 +225,56 @@ class SparseLearner(_LearnerBase):
     def step(self, carry, x_t, y_t):
         cfg, params = self.cfg, carry["params"]
         w = cells.rec_param_tree(params)
-        if self.backend == "compact_fused":
-            a_new, hp, vals_new, idx_new, count, overflow = \
-                SP.flat_compact_fused_step(
-                    cfg, w, self.layout, carry["a"], carry["vals"],
-                    carry["idx"], x_t, cl=self._cl)
-        else:
-            a_new, hp, vals_new, idx_new, count, overflow = \
-                SP.flat_compact_step(cfg, w, self.layout, carry["a"],
-                                     carry["vals"], carry["idx"], x_t,
-                                     cl=self._cl, col_mask=self._colm)
-        lt, logits, gout_t, cbar = self._inst_loss_and_grads(
-            params["out"], a_new, y_t, carry["t_total"])
-        gw_t = CK.compact_grads(vals_new, idx_new, cbar)
         new = dict(carry)
-        new["gw"] = carry["gw"] + gw_t
-        new["vals"], new["idx"] = vals_new, idx_new
+        extra_stats = {}
+        if self.backend == "dense":
+            a_new, hp, Jhat, mbar = self.cell.partials(w, carry["a"], x_t)
+            M_new = SP.influence_update(cfg, carry["M"], hp, Jhat, mbar,
+                                        self.masks)
+            lt, logits, gout_t, cbar = self._inst_loss_and_grads(
+                params["out"], a_new, y_t, carry["t_total"])
+            gw_t = SP.influence_grads(cfg, M_new, cbar)
+            new["gw"] = tree_map(torch.add, carry["gw"], gw_t)
+            new["M"] = M_new
+            row_density = SP._row_density(M_new)
+        elif self.backend == "pallas":
+            from repro_torch.kernels import ops as kops
+            a_new, hp, operands = SP.pallas_step_operands(
+                cfg, w, self.layout, carry["a"], carry["M"], x_t, cl=self._cl,
+                col_mask=self._colm, jmask=self._jm)
+            M_new = kops.influence_update(*operands)
+            lt, logits, gout_t, cbar = self._inst_loss_and_grads(
+                params["out"], a_new, y_t, carry["t_total"])
+            gw_t = torch.einsum("bk,bkp->p", cbar, M_new)
+            new["gw"] = carry["gw"] + gw_t
+            new["M"] = M_new
+            row_density = (M_new != 0.0).any(dim=2).float().mean()
+        else:
+            if self.backend == "compact_fused":
+                a_new, hp, vals_new, idx_new, count, overflow = \
+                    SP.flat_compact_fused_step(
+                        cfg, w, self.layout, carry["a"], carry["vals"],
+                        carry["idx"], x_t, cl=self._cl)
+            else:
+                a_new, hp, vals_new, idx_new, count, overflow = \
+                    SP.flat_compact_step(cfg, w, self.layout, carry["a"],
+                                         carry["vals"], carry["idx"], x_t,
+                                         cl=self._cl, col_mask=self._colm)
+            lt, logits, gout_t, cbar = self._inst_loss_and_grads(
+                params["out"], a_new, y_t, carry["t_total"])
+            gw_t = CK.compact_grads(vals_new, idx_new, cbar)
+            new["gw"] = carry["gw"] + gw_t
+            new["vals"], new["idx"] = vals_new, idx_new
+            row_density = ((idx_new >= 0).sum(dim=1).float().mean()
+                           / cfg.n_hidden)
+            extra_stats["overflow"] = overflow.max()
         new["a"] = a_new
         new["gout"] = tree_map(torch.add, carry["gout"], gout_t)
         new["loss"] = carry["loss"] + lt
         stats = {"alpha": (a_new == 0.0).float().mean(),
                  "beta": (hp == 0.0).float().mean(),
                  "beta_prev": carry["beta_prev"],
-                 "m_row_density": ((idx_new >= 0).sum(dim=1).float().mean()
-                                   / cfg.n_hidden),
-                 "overflow": overflow.max()}
+                 "m_row_density": row_density, **extra_stats}
         new["beta_prev"] = stats["beta"]
         step_grads = None
         if self.spec.per_step_grads:
@@ -243,8 +283,11 @@ class SparseLearner(_LearnerBase):
         return new, StepOut(lt, logits, stats, step_grads)
 
     def _finish_gw(self, gw):
-        return SP.unflatten_flat_grads(self.cfg, self.layout,
-                                       SP.cols_to_flat(self._cl, gw))
+        if self.backend == "dense":
+            return dict(gw)
+        if self._cl is not None:
+            gw = SP.cols_to_flat(self._cl, gw)
+        return SP.unflatten_flat_grads(self.cfg, self.layout, gw)
 
     def grads(self, carry):
         grads = self._finish_gw(carry["gw"])
@@ -329,7 +372,8 @@ _NOT_PORTED_ENGINES = {
     "diag_exact": "ROADMAP Queue 1 item 12",
     "eprop": "ROADMAP Queue 1 item 12",
     "snap": "ROADMAP Queue 1 item 12",
-    "bptt": "ROADMAP Queue 1 item 1 (the BPTT/jacrev oracles)",
+    "bptt": "ROADMAP Queue 1 item 1 (the streaming BPTT learner; the "
+            "oracle itself is core.bptt.bptt_loss_and_grads)",
 }
 
 ENGINES = {"sparse": SparseLearner, "stacked": StackedLearner}

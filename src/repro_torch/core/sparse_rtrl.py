@@ -1,21 +1,29 @@
-"""EXACT RTRL with combined activity + parameter sparsity, in PyTorch: the
-part the compact backends use.
+"""EXACT RTRL with combined activity + parameter sparsity, in PyTorch.
 
-Counterpart of `repro.core.sparse_rtrl`.  The influence matrix is carried in
-the FLAT layout (`FlatLayout`: every gate's (q, m) column groups along one
-lane-padded parameter axis), row-compact ([B, K, .] + active-row indices)
-and — with fixed parameter masks, whose live column set is static —
-column-compact (`ColLayout`, width Pc ~= w~ P).  One step then costs
-K * K_prev * Pc ~= w~ beta~(t) beta~(t-1) n^2 p: the paper's combined
-activity x parameter factor.
+Counterpart of `repro.core.sparse_rtrl`.  Two representations of the
+influence matrix coexist, as there:
 
+  * the per-gate dict ({u,r,z,theta} / {v}: [B, n, n, m]) of the
+    masked-dense reference backend "dense" (`influence_update`);
+  * the FLAT layout (`FlatLayout`: every gate's (q, m) column groups along
+    one lane-padded parameter axis), carried dense ([B, n, P], backend
+    "pallas") or row-compact ([B, K, .] + active-row indices, backends
+    "compact" and "compact_fused") and — with fixed parameter masks, whose
+    live column set is static — column-compact (`ColLayout`, width
+    Pc ~= w~ P).
+
+  influence_update         backend "dense": masked-dense per-gate einsums
+  pallas_step_operands     backend "pallas": the operands of the
+                           block-sparse update `kernels.ops.influence_update`
+                           (the hand-written CUDA kernel of
+                           `kernels.influence`, its plain version on CPU)
   flat_compact_step        backend "compact": gathers + batched product
   flat_compact_fused_step  backend "compact_fused": the hand-written CUDA
                            kernel `kernels.compact_fused.fused_update`
                            (its plain PyTorch version on CPU tensors)
 
-Not ported yet: the per-gate dense reference backend and the block-sparse
-"pallas" backend (ROADMAP Queue 1 items 2 and 6).
+The compact step costs K * K_prev * Pc ~= w~ beta~(t) beta~(t-1) n^2 p: the
+paper's combined activity x parameter factor.
 """
 from __future__ import annotations
 
@@ -97,6 +105,105 @@ def omega_tilde(masks: Tree) -> float:
     """Measured parameter density (over maskable recurrent params)."""
     nz, tot = mask_counts(masks)
     return nz / tot
+
+
+# ---------------------------------------------------------------------------
+# Per-gate influence state: the masked-dense reference backend "dense"
+# ---------------------------------------------------------------------------
+
+def init_influence(cfg: EGRUConfig, batch: int, *,
+                   device: torch.device | str) -> Tree:
+    n, m1 = cfg.n_hidden, cfg.n_in + cfg.n_hidden + 1
+    f32 = dict(dtype=torch.float32, device=device)
+    if cfg.kind == "rnn":
+        return {"v": torch.zeros((batch, n, n, m1 + 1), **f32)}
+    M = {g: torch.zeros((batch, n, n, m1), **f32) for g in ("u", "r", "z")}
+    M["theta"] = torch.zeros((batch, n, n), **f32)
+    return M
+
+
+def influence_update(cfg: EGRUConfig, M: Tree, hp: torch.Tensor,
+                     Jhat: torch.Tensor, mbar: Tree,
+                     masks: Tree | None = None) -> Tree:
+    """M_t = D(hp) [ J-hat M_{t-1} + Mbar-hat ]   — Eq. (10) exactly.
+
+    The diagonal (k == q) adds are index assignments on the unique unit
+    indices, so they are deterministic on CUDA (no scatter-add)."""
+    n = cfg.n_hidden
+    idx = torch.arange(n, device=hp.device)
+
+    def jm(Mg):   # [B,n,n,m] or [B,n,n]
+        if Mg.ndim == 4:
+            return torch.einsum("bkl,blqm->bkqm", Jhat, Mg)
+        return torch.einsum("bkl,blq->bkq", Jhat, Mg)
+
+    def gmask(g):
+        if masks is None or g not in masks:
+            return None
+        mk = masks[g]
+        return torch.cat([mk["W"].T, mk["R"].T, mk["W"].new_ones((n, 1))],
+                         dim=1)                                 # [n(q), m]
+
+    def add_diag(T, add):
+        T[:, idx, idx] = T[:, idx, idx] + add
+        return T
+
+    new = {}
+    if cfg.kind == "rnn":
+        add = mbar["v_diag_coef"][:, :, None] * mbar["v_g"][:, None, :]
+        mk = gmask("v")
+        if mk is not None:
+            mk = torch.cat([mk, mk.new_ones((n, 1))], dim=1)    # theta col
+            add = add * mk[None]
+        new["v"] = hp[:, :, None, None] * add_diag(jm(M["v"]), add)
+        return new
+
+    for g in ("u", "z"):
+        add = mbar[f"{g}_diag_coef"][:, :, None] * mbar[f"{g}_g"][:, None, :]
+        mk = gmask(g)
+        if mk is not None:
+            add = add * mk[None]
+        new[g] = hp[:, :, None, None] * add_diag(jm(M[g]), add)
+    # r gate: dense (k, q) coupling through R_z
+    add = mbar["r_coef"][:, :, :, None] * mbar["r_g"][:, None, None, :]
+    mk = gmask("r")
+    if mk is not None:
+        add = add * mk[None, None]
+    new["r"] = hp[:, :, None, None] * (jm(M["r"]) + add)
+    # theta: dv_k/dtheta_q = -delta_kq
+    new["theta"] = hp[:, :, None] * add_diag(jm(M["theta"]), -1.0)
+    return new
+
+
+def influence_grads(cfg: EGRUConfig, M: Tree, cbar: torch.Tensor) -> Tree:
+    """dL_t/dw += cbar_t^T M_t, mapped back to parameter structure."""
+    n, n_in = cfg.n_hidden, cfg.n_in
+
+    def split_g(gw):   # [q, m] -> dict(W [n_in,n], R [n,n], b [n])
+        return {"W": gw[:, :n_in].T, "R": gw[:, n_in:n_in + n].T,
+                "b": gw[:, n_in + n]}
+
+    if cfg.kind == "rnn":
+        gw = torch.einsum("bk,bkqm->qm", cbar, M["v"])
+        return {"v": split_g(gw), "theta": gw[:, -1]}
+    out = {g: split_g(torch.einsum("bk,bkqm->qm", cbar, M[g]))
+           for g in ("u", "r", "z")}
+    out["theta"] = torch.einsum("bk,bkq->q", cbar, M["theta"])
+    return out
+
+
+def _row_density(M: Tree) -> torch.Tensor:
+    """Fraction of nonzero rows of the influence matrix (memory measure)."""
+    dens = [(Mg.reshape(Mg.shape[0], Mg.shape[1], -1) != 0.0).any(dim=2)
+            .float().mean() for Mg in M.values()]
+    return torch.stack(dens).mean()
+
+
+def influence_col_density(M: Tree) -> torch.Tensor:
+    """Fraction of nonzero (q, m) columns — parameter-sparsity invariant."""
+    dens = [(Mg.reshape(Mg.shape[0] * Mg.shape[1], -1) != 0.0).any(dim=0)
+            .float().mean() for Mg in M.values()]
+    return torch.stack(dens).mean()
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +292,28 @@ def flat_col_mask(layout: FlatLayout, masks: Tree | None, *,
     padding columns are dead."""
     live = np.pad(_flat_col_mask_np(layout, masks), (0, layout.P_pad - layout.P))
     return torch.from_numpy(live).to(device)
+
+
+def init_influence_flat(layout: FlatLayout, batch: int, *,
+                        device: torch.device | str) -> torch.Tensor:
+    return torch.zeros((batch, layout.n, layout.P_pad),
+                       dtype=layout.carry_dtype, device=device)
+
+
+def flat_jmask(cfg: EGRUConfig, masks: Tree | None) -> torch.Tensor | None:
+    """Static [n, n] sparsity pattern of J-hat in R layout ([l, k]), or None.
+
+    J inherits the masks' pattern (Sec. 5): for 'rnn' J-hat = R^T exactly;
+    for 'gru' the three R paths union with the diagonal (1-u) term and the
+    two-hop r-path  R_r @ R_z.  Note the layout: J-hat[k, l] lives at
+    [l, k] here, as in R."""
+    if masks is None:
+        return None
+    if cfg.kind == "rnn":
+        return (masks["v"]["R"] > 0).float()
+    mu, mr, mz = (masks[g]["R"] for g in ("u", "r", "z"))
+    pat = mu + mz + mr @ mz + torch.eye(cfg.n_hidden, device=mu.device)
+    return (pat > 0).float()
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +458,54 @@ def flat_mbar_rows_cols(cfg: EGRUConfig, layout: FlatLayout, cl: ColLayout,
     return out + rc * (mbar["r_g"][:, j] * (gate == gr))[:, None, :]
 
 
+def flat_mbar_cols(cfg: EGRUConfig, layout: FlatLayout, cl: ColLayout,
+                   mbar: Tree, *, layer: int = 0) -> torch.Tensor:
+    """Full-row immediate influence at compact column width [B, n, Pc_pad]
+    (hp-ungated): the column-compact M-bar of backend "pallas"."""
+    B = (mbar["v_g"] if cfg.kind == "rnn" else mbar["u_g"]).shape[0]
+    rows = torch.arange(layout.n, device=cl.src.device)[None].expand(
+        B, layout.n)
+    return flat_mbar_rows_cols(cfg, layout, cl, mbar, rows, layer=layer)
+
+
+def flat_mbar(cfg: EGRUConfig, layout: FlatLayout, mbar: Tree,
+              col_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Immediate influence M-bar-hat in flat layout [B, n, P_pad]
+    (hp-ungated): the full-width M-bar of backend "pallas".
+
+    u/z (and rnn v) gates are diagonal in (k, q); the r gate couples densely
+    through R_z; theta is -I.  `col_mask` [P_pad] zeroes dead columns.  (The
+    reference's `offset`/`total_pad`, which place a layer inside a stacked
+    axis, wait for the stacked engine: ROADMAP Queue 1 item 7.)"""
+    n, m = layout.n, layout.m
+    ref = mbar["v_g"] if cfg.kind == "rnn" else mbar["u_g"]
+    B = ref.shape[0]
+    idx = torch.arange(n, device=ref.device)
+
+    def diag_block(coef, g):
+        M4 = ref.new_zeros((B, n, n, m))
+        M4[:, idx, idx] = coef[:, :, None] * g[:, None, :]
+        return M4.reshape(B, n, n * m)
+
+    if cfg.kind == "rnn":
+        blocks = [diag_block(mbar["v_diag_coef"], mbar["v_g"])]
+    else:
+        blocks = []
+        for g in layout.gates:
+            if g == "r":
+                M4 = mbar["r_coef"][:, :, :, None] * mbar["r_g"][:, None, None, :]
+                blocks.append(M4.reshape(B, n, n * m))
+            else:
+                blocks.append(diag_block(mbar[f"{g}_diag_coef"],
+                                         mbar[f"{g}_g"]))
+        blocks.append(-torch.eye(n, device=ref.device)[None].expand(B, n, n))
+    flat = torch.nn.functional.pad(torch.cat(blocks, dim=-1),
+                                   (0, layout.P_pad - layout.P))
+    if col_mask is not None:
+        flat = flat * col_mask
+    return flat
+
+
 def unflatten_flat_grads(cfg: EGRUConfig, layout: FlatLayout,
                          gw: torch.Tensor) -> Tree:
     """Flat gradient [P_pad] -> recurrent parameter tree (inverse layout)."""
@@ -343,6 +520,30 @@ def unflatten_flat_grads(cfg: EGRUConfig, layout: FlatLayout,
     if cfg.kind != "rnn":
         out["theta"] = gw[layout.theta_offset:layout.theta_offset + layout.n]
     return out
+
+
+# ---------------------------------------------------------------------------
+# One "pallas" step: the dense flat carry [B, n, P_carry]
+# ---------------------------------------------------------------------------
+
+def pallas_step_operands(cfg: EGRUConfig, w: Tree, layout: FlatLayout,
+                         a_prev: torch.Tensor, M: torch.Tensor,
+                         x_t: torch.Tensor, *, cl: ColLayout | None,
+                         col_mask: torch.Tensor | None,
+                         jmask: torch.Tensor | None):
+    """Everything of one backend-"pallas" step up to the block-sparse update.
+
+    Returns (a_new, hp, operands) where `operands` is the argument tuple of
+    `kernels.ops.influence_update`: (hp, J-hat, M, M-bar, jmask, col_mask).
+    With `cl` the carry is column-compact: M-bar is built at Pc_pad and the
+    column liveness is `cl.live`.  Without it M-bar is the full flat one,
+    its dead columns zeroed by `col_mask` [P_pad]."""
+    a_new, hp, Jhat, mbar = cell_partials(cfg, w, a_prev, x_t)
+    if cl is not None:
+        Mbar, kcolm = flat_mbar_cols(cfg, layout, cl, mbar), cl.live
+    else:
+        Mbar, kcolm = flat_mbar(cfg, layout, mbar, col_mask), col_mask
+    return a_new, hp, (hp, Jhat, M, Mbar, jmask, kcolm)
 
 
 # ---------------------------------------------------------------------------
@@ -432,4 +633,21 @@ def capacity_K(n: int, capacity: float) -> int:
 
 
 BACKENDS = ("dense", "pallas", "compact", "compact_fused")
-PORTED_BACKENDS = ("compact", "compact_fused")      # the rest: ROADMAP Queue 1
+
+
+def sparse_rtrl_loss_and_grads(cfg: EGRUConfig, params: Tree,
+                               xs: torch.Tensor, labels: torch.Tensor,
+                               masks: Tree | None = None, *,
+                               backend: str = "dense", capacity: float = 1.0,
+                               col_compact: bool | None = None,
+                               influence_dtype: str = "float32"):
+    """Structured exact RTRL over a whole sequence xs [T, B, n_in] with a
+    fixed label.  Returns (loss, grads, stats), every stat stacked over T.
+
+    A thin scan over the streaming learner (`core.learner.SparseLearner`),
+    so the per-step engine is the one online training runs."""
+    from repro_torch.core.learner import LearnerSpec, make_learner, scan_learner
+    learner = make_learner(LearnerSpec(
+        engine="sparse", cfg=cfg, backend=backend, capacity=capacity,
+        col_compact=col_compact, influence_dtype=influence_dtype))
+    return scan_learner(learner, params, masks, xs, labels)

@@ -26,13 +26,17 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("compact_fused",)
+KERNELS = ("compact_fused", "influence")
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
 # C signatures: (argtypes, restype) of every exported function
 SIGNATURES = {
     "compact_fused": {
         "repro_fused_update": ([_I] + [_P] * 9 + [_I] * 4 + [_P], _I),
+        "repro_error_string": ([_I], ctypes.c_char_p),
+    },
+    "influence": {
+        "repro_influence_update": ([_P] * 10 + [_I] * 3 + [_P], _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -1,15 +1,17 @@
 """Online training launcher of the port: the paper's spiral experiment.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch egru-spiral \\
-        --online --rtrl-backend compact_fused --sparsity 0.8 \\
+        --online [--rtrl-backend {dense,pallas,compact,compact_fused}] \\
+        --sparsity 0.8 [--col-compact {auto,on,off}] \\
         [--update-every 8] [--steps 20] [--seed 0] [--capacity 1.0] \\
         [--influence-dtype float32] [--smoke] [--device cpu]
 
 Counterpart of `repro.launch.train` (`train_egru` -> `train_egru_online`):
 a one-layer EGRU (n=16, n_in=2, batch 32) trained by exact sparse RTRL on
 the spiral stream, with a masked adamw update every `--update-every` stream
-steps.  `--steps` counts optimizer updates; `--smoke` caps them at 12.  It
-runs on CUDA unless `--device cpu` is given, and raises without a card.
+steps.  `--steps` counts optimizer updates; `--smoke` caps them at 12.  The
+backend defaults to "dense", as in the reference.  It runs on CUDA unless
+`--device cpu` is given, and raises without a card.
 
 Params are drawn from torch.Generator(2*seed) and masks from
 torch.Generator(2*seed + 1): a seed reproduces a run on every device, but
@@ -17,7 +19,7 @@ not the JAX package's `jax.random` draws.  The stream is the JAX launcher's
 step-keyed numpy stream, element for element.
 
 Flags of later slices raise: --layers > 1, --guard, --rewire, --metrics-dir,
---ckpt-every, --fail-at, and the "dense"/"pallas" backends.
+--ckpt-every, --fail-at.
 """
 from __future__ import annotations
 
@@ -50,7 +52,6 @@ def make_stream(cfg, seed: int):
 
 
 def _reject_later_slices(args) -> None:
-    from repro_torch.core.sparse_rtrl import PORTED_BACKENDS
     later = []
     if args.arch not in ARCHS:
         later.append(f"--arch {args.arch} (the port has egru-spiral only)")
@@ -59,10 +60,6 @@ def _reject_later_slices(args) -> None:
                      "Trainer is ROADMAP Queue 1 item 4)")
     if args.layers != 1:
         later.append("--layers > 1 (stacked engine, ROADMAP Queue 1 item 7)")
-    if args.rtrl_backend not in PORTED_BACKENDS:
-        later.append(f"--rtrl-backend {args.rtrl_backend} (ported: "
-                     f"{', '.join(PORTED_BACKENDS)}; ROADMAP Queue 1 items "
-                     "2, 6)")
     if args.guard:
         later.append("--guard (ROADMAP Queue 1 item 9)")
     if args.rewire != "off":
@@ -86,6 +83,14 @@ def build_online(args) -> dict:
     from repro_torch.optim.optimizers import make_optimizer, masked
 
     _reject_later_slices(args)
+    backend = args.rtrl_backend
+    # resolve the auto rule once and hand the engine the explicit bool, so
+    # the report below cannot disagree with what the engine runs
+    col_flag = {"auto": None, "on": True, "off": False}[args.col_compact]
+    if backend == "compact_fused" and col_flag is False:
+        raise SystemExit("--col-compact off conflicts with --rtrl-backend "
+                         "compact_fused (the fused engine always carries "
+                         "column-compact)")
     device = resolve_device(args.device)
     cfg = egru_spiral.stacked(args.layers)
     masks = None
@@ -93,20 +98,26 @@ def build_online(args) -> dict:
         masks = ST.make_stacked_masks(
             cfg, torch.Generator().manual_seed(2 * args.seed + 1),
             args.sparsity, device=device)
+    if backend == "compact_fused":
+        col_compact = True
+    else:
+        col_compact = (masks is not None and backend != "dense"
+                       if col_flag is None else col_flag)
     params = cells.init_stacked_params(
         cfg, torch.Generator().manual_seed(2 * args.seed), device=device)
     opt = make_optimizer("adamw", lr=cfg.lr)
     if masks is not None:
         params = ST.apply_stacked_masks(params, masks)
         opt = masked(opt, {"layers": masks, "out": None})
+    if masks is not None and backend != "dense":
         slayout = ST.stacked_layout(cfg)
         live = int(ST.stacked_col_mask(slayout, masks, device="cpu").sum())
         print(f"influence columns: {live}/{slayout.P_total} live "
               f"(omega~={ST.stacked_omega_tilde(masks):.3f}); col-compact "
-              f"carry ON")
+              f"carry {'ON' if col_compact else 'OFF'}")
     learner = make_learner(LearnerSpec(
-        engine="stacked", cfg=cfg, backend=args.rtrl_backend,
-        capacity=args.capacity, influence_dtype=args.influence_dtype))
+        engine="stacked", cfg=cfg, backend=backend, capacity=args.capacity,
+        col_compact=col_compact, influence_dtype=args.influence_dtype))
     return {"cfg": cfg, "masks": masks, "params": params, "opt": opt,
             "learner": learner, "stream": make_stream(cfg, args.seed),
             "device": device}
@@ -150,10 +161,15 @@ def parse_args(argv=None):
                     help="streaming training: an optimizer update every "
                          "--update-every stream steps (--steps counts "
                          "updates)")
-    ap.add_argument("--rtrl-backend", default="compact_fused",
+    ap.add_argument("--rtrl-backend", default="dense",
                     choices=["dense", "pallas", "compact", "compact_fused"])
     ap.add_argument("--sparsity", type=float, default=0.0,
                     help="fixed parameter sparsity of the recurrent weights")
+    ap.add_argument("--col-compact", choices=["auto", "on", "off"],
+                    default="auto",
+                    help="carry the influence parameter axis column-compact "
+                         "(auto: on whenever --sparsity > 0 and the backend "
+                         "is not 'dense')")
     ap.add_argument("--update-every", type=int, default=8)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)

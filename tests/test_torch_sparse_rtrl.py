@@ -282,3 +282,140 @@ def test_mbar_rows_and_unflatten_match_reference(kind):
     for g, w in zip(jax.tree.leaves(jax.tree.map(_np, got)),
                     jax.tree.leaves(_tree_np(want))):
         np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the dense flat carry (backend "pallas") and the per-gate backend "dense"
+# ---------------------------------------------------------------------------
+
+def _partials(jcfg, cfg, params, a, x):
+    """The same step's partials from both packages."""
+    from repro_torch.cells.egru import cell_partials
+    jp = JSP.cell_partials(jcfg, JC.rec_param_tree(_jtree(params)),
+                           jnp.asarray(a), jnp.asarray(x))
+    tp = cell_partials(cfg, C.rec_param_tree(params_from_numpy(params, "cpu")),
+                       torch.from_numpy(a), torch.from_numpy(x))
+    return jp, tp
+
+
+@pytest.mark.parametrize("kind", ["gru", "rnn"])
+def test_flat_jmask_and_mbar_match_reference(kind):
+    jcfg, cfg, params, masks = _setup(kind, 0.7, seed=4)
+    pm = _port_masks(masks)
+    np.testing.assert_array_equal(_np(SP.flat_jmask(cfg, pm)),
+                                  np.asarray(JSP.flat_jmask(jcfg, _jtree(masks))))
+    assert SP.flat_jmask(cfg, None) is None
+    rng = np.random.default_rng(6)
+    a = (rng.random((3, 16)) > 0.5).astype(np.float32)
+    x = rng.normal(size=(3, jcfg.n_in)).astype(np.float32)
+    (_, _, _, jm), (_, _, _, m) = _partials(jcfg, cfg, params, a, x)
+    jl, layout = JSP.flat_layout(jcfg), SP.flat_layout(cfg)
+    colm = SP.flat_col_mask(layout, pm, device="cpu")
+    for cm, jcm in ((None, None), (colm, JSP.flat_col_mask(jl, _jtree(masks)))):
+        np.testing.assert_allclose(
+            _np(SP.flat_mbar(cfg, layout, m, cm)),
+            np.asarray(JSP.flat_mbar(jcfg, jl, jm, jcm)), **TOL)
+    jcl = JSP.col_layout(jl, masks)
+    cl = SP.col_layout(layout, pm, device="cpu")
+    np.testing.assert_allclose(_np(SP.flat_mbar_cols(cfg, layout, cl, m)),
+                               np.asarray(JSP.flat_mbar_cols(jcfg, jl, jcl, jm)),
+                               **TOL)
+    M0 = SP.init_influence_flat(layout, 3, device="cpu")
+    assert M0.shape == JSP.init_influence_flat(jl, 3).shape and not M0.any()
+
+
+@pytest.mark.parametrize("kind,sparsity", [("gru", 0.6), ("rnn", 0.6),
+                                           ("gru", None)])
+def test_per_gate_influence_update_and_grads_match_reference(kind, sparsity):
+    jcfg, cfg, params, masks = _setup(kind, sparsity, seed=5)
+    pm = None if masks is None else _port_masks(masks)
+    jmk = None if masks is None else _jtree(masks)
+    rng = np.random.default_rng(7)
+    B = 4
+    jM, M = JSP.init_influence(jcfg, B), SP.init_influence(cfg, B, device="cpu")
+    assert jax.tree.map(np.shape, jM) == {k: tuple(v.shape) for k, v in M.items()}
+    a = np.zeros((B, 16), np.float32)
+    for t in range(3):
+        x = (rng.normal(size=(B, jcfg.n_in)) * 1.5).astype(np.float32)
+        (ja, jhp, jJ, jm), (ta, hp, J, m) = _partials(jcfg, cfg, params, a, x)
+        # identical carries into each step, so the comparison pins one step
+        M = {k: torch.from_numpy(np.array(v)) for k, v in jM.items()}
+        jM = JSP.influence_update(jcfg, jM, jhp, jJ, jm, jmk)
+        got = SP.influence_update(cfg, M, hp, J, m, pm)
+        for k in jM:
+            np.testing.assert_allclose(_np(got[k]), np.asarray(jM[k]), **TOL,
+                                       err_msg=f"step {t} gate {k}")
+        a = np.array(ja)
+    cbar = rng.normal(size=(B, 16)).astype(np.float32)
+    want = JSP.influence_grads(jcfg, jM, jnp.asarray(cbar))
+    gotg = SP.influence_grads(cfg, got, torch.from_numpy(cbar))
+    for g, w in zip(jax.tree.leaves(jax.tree.map(_np, gotg)),
+                    jax.tree.leaves(_tree_np(want))):
+        np.testing.assert_allclose(g, w, **TOL)
+    assert float(SP._row_density(got)) == pytest.approx(
+        float(JSP._row_density(jM)), abs=1e-7)
+    assert float(SP.influence_col_density(got)) == pytest.approx(
+        float(JSP.influence_col_density(jM)), abs=1e-7)
+
+
+def _sequence(jcfg, B=4, T=6, seed=9):
+    rng = np.random.default_rng(seed)
+    xs = (rng.normal(size=(T, B, jcfg.n_in))
+          * np.linspace(0.5, 2.0, B)[None, :, None]).astype(np.float32)
+    return xs, rng.integers(0, 2, B).astype(np.int32)
+
+
+def _assert_grads_close(got, want):
+    for g, w in zip(jax.tree.leaves(jax.tree.map(_np, got)),
+                    jax.tree.leaves(_tree_np(want))):
+        scale = max(float(np.abs(w).max()), 1e-3)
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("backend,sparsity", [
+    ("dense", 0.7), ("pallas", 0.7), ("compact", 0.7), ("compact_fused", 0.7),
+    ("dense", None), ("pallas", None)])
+def test_sparse_rtrl_loss_and_grads_matches_reference(backend, sparsity):
+    jcfg, cfg, params, masks = _setup("gru", sparsity, seed=6)
+    xs, ys = _sequence(jcfg)
+    jl, jg, js = JSP.sparse_rtrl_loss_and_grads(
+        jcfg, _jtree(params), jnp.asarray(xs), jnp.asarray(ys),
+        None if masks is None else _jtree(masks), backend=backend)
+    tl, tg, ts = SP.sparse_rtrl_loss_and_grads(
+        cfg, params_from_numpy(params, "cpu"), torch.from_numpy(xs),
+        torch.from_numpy(ys), _port_masks(masks), backend=backend)
+    assert float(tl) == pytest.approx(float(jl), rel=1e-5)
+    _assert_grads_close(tg, jg)
+    assert set(ts) == set(js)
+    for k in ts:
+        np.testing.assert_allclose(_np(ts[k]), np.asarray(js[k]), rtol=1e-6,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("kind,dense", [("gru", False), ("rnn", False),
+                                        ("gru", True)])
+def test_bptt_oracle_matches_reference_and_port_rtrl(kind, dense):
+    from repro.core import bptt as JB
+    from repro_torch.core import bptt as TB
+    jcfg, cfg, params, masks = _setup(kind, 0.7, seed=7)
+    jcfg, cfg = jcfg.replace(dense=dense), cfg.replace(dense=dense)
+    xs, ys = _sequence(jcfg, seed=10)
+    jl, jg, js = JB.bptt_loss_and_grads(jcfg, _jtree(params), jnp.asarray(xs),
+                                        jnp.asarray(ys))
+    tl, tg, ts = TB.bptt_loss_and_grads(cfg, params_from_numpy(params, "cpu"),
+                                        torch.from_numpy(xs),
+                                        torch.from_numpy(ys))
+    assert float(tl) == pytest.approx(float(jl), rel=1e-5)
+    _assert_grads_close(tg, jg)
+    np.testing.assert_allclose(_np(ts["alpha"]), np.asarray(js["alpha"]),
+                               rtol=1e-6)
+    np.testing.assert_allclose(_np(ts["logits_mean"]),
+                               np.asarray(js["logits_mean"]), **TOL)
+    # inside the port: exact RTRL equals BPTT on every surviving parameter
+    rl, rg, _ = SP.sparse_rtrl_loss_and_grads(
+        cfg, params_from_numpy(params, "cpu"), torch.from_numpy(xs),
+        torch.from_numpy(ys), _port_masks(masks), backend="dense")
+    assert float(rl) == pytest.approx(float(tl), rel=1e-5)
+    _assert_grads_close(SP.apply_masks(rg, _port_masks(masks)),
+                        jax.tree.map(_np, SP.apply_masks(
+                            tg, _port_masks(masks))))
