@@ -30,14 +30,44 @@ checkout, it exits non-zero and prints no result.  Phases:
   4. the main paths: `repro_torch.launch.train --arch egru-spiral --online
      --rtrl-backend B --sparsity 0.8 --update-every 8 --steps 20` on the
      card, in-process, for B = compact_fused (K1 launches counted), pallas
-     (K2 launches counted), dense and compact, each with both counts set
-     to 0 just before and read just after; then the first window's loss
-     and gradients of every backend on the card, of pallas and compact on
-     the CPU and of the BPTT oracle on the card must agree; then a
-     torch.profiler trace of two more windows of compact_fused and of
-     pallas (device busy share, launches per step);
-  5. one JSON line {"kernels": [...]} for every ported kernel, then the
-     result line {"ok": true, "device": {...}}.
+     (K2 launches counted), dense and compact, each with every kernel's
+     count set to 0 just before and read just after; then the first
+     window's loss and gradients of every backend on the card, of pallas
+     and compact on the CPU and of the BPTT oracle on the card must agree;
+     then a torch.profiler trace of two more windows of compact_fused and
+     of pallas (device busy share, launches per step);
+  5. K3 (`kernels/event_matmul.py::event_matmul`, the CUDA kernel) against
+     its plain version, f32 and bf16, at (a) the spiral main path's a_prev
+     [32, 16] and the u gate's masked R [16, 16] from a real step, (b) B=32,
+     n=256, m=768 with activity and parameter blocks at block density 0.5,
+     (c) the shape (1, 40, 130) and an all-zero a; its executed-block
+     counter against the host count; times at (a) and (b) beside the bound
+     and `torch.matmul`; then its entry point `kernels.ops.event_matmul`
+     driven over the main path's first window (3 gates x 8 steps, counts
+     reset before and read after), held against the dense a_prev @ R
+     (no engine calls K3, as in the reference);
+  6. RWKV6-3B serving at full width and depth (32 layers, d 2560, 40 x 64
+     heads, d_ff 8960, vocab 65536, bf16, ~3.1 B parameters drawn on the
+     card from a seeded generator): the main path with every count reset
+     before and read after — `models.rwkv.prefill` of 4 prompts x 2048
+     tokens (K4 launches = 32, finite logits), 16 greedy `decode_step`s from
+     its cache, and `repro_torch.launch.serve.main(["--arch", "rwkv6-3b",
+     "--requests", "6", "--max-new", "12"])` (every request completes);
+     then prefill tokens/s, decode ms a step, profiler traces of a prefill
+     and a decode step; every layer's bf16 time-mix output with the kernel
+     and with the plain WKV on the same layer input, within 5 % of its
+     largest magnitude (per layer, so no bf16 round-off builds up across
+     layers); the prefill in f32 compute at full depth with the kernel and
+     with the plain WKV, within 1e-4 of the largest logit; K4
+     (`kernels/wkv.py::wkv`, the CUDA kernel) against its plain version on
+     (a) layer 0's operands of
+     that prefill (bf16 r/k/v), (b) the same from a non-zero S0, (c) T == L,
+     T < L, and decays at both clip ends, o and S_final; K4's time beside
+     its bound; and at full width, 2 layers, f32: prefill with the kernel
+     vs the plain WKV and vs a teacher-forced decode over 64 tokens, each
+     within 1e-4 of the largest logit;
+  7. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
+     then the result line {"ok": true, "device": {...}}.
 
 Tolerances: a float32 kernel result is within 1e-5 of the largest
 magnitude of the plain version's (the sums associate differently); a bf16
@@ -46,8 +76,10 @@ gradients across backends, devices and BPTT: 1e-5 of each leaf's largest
 entry (BPTT on the surviving parameters: it also gives the pruned ones a
 gradient, which the masked optimizer drops).
 """
+import contextlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -58,6 +90,7 @@ ROOT = Path(__file__).resolve().parent
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core FLOP/s
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12     # dense bf16 on the tensor cores
 F32_REL = 1e-5
 BF16_STEP = 2.0 ** -7
 
@@ -492,6 +525,509 @@ def trace_main_path(torch, TRAIN, ON, backend, kernel, warm=2, traced=2,
     for n, (tot, cnt) in top:
         log(f"  {tot / steps:8.2f} us/step  x{cnt / steps:5.1f}/step  {n[:90]}")
 
+# ---------------------------------------------------------------------------
+# launch counts of every kernel wrapper
+# ---------------------------------------------------------------------------
+
+def counted_wrappers():
+    from repro_torch.kernels import compact_fused as CF, event_matmul as EM
+    from repro_torch.kernels import influence as IN, wkv as WK
+    return {"compact_fused": CF.fused_update, "influence": IN.influence_update,
+            "event_matmul": EM.event_matmul, "wkv": WK.wkv}
+
+
+def reset_counts():
+    for wrapper in counted_wrappers().values():
+        wrapper.launches = 0
+
+
+def read_counts():
+    return {name: w.launches for name, w in counted_wrappers().items()}
+
+
+def check_counts(counts, want, label):
+    """Every wrapper's count equals `want` (0 where not named)."""
+    expect = {name: want.get(name, 0) for name in counts}
+    check(counts == expect, f"{label}: launches {counts}, expected {expect}")
+
+
+def within(got, ref, bf16, label):
+    """Kernel result vs plain version: f32 within F32_REL of the largest
+    magnitude; with bf16 operands one bf16 rounding step more.  Returns
+    the max abs error."""
+    check(bool(got.float().isfinite().all()), f"{label}: non-finite output")
+    err = (got.float() - ref.float()).abs()
+    scale = max(float(ref.float().abs().max()), 1.0)
+    if bf16:
+        ok = bool((err <= BF16_STEP * ref.float().abs() + F32_REL * scale).all())
+    else:
+        ok = float(err.max()) <= F32_REL * scale
+    check(ok, f"{label}: kernel vs plain max abs err {float(err.max()):.3e} "
+              f"(scale {scale:.3e})")
+    return float(err.max()), scale
+
+
+# ---------------------------------------------------------------------------
+# phase 5: K3 against its plain version, and its entry point on the main path
+# ---------------------------------------------------------------------------
+
+def k3_bound(torch, ops):
+    """Least time (ms) for the event matmul on these padded operands: the
+    bytes it must move — the live blocks of a, the blocks of R that some
+    example's live blocks meet, both masks, y written — over HBM
+    bandwidth, against 2*8*128 FLOP per executed (b, lb, mb) block over
+    the card's peak for the operands' type."""
+    from repro_torch.kernels import event_matmul as EM
+    a, R, act, rm = ops
+    es = R.element_size()
+    actd, rmd = (act != 0).double().cpu(), (rm != 0).double().cpu()
+    used_R = float(((actd.sum(0) > 0).double()[:, None] * rmd).sum())
+    nbytes = (float(actd.sum()) * EM.BL * es + used_R * EM.BL * EM.BM * es
+              + (act.numel() + rm.numel()) * 4 + a.shape[0] * R.shape[1] * es)
+    flops = float((actd @ rmd).sum()) * 2 * EM.BL * EM.BM
+    peak = F32_FLOP_S if R.dtype == torch.float32 else BF16_FLOP_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / peak
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by, nbytes, flops
+
+
+def compare_k3(torch, EM, OPS, a, R, rmask, label):
+    """Kernel vs plain version on the card and the executed-block counter
+    vs the host count sum_b sum act[b,lb] * rmask[lb,mb].  Returns (max
+    abs error, padded operands)."""
+    ops = OPS.event_matmul_operands(a, R, rmask)
+    a_p, R_p, act, rm = ops
+    count = torch.zeros(1, dtype=torch.int64, device=R.device)
+    y = EM.event_matmul(a_p, R_p, act_mask=act, rmask=rm, block_count=count)
+    torch.cuda.synchronize()                    # a fault surfaces here
+    ref = EM.event_matmul_reference(a_p, R_p, act_mask=act, rmask=rm)
+    check(y.dtype == R.dtype and y.shape == ref.shape,
+          f"K3 {label}: output {y.dtype} {tuple(y.shape)}")
+    err, scale = within(y, ref, R.dtype == torch.bfloat16, f"K3 {label}")
+    actn, rmn = act.cpu().numpy().astype(bool), rm.cpu().numpy().astype(bool)
+    host = int((actn[:, :, None] & rmn[None]).sum())
+    check(int(count) == host, f"K3 {label}: executed blocks {int(count)} vs "
+                              f"host count {host}")
+    log(f"K3 {label}: B={a_p.shape[0]} n_p={R_p.shape[0]} m_p={R_p.shape[1]} "
+        f"{R.dtype}, max_abs_err {err:.3e} (scale {scale:.3e}), executed "
+        f"blocks {int(count)} of {actn.shape[0] * rmn.size} = host count")
+    return err, ops
+
+
+def time_k3(torch, EM, ops, iters):
+    a, R, act, rm = ops
+    ms = time_ms(torch, lambda: EM.event_matmul(a, R, act_mask=act, rmask=rm),
+                 iters)
+    plain = time_ms(torch, lambda: EM.event_matmul_reference(
+        a, R, act_mask=act, rmask=rm), max(iters // 10, 3))
+    lib = time_ms(torch, lambda: torch.matmul(a, R), iters)
+    bound, by, nbytes, flops = k3_bound(torch, ops)
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+            "bound_by": by, "bytes": nbytes, "flops": flops}
+
+
+def k3_main_operands(torch, TRAIN, ON, steps=5):
+    """(a_prev [32,16], the u gate's masked R [16,16], its mask) at a live
+    step of the spiral main path (same seed, stepped a few times)."""
+    run = TRAIN.build_online(TRAIN.parse_args(main_argv("compact")))
+    xs, ys = stream_window(torch, run, steps)
+    carry = run["learner"].init(run["params"], run["masks"], (xs[0], ys[0]),
+                                t_total=8.0)
+    carry, _, _, _ = ON.stream_grads(run["learner"], carry, xs, ys)
+    return carry["a"], carry["params"]["u"]["R"], run["masks"][0]["u"]["R"]
+
+
+def k3_synthetic(torch, dev, B=32, n=256, m=768, density=0.5, seed=3):
+    """(b): activity blocks of a and parameter blocks of R both at block
+    density 0.5 (a and R zero outside them, so the dense product is the
+    same function)."""
+    g = torch.Generator().manual_seed(seed)
+    act = torch.rand((B, n // 8), generator=g) < density
+    blocks = torch.rand((n // 8, m // 128), generator=g) < density
+    rmask = blocks.repeat_interleave(8, 0).repeat_interleave(128, 1).float()
+    a = torch.randn((B, n), generator=g) * act.repeat_interleave(8, 1)
+    R = torch.randn((n, m), generator=g) * rmask
+    return a.to(dev), R.to(dev), rmask.to(dev)
+
+
+def k3_path(torch, TRAIN, OPS, steps=8):
+    """K3's entry point `ops.event_matmul` driven over the spiral main
+    path's first window (no engine calls it, as in the reference): at each
+    stream step, every gate's a_prev @ R with the gate's parameter mask as
+    rmask, held against the dense product.  Returns the launch counts."""
+    run = TRAIN.build_online(TRAIN.parse_args(main_argv("compact")))
+    learner, masks = run["learner"], run["masks"][0]
+    xs, ys = stream_window(torch, run, steps)
+    carry = learner.init(run["params"], run["masks"], (xs[0], ys[0]),
+                         t_total=8.0)
+    worst = 0.0
+    reset_counts()
+    for t in range(steps):
+        a, w = carry["a"], carry["params"]
+        for gate in ("u", "r", "z"):
+            y = OPS.event_matmul(a, w[gate]["R"], masks[gate]["R"])
+            want = a @ w[gate]["R"]
+            scale = max(float(want.abs().max()), 1.0)
+            err = float((y - want).abs().max())
+            check(err <= F32_REL * scale, f"K3 path step {t} gate {gate}: "
+                                          f"max abs err {err:.3e}")
+            worst = max(worst, err)
+        carry, _ = learner.step(carry, xs[t], ys[t])
+    counts = read_counts()
+    check_counts(counts, {"event_matmul": 3 * steps}, "K3 path")
+    log(f"K3 path (ops.event_matmul on the spiral main path, {steps} stream "
+        f"steps x 3 gates): launches {counts}, max abs err vs a_prev @ R "
+        f"{worst:.3e}")
+    return counts
+
+
+def k3_checks(torch, dev, TRAIN, ON, EM, OPS):
+    """K3 against its plain version at (a) the spiral main path's a_prev and
+    the u gate's masked R, (b) n=256, m=768 at block density 0.5, (c) odd
+    shapes and an all-zero a, f32 and bf16; its times; then its entry point
+    driven on the main path.  Returns K3's entry for the kernels line."""
+    a_prev, R_u, rmask_u = k3_main_operands(torch, TRAIN, ON)
+    log(f"K3 (a) main path: a_prev {tuple(a_prev.shape)} with "
+        f"{int((a_prev != 0).sum())} events, R_u {tuple(R_u.shape)} with "
+        f"{int((R_u != 0).sum())} live weights")
+    err_k3, k3_main_ops = compare_k3(torch, EM, OPS, a_prev, R_u, rmask_u,
+                                     "(a) f32")
+    k3_main_bf16 = compare_k3(torch, EM, OPS, a_prev.bfloat16(), R_u.bfloat16(),
+                              rmask_u, "(a) bf16")[1]
+    a_b, R_b, rmask_b = k3_synthetic(torch, dev)
+    _, k3_big_ops = compare_k3(torch, EM, OPS, a_b, R_b, rmask_b,
+                               "(b) n=256 f32")
+    _, k3_big_bf16 = compare_k3(torch, EM, OPS, a_b.bfloat16(), R_b.bfloat16(),
+                                rmask_b, "(b) n=256 bf16")
+    g3 = torch.Generator(device=dev).manual_seed(4)
+    a_c = (torch.rand((1, 40), generator=g3, device=dev) > 0.7).float()
+    R_c = torch.randn((40, 130), generator=g3, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        compare_k3(torch, EM, OPS, a_c.to(dt), R_c.to(dt), None,
+                   f"(c) (1, 40, 130) {dt}")
+        compare_k3(torch, EM, OPS, torch.zeros((4, 24), device=dev, dtype=dt),
+                   torch.randn((24, 256), generator=g3, device=dev).to(dt), None,
+                   f"(c) all-zero a {dt}")
+    k3_times = {"(a) f32": time_k3(torch, EM, k3_main_ops, 500),
+                "(a) bf16": time_k3(torch, EM, k3_main_bf16, 500),
+                "(b) n=256 f32": time_k3(torch, EM, k3_big_ops, 200),
+                "(b) n=256 bf16": time_k3(torch, EM, k3_big_bf16, 200)}
+    for label, t in k3_times.items():
+        log(f"K3 time {label}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, torch.matmul {t['library_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {t['bytes']:.0f} "
+            f"B, {t['flops']:.0f} FLOP)")
+    log("K3 times json: " + json.dumps(k3_times))
+    k3_counts = k3_path(torch, TRAIN, OPS)
+    t3 = k3_times["(a) f32"]
+    return {"name": "event_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/event_matmul.cu",
+            "replaces": "src/repro/kernels/event_matmul.py:38",
+            "launches": k3_counts["event_matmul"], "max_abs_err": err_k3,
+            "ms": t3["ms"], "plain_ms": t3["plain_ms"],
+            "bound_ms": t3["bound_ms"], "bound_by": t3["bound_by"],
+            "library_ms": t3["library_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: K4 against its plain version, and RWKV6-3B serving
+# ---------------------------------------------------------------------------
+
+def k4_bound(torch, ops, chunk):
+    """Least time (ms) for the chunked WKV on these inputs: the bytes it
+    must move (r/k/v, logw, u, S0 read; o and S written) over HBM
+    bandwidth, against the f32 operations of the chunk algebra (the state
+    and the decays are f32) over the CUDA-core f32 peak.  Per chunk of L
+    steps and head of width D: the inter term and the state update
+    2*L*D*D each, the decay of the state 2*D*D, A's strict triangle 5 per
+    (pair, channel) (sub, min, exp, mul, fma) and its diagonal 3, A v
+    2 per (pair, column) on the triangle, and 7*L*D for the cumulative
+    sum, the exponentials and the scalings."""
+    r, k, v, logw, u, S0 = ops
+    B, H, T, D = r.shape
+    L = chunk
+    nbytes = float(3 * r.numel() * r.element_size() + 4 * logw.numel()
+                   + 4 * u.numel() + (0 if S0 is None else 4 * S0.numel())
+                   + 4 * B * H * T * D + 4 * B * H * D * D)
+    per_chunk = (4 * L * D * D + 2 * D * D + 5 * D * L * (L - 1) // 2
+                 + 3 * D * L + 2 * D * L * (L + 1) // 2 + 7 * L * D)
+    flops = float(B * H * (T // L) * per_chunk)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by, nbytes, flops
+
+
+def compare_k4(torch, WK, ops, chunk, label):
+    """Kernel vs plain version on the card, o and S_final.  Returns (max
+    abs error of o, S_final)."""
+    o, S = WK.wkv(*ops, chunk=chunk)
+    torch.cuda.synchronize()                    # a fault surfaces here
+    o_ref, S_ref = WK.wkv_reference(*ops, chunk=chunk)
+    bf16 = ops[0].dtype == torch.bfloat16
+    errs = []
+    for name, got, ref in (("o", o, o_ref), ("S_final", S, S_ref)):
+        check(got.dtype == torch.float32 and got.shape == ref.shape,
+              f"K4 {label}: {name} {got.dtype} {tuple(got.shape)}")
+        errs.append(within(got, ref, bf16, f"K4 {label} {name}"))
+    B, H, T, D = ops[0].shape
+    log(f"K4 {label}: B={B} H={H} T={T} D={D} L={chunk} {ops[0].dtype}"
+        f"{'' if ops[5] is None else ', S0 given'}: o max_abs_err "
+        f"{errs[0][0]:.3e} (scale {errs[0][1]:.3e}), S_final max_abs_err "
+        f"{errs[1][0]:.3e} (scale {errs[1][1]:.3e})")
+    return errs[0][0], S
+
+
+def time_k4(torch, WK, ops, chunk, iters):
+    ms = time_ms(torch, lambda: WK.wkv(*ops, chunk=chunk), iters)
+    plain = time_ms(torch, lambda: WK.wkv_reference(*ops, chunk=chunk), 3,
+                    warmup=1)
+    bound, by, nbytes, flops = k4_bound(torch, ops, chunk)
+    return {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bound,
+            "bound_by": by, "bytes": nbytes, "flops": flops}
+
+
+@contextlib.contextmanager
+def plain_wkv(WK):
+    """Inside the block the RWKV6 model's WKV (`WK.wkv`, which `models.rwkv`
+    calls) is its plain version: the way to hold a whole prefill on the
+    card against it.  The package itself has no such switch."""
+    kernel = WK.wkv
+    WK.wkv = WK.wkv_reference
+    try:
+        yield
+    finally:
+        WK.wkv = kernel
+
+
+def bf16_layers_vs_plain(torch, RW, WK, cfg, params, tokens):
+    """Every layer's bf16 time-mix output with the kernel and with the plain
+    WKV, both on the kernel path's layer input, so no round-off carries
+    from one layer to the next.  Returns the largest max abs difference
+    over the layer's largest magnitude."""
+    from repro_torch.models.layers import embed_tokens
+    from repro_torch.models.transformer import _norm
+    x = _norm(cfg, params["ln0"], embed_tokens(cfg, params["emb"], tokens))
+    worst = 0.0
+    for lp in RW._layers(cfg, params["units"]):
+        xin = _norm(cfg, lp["ln1"], x)
+        h, _ = RW.time_mix(cfg, lp["tm"], xin)
+        with plain_wkv(WK):
+            h_plain, _ = RW.time_mix(cfg, lp["tm"], xin)
+        h, h_plain = h.float(), h_plain.float()
+        check(bool(h.isfinite().all()), "bf16 time-mix: non-finite output")
+        worst = max(worst, float((h - h_plain).abs().max())
+                    / float(h_plain.abs().max()))
+        x = x + h.to(x.dtype)
+        x = x + RW.channel_mix(cfg, lp["cm"], _norm(cfg, lp["ln2"], x))[0]
+    return worst
+
+
+def k4_layer0_operands(torch, RW, cfg, params, tokens):
+    """K4's operands at layer 0 of a real prefill of `tokens`: embedding,
+    ln0, ln1, then the time-mix inputs, moved to [B, H, T, D]."""
+    from repro_torch.models.layers import embed_tokens
+    from repro_torch.models.transformer import _norm
+    from repro_torch.tree import tree_map
+    lp = tree_map(lambda t: t[0], params["units"])
+    x = _norm(cfg, params["ln0"], embed_tokens(cfg, params["emb"], tokens))
+    r, k, v, logw, _ = RW.time_mix_inputs(cfg, lp["tm"], _norm(cfg, lp["ln1"], x))
+    tr = lambda t: t.transpose(1, 2).contiguous()
+    return [tr(r), tr(k), tr(v), tr(logw), lp["tm"]["u"].contiguous(), None]
+
+
+def k4_edges(torch, ops, S_final):
+    """(c): f32 copies of (a)'s operands cut to T == L (16) and T < L (8,
+    taken as L = T, as wkv_full does), and decays at both clip ends of
+    decay_logw (ww = 10: logw = -e^10; ww = -20: logw = -e^-20) over 64
+    steps from (a)'s final state.  Yields (label, operands, chunk)."""
+    r, k, v, logw, u, _ = ops
+    cut = lambda T: [t[:, :, :T].float().contiguous() for t in (r, k, v)]
+    yield "(c) T == L f32", cut(16) + [logw[:, :, :16].contiguous(), u, None], 16
+    yield "(c) T < L f32", cut(8) + [logw[:, :, :8].contiguous(), u, None], 8
+    for ww in (10.0, -20.0):
+        lw = torch.full_like(logw[:, :, :64], -math.exp(ww))
+        yield (f"(c) ww={ww:g} (logw {-math.exp(ww):.6g}) f32, S0 given",
+               cut(64) + [lw, u, S_final], 16)
+
+
+def profile_device(torch, fn, label, kernel):
+    """torch.profiler over one call of fn: device busy and idle share of
+    the wall time, the named kernel's device time, the largest totals."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        log(f"trace {label}: the profiler recorded no device events: device "
+            "busy share not measured")
+        return
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name = {}
+    for e in dev:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    kern = sum(v[0] for n, v in by_name.items() if kernel in n)
+    log(f"trace {label} (profiler on): {len(dev)} device ops, device busy "
+        f"{busy:.0f} us of {wall_us:.0f} us wall (idle share "
+        f"{1 - busy / wall_us:.3f}), {kernel} {kern:.0f} us "
+        f"({kern / max(busy, 1e-9):.3f} of busy)")
+    for n, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f"  {tot:10.1f} us  x{cnt:5d}  {n[:90]}")
+
+
+def rwkv_serving(torch, dev, WK):
+    """RWKV6-3B at full width and depth, bf16, weights drawn on the card
+    from a seeded generator: the serving main path (prefill of 4 x 2048
+    tokens, 16 greedy decode steps from its cache, the launcher's Engine),
+    K4 against its plain version on layer 0's operands, every layer's
+    bf16 time mix and the full-depth f32-compute prefill against the plain
+    WKV, and the f32 checks at full width and 2 layers.  Returns (K4's
+    entry for the kernels line, the main path's counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as SERVE
+    from repro_torch.models import rwkv as RW
+    from repro_torch.models.module import count_params, materialize
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("rwkv6-3b")
+    specs = RW.rwkv_model_specs(cfg)
+    t0 = time.perf_counter()
+    params = materialize(specs, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"RWKV6-3B: {cfg.n_layers} layers, d {cfg.d_model}, {RW.n_heads(cfg)}"
+        f" x {cfg.head_dim} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{count_params(specs):,} parameters, {nbytes / 1e9:.3f} GB "
+        f"({cfg.param_dtype}), drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    B, T, n_dec = 4, 2048, 16
+    tokens = torch.randint(0, cfg.vocab_size, (B, T),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+
+    # -- the main path, counted ---------------------------------------------
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = RW.prefill(cfg, params, tokens)
+    torch.cuda.synchronize()
+    first_prefill_s = time.perf_counter() - t0
+    check(logits.shape == (B, cfg.vocab_size) and logits.dtype == torch.float32,
+          f"prefill logits {logits.dtype} {tuple(logits.shape)}")
+    check(bool(logits.isfinite().all()), "prefill: non-finite logits")
+    prefill_counts = read_counts()
+    check_counts(prefill_counts, {"wkv": cfg.n_layers}, "prefill")
+    tok, step_ms = logits.argmax(-1)[:, None], []
+    dec_cache = cache
+    for _ in range(n_dec):
+        t1 = time.perf_counter()
+        dlogits, dec_cache = RW.decode_step(cfg, params, tok, dec_cache, None)
+        tok = dlogits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        check(bool(dlogits.isfinite().all()), "decode: non-finite logits")
+    served = SERVE.main(["--arch", "rwkv6-3b", "--requests", "6",
+                         "--max-new", "12"])
+    counts = read_counts()
+    check_counts(counts, {"wkv": cfg.n_layers}, "serving main path")
+    s = served["summary"]
+    check(s["requests"] == 6 and s["failed"] == 0 and served["failed_requests"]
+          == [] and all(len(o) == 12 for o in served["outputs"]),
+          f"Engine: {s}, failed {served['failed_requests']}")
+    log(f"serving main path (prefill {B} x {T}, {n_dec} decode steps, Engine): "
+        f"launches {counts}; first prefill {first_prefill_s * 1e3:.1f} ms")
+    log(f"decode: {n_dec} greedy steps of batch {B} from the prefill cache, "
+        f"median {statistics.median(step_ms):.2f} ms a step (min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}), "
+        f"{B * 1e3 / statistics.median(step_ms):.1f} tok/s")
+    log(f"Engine (launch.serve, 6 requests, 12 new tokens, 4 slots): "
+        f"{s['tokens']} tokens in {s['wall_s']} s, {s['tok_per_s']} tok/s")
+
+    # -- prefill timing, and the prefill against the plain WKV ---------------
+    prefill_ms = [time_ms(torch, lambda: RW.prefill(cfg, params, tokens), 1,
+                          warmup=0) for _ in range(3)]
+    log(f"prefill {B} x {T}: {min(prefill_ms):.2f} ms (runs "
+        f"{', '.join(f'{x:.2f}' for x in prefill_ms)}), "
+        f"{B * T * 1e3 / min(prefill_ms):.0f} tokens/s")
+    profile_device(torch, lambda: RW.prefill(cfg, params, tokens),
+                   f"prefill {B} x {T}", "wkv_kernel")
+    profile_device(torch, lambda: RW.decode_step(cfg, params, tok, dec_cache, None),
+                   f"decode step (batch {B})", "wkv_kernel")
+    worst = bf16_layers_vs_plain(torch, RW, WK, cfg, params, tokens)
+    check(worst <= 0.05, f"bf16 time mix, kernel vs plain WKV: {worst:.4g} of "
+                         "the largest magnitude in some layer")
+    log(f"bf16 time-mix output of each of the {cfg.n_layers} layers, kernel vs "
+        f"plain WKV on the same layer input: largest max abs difference "
+        f"{worst:.4g} of the layer's largest magnitude (bound 0.05)")
+    cfg_f32 = cfg.replace(compute_dtype=torch.float32)
+    f32_logits, _ = RW.prefill(cfg_f32, params, tokens)
+    with plain_wkv(WK):
+        f32_plain, _ = RW.prefill(cfg_f32, params, tokens)
+    scale = float(f32_logits.abs().max())
+    err_f32 = float((f32_logits - f32_plain).abs().max())
+    check(err_f32 <= 1e-4 * scale, f"f32-compute prefill, kernel vs plain WKV: "
+                                   f"{err_f32:.3e} (scale {scale:.4g})")
+    log(f"f32-compute prefill (bf16 weights, full depth), kernel vs plain WKV: "
+        f"last-position logits max abs err {err_f32:.3e} of {scale:.4g} "
+        f"(bound 1e-4 of it)")
+
+    # -- K4 against its plain version ----------------------------------------
+    ops = k4_layer0_operands(torch, RW, cfg, params, tokens)
+    err_a, S_a = compare_k4(torch, WK, ops, cfg.rwkv_chunk,
+                            "(a) layer 0 of the prefill")
+    compare_k4(torch, WK, ops[:5] + [S_a], cfg.rwkv_chunk,
+               "(b) the same from a non-zero S0")
+    for label, edge, chunk in k4_edges(torch, ops, S_a):
+        compare_k4(torch, WK, edge, chunk, label)
+    t4 = time_k4(torch, WK, ops, cfg.rwkv_chunk, 20)
+    log(f"K4 time (a): kernel {t4['ms']:.4f} ms, plain {t4['plain_ms']:.4f} ms, "
+        f"no library call computes WKV, bound {t4['bound_ms']:.4f} ms "
+        f"({t4['bound_by']}: {t4['bytes']:.0f} B, {t4['flops']:.0f} FLOP)")
+    log("K4 times json: " + json.dumps(t4))
+    del params, cache, dec_cache, ops, S_a, logits, f32_logits, f32_plain
+    torch.cuda.empty_cache()
+
+    # -- f32 at full width, 2 layers -----------------------------------------
+    cfg2 = cfg.replace(n_layers=2, param_dtype=torch.float32,
+                       compute_dtype=torch.float32)
+    p2 = materialize(RW.rwkv_model_specs(cfg2),
+                     torch.Generator(device=dev).manual_seed(2))
+    toks = tokens[:, :64]
+    lk, _ = RW.prefill(cfg2, p2, toks)
+    with plain_wkv(WK):
+        lp, _ = RW.prefill(cfg2, p2, toks)
+    scale = float(lp.abs().max())
+    err_kp = float((lk - lp).abs().max())
+    check(err_kp <= 1e-4 * scale, f"f32 prefill kernel vs plain: {err_kp:.3e} "
+                                  f"(scale {scale:.3e})")
+    dcache = RW.init_cache(cfg2, B, 65, dev)
+    for t in range(toks.shape[1]):
+        ld, dcache = RW.decode_step(cfg2, p2, toks[:, t:t + 1], dcache, None)
+    err_tf = float((ld - lk).abs().max())
+    check(err_tf <= 1e-4 * scale, f"f32 prefill vs teacher-forced decode: "
+                                  f"{err_tf:.3e} (scale {scale:.3e})")
+    log(f"f32, full width, 2 layers, {B} x 64 tokens: prefill kernel vs plain "
+        f"{err_kp:.3e}, prefill vs teacher-forced decode {err_tf:.3e}, of the "
+        f"largest logit {scale:.4g} (bound 1e-4 of it)")
+    del p2
+    torch.cuda.empty_cache()
+    entry = {"name": "wkv", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/wkv.cu",
+             "replaces": "src/repro/kernels/wkv.py:73",
+             "launches": counts["wkv"], "max_abs_err": err_a,
+             "ms": t4["ms"], "plain_ms": t4["plain_ms"],
+             "bound_ms": t4["bound_ms"], "bound_by": t4["bound_by"],
+             "library_ms": None}
+    return entry, counts
+
 
 def main():
     import torch
@@ -507,8 +1043,8 @@ def main():
     from repro_torch.core import bptt as BP, sparse_rtrl as SP
     from repro_torch.core import stacked_rtrl as ST
     from repro_torch.kernels import _build, compact as CK
-    from repro_torch.kernels import compact_fused as CF
-    from repro_torch.kernels import influence as IN, ops as OPS
+    from repro_torch.kernels import compact_fused as CF, event_matmul as EM
+    from repro_torch.kernels import influence as IN, ops as OPS, wkv as WK
     from repro_torch.launch import train as TRAIN
     from repro_torch.runtime import online as ON
 
@@ -590,21 +1126,18 @@ def main():
     # -- phase 4: the main paths --------------------------------------------
     runs, launches = {}, {}
     for backend in ("compact_fused", "pallas", "dense", "compact"):
-        CF.fused_update.launches = 0
-        IN.influence_update.launches = 0
+        reset_counts()
         runs[backend] = TRAIN.main(main_argv(backend))
-        launches[backend] = (CF.fused_update.launches,
-                             IN.influence_update.launches)
+        counts = read_counts()
+        launches[backend] = (counts["compact_fused"], counts["influence"])
         out = runs[backend]
         steps = out["final_step"]
-        log(f"main path {backend}: K1 launches {launches[backend][0]}, K2 "
-            f"launches {launches[backend][1]} over {steps} stream steps")
+        log(f"main path {backend}: launches {counts} over {steps} stream "
+            "steps")
         check(steps == 160, f"{backend}: {steps} stream steps, not 160")
-        want = (steps if backend == "compact_fused" else 0,
-                steps if backend == "pallas" else 0)
-        check(launches[backend] == want,
-              f"{backend}: (K1, K2) launches {launches[backend]}, "
-              f"expected {want}")
+        want = {"compact_fused": {"compact_fused": steps},
+                "pallas": {"influence": steps}}.get(backend, {})
+        check_counts(counts, want, f"main path {backend}")
         losses = [w["loss"] for w in out["windows"]]
         check(all(math.isfinite(v) for v in losses),
               f"{backend}: non-finite loss {losses}")
@@ -640,7 +1173,13 @@ def main():
     trace_main_path(torch, TRAIN, ON, "compact_fused", "fused_update_kernel")
     trace_main_path(torch, TRAIN, ON, "pallas", "influence_kernel")
 
-    # -- phase 5: the kernels line and the result ---------------------------
+    # -- phase 5: K3 against its plain version, and its entry point ----------
+    k3_entry = k3_checks(torch, dev, TRAIN, ON, EM, OPS)
+
+    # -- phase 6: RWKV6-3B serving with K4 ----------------------------------
+    k4_entry, _ = rwkv_serving(torch, dev, WK)
+
+    # -- phase 7: the kernels line and the result ---------------------------
     t1, t2 = times["(a) f32"], k2_times["(a) column-compact"]
     kernels = [{"name": "compact_fused", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/compact_fused.cu",
@@ -658,6 +1197,7 @@ def main():
                 "ms": t2["ms"], "plain_ms": t2["plain_ms"],
                 "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
                 "library_ms": t2["library_ms"]}]
+    kernels += [k3_entry, k4_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

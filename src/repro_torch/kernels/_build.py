@@ -11,6 +11,7 @@ ctypes; every pointer and the stream are passed as `c_void_p`.
 
 `build(names)` starts one nvcc per source, all together, and waits for them;
 a failed build raises with nvcc's stderr.  Nothing here runs at import.
+`check_operand` is the operand check every kernel's wrapper makes.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("compact_fused", "influence")
+KERNELS = ("compact_fused", "influence", "event_matmul", "wkv")
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
 # C signatures: (argtypes, restype) of every exported function
@@ -37,6 +38,14 @@ SIGNATURES = {
     },
     "influence": {
         "repro_influence_update": ([_P] * 10 + [_I] * 3 + [_P], _I),
+        "repro_error_string": ([_I], ctypes.c_char_p),
+    },
+    "event_matmul": {
+        "repro_event_matmul": ([_P] * 6 + [_I] * 4 + [_P], _I),
+        "repro_error_string": ([_I], ctypes.c_char_p),
+    },
+    "wkv": {
+        "repro_wkv": ([_P] * 8 + [_I] * 6 + [_P], _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -108,3 +117,18 @@ def load(name: str) -> ctypes.CDLL:
 
 def error_string(lib: ctypes.CDLL, err: int) -> str:
     return f"error {err}: {lib.repro_error_string(err).decode()}"
+
+
+def check_operand(kernel: str, name: str, t, dtypes, shape, device) -> None:
+    """Raise unless tensor `t` has one of `dtypes`, `shape`, is contiguous
+    and lies on `device`: what a kernel's pointer arithmetic assumes."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"{kernel}: {name} must be "
+                        f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")

@@ -114,16 +114,6 @@ def fused_reference(Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"fused_update: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"fused_update: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"fused_update: {name} must be contiguous")
-
-
 def fused_update(Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev,
                  count_new, count_prev):
     """One fused dual-compact influence update.
@@ -143,22 +133,20 @@ def fused_update(Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev,
         raise ValueError(f"fused_update: no kernel for device {vals.device}")
     B, K, Pc = vals.shape
     n = Jhat.shape[-1]
-    if vals.dtype not in _DTYPE_CODE:
-        raise TypeError(f"fused_update: carry dtype {vals.dtype} not in "
-                        f"{tuple(_DTYPE_CODE)}")
-    _check("vals", vals, vals.dtype, (B, K, Pc))
-    _check("Jhat", Jhat, torch.float32, (B, n, n))
-    _check("mbar_rows", mbar_rows, torch.float32, (B, K, Pc))
-    _check("hp_rows", hp_rows, torch.float32, (B, K))
-    for name, t, shape in (("idx_new", idx_new, (B, K)),
-                           ("idx_prev", idx_prev, (B, K)),
-                           ("count_new", count_new, (B,)),
-                           ("count_prev", count_prev, (B,))):
-        _check(name, t, torch.int32, shape)
+    f32, i32 = (torch.float32,), (torch.int32,)
+    for name, t, dtypes, shape in (
+            ("vals", vals, tuple(_DTYPE_CODE), (B, K, Pc)),
+            ("Jhat", Jhat, f32, (B, n, n)),
+            ("mbar_rows", mbar_rows, f32, (B, K, Pc)),
+            ("hp_rows", hp_rows, f32, (B, K)),
+            ("idx_new", idx_new, i32, (B, K)),
+            ("idx_prev", idx_prev, i32, (B, K)),
+            ("count_new", count_new, i32, (B,)),
+            ("count_prev", count_prev, i32, (B,))):
+        _build.check_operand("fused_update", name, t, dtypes, shape,
+                             vals.device)
     args = (Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev, count_new,
             count_prev)
-    if any(t.device != vals.device for t in args):
-        raise ValueError("fused_update: all operands must be on one device")
     out = torch.empty_like(vals)
     lib = _build.load("compact_fused")
     stream = torch.cuda.current_stream(vals.device).cuda_stream

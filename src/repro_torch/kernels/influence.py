@@ -111,17 +111,6 @@ def influence_reference(hp, Jhat, M, Mbar, *, row_mask, prev_mask, col_mask,
 # The wrapper: the CUDA kernel on the card, the plain version on the CPU
 # ---------------------------------------------------------------------------
 
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"influence_update: {name} must be {dtype}, "
-                        f"got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"influence_update: {name} has shape "
-                         f"{tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"influence_update: {name} must be contiguous")
-
-
 def influence_update(hp, Jhat, M, Mbar, *, row_mask, prev_mask, col_mask,
                      jmask, block_count: torch.Tensor | None = None):
     """One block-sparse influence update on padded operands (see the module
@@ -144,20 +133,21 @@ def influence_update(hp, Jhat, M, Mbar, *, row_mask, prev_mask, col_mask,
     if n % BK or P % BP:
         raise ValueError(f"influence_update: padded shapes need n % {BK} == 0 "
                          f"and P % {BP} == 0, got n={n}, P={P}")
-    f32 = torch.float32
-    _check("M", M, f32, (B, n, P))
-    _check("Mbar", Mbar, f32, (B, n, P))
-    _check("Jhat", Jhat, f32, (B, n, n))
-    _check("hp", hp, f32, (B, n))
-    for name, shape in (("row_mask", (B, n // BK)), ("prev_mask", (B, n // BL)),
-                        ("col_mask", (P // BP,)), ("jmask", (n // BK, n // BL))):
-        _check(name, masks[name], torch.int32, shape)
+    f32, i32 = (torch.float32,), (torch.int32,)
+    for name, t, dtypes, shape in (
+            ("M", M, f32, (B, n, P)),
+            ("Mbar", Mbar, f32, (B, n, P)),
+            ("Jhat", Jhat, f32, (B, n, n)),
+            ("hp", hp, f32, (B, n)),
+            ("row_mask", row_mask, i32, (B, n // BK)),
+            ("prev_mask", prev_mask, i32, (B, n // BL)),
+            ("col_mask", col_mask, i32, (P // BP,)),
+            ("jmask", jmask, i32, (n // BK, n // BL)),
+            ("block_count", block_count, (torch.int64,), (1,))):
+        if t is not None:
+            _build.check_operand("influence_update", name, t, dtypes, shape,
+                                 M.device)
     args = [hp, Jhat, M, Mbar, row_mask, prev_mask, col_mask, jmask]
-    if block_count is not None:
-        _check("block_count", block_count, torch.int64, (1,))
-        args.append(block_count)
-    if any(t.device != M.device for t in args):
-        raise ValueError("influence_update: all operands must be on one device")
     out = torch.empty_like(M)
     lib = _build.load("influence")
     stream = torch.cuda.current_stream(M.device).cuda_stream

@@ -1,18 +1,20 @@
-"""Public wrapper of the block-sparse influence update, and its block
-accounting.
+"""Public wrappers of the block-sparse kernels, and their block accounting.
 
-Counterpart of `repro.kernels.ops` (the slice's part: `event_matmul` comes
-with kernel K3).  `influence_update` pads the operands to the kernel's
-block multiples (8 rows, 128 columns), derives the four block masks, hands
-them to `kernels.influence.influence_update` (the CUDA kernel on CUDA
-tensors, its plain version on CPU tensors) and crops the result back.
+Counterpart of `repro.kernels.ops`.  `influence_update` pads the operands
+to the kernel's block multiples (8 rows, 128 columns), derives the four
+block masks, hands them to `kernels.influence.influence_update` (the CUDA
+kernel on CUDA tensors, its plain version on CPU tensors) and crops the
+result back.  `event_matmul` does the same for
+`kernels.event_matmul.event_matmul`: pads a to 8 columns and R to 8 rows
+and 128 columns, takes the activity blocks of a and the parameter blocks of
+an optional rmask, and crops.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import influence as IN
+from repro_torch.kernels import event_matmul as EM, influence as IN
 
 
 def _pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
@@ -50,6 +52,34 @@ def influence_update(hp, Jhat, M, Mbar, jmask=None, col_mask=None):
     out = IN.influence_update(hp_p, J_p, M_p, Mb_p, row_mask=row,
                               prev_mask=prev, col_mask=cols, jmask=jm)
     return out[:, :n, :P]
+
+
+def event_matmul_operands(a, R, rmask=None):
+    """The kernel's padded, contiguous operands and block masks:
+    (a_p, R_p, act_mask, rmask_blocks).  a [B, n]; R [n, m]; rmask an
+    optional [n, m] parameter mask, cast to int32 as the reference does (a
+    block is live where any entry is non-zero after the cast)."""
+    a_p = _pad_to(a, EM.BL, 1)
+    R_p = _pad_to(_pad_to(R, EM.BL, 0), EM.BM, 1)
+    n_p, m_p = R_p.shape
+    act = IN.block_any(a_p, EM.BL, axis=1)
+    if rmask is None:
+        rm = torch.ones((n_p // EM.BL, m_p // EM.BM), dtype=torch.int32,
+                        device=R.device)
+    else:
+        rm = _pad_to(_pad_to(rmask.int(), EM.BL, 0), EM.BM, 1)
+        rm = (rm.reshape(n_p // EM.BL, EM.BL, m_p // EM.BM, EM.BM) != 0).any(
+            dim=3).any(dim=1).int()
+    return tuple(t.contiguous() for t in (a_p, R_p, act, rm))
+
+
+def event_matmul(a, R, rmask=None):
+    """Activity-sparse y = a @ R. a: [B,n]; R: [n,m], one dtype (f32 or
+    bf16); rmask: optional [n,m] parameter mask.  The result, in R's dtype,
+    is cropped back to [B, m]."""
+    m = R.shape[1]
+    a_p, R_p, act, rm = event_matmul_operands(a, R, rmask)
+    return EM.event_matmul(a_p, R_p, act_mask=act, rmask=rm)[:, :m]
 
 
 def _np(x) -> np.ndarray:

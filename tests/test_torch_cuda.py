@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import compact_fused as CF
-from repro_torch.kernels import influence as IN, ops as OPS
+from repro_torch.kernels import compact_fused as CF, event_matmul as EM
+from repro_torch.kernels import influence as IN, ops as OPS, wkv as WK
 
 F32_REL = 1e-5
 BF16_STEP = 2.0 ** -7
@@ -205,3 +205,140 @@ def test_first_window_on_cuda_matches_cpu(cuda, backend):
     for a, b in zip(gg, gc):
         scale = max(float(b.abs().max()), 1e-3)
         assert float((a.cpu() - b).abs().max()) <= F32_REL * scale
+
+
+def _wkv_operands(device, dtype, B, H, T, D, *, ww=None, with_S0=False, seed=0):
+    """r/k/v in `dtype`, logw f32 (from -exp(normal), or the constant
+    -exp(ww)), u f32, and an optional f32 initial state, on `device`."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(B, H, T, D)).astype(np.float32) for _ in range(3))
+    logw = -np.exp(rng.normal(size=(B, H, T, D)) if ww is None
+                   else np.full((B, H, T, D), ww)).astype(np.float32)
+    u = rng.normal(size=(H, D)).astype(np.float32)
+    S0 = rng.normal(size=(B, H, D, D)).astype(np.float32) if with_S0 else None
+    t = lambda a: None if a is None else torch.from_numpy(a).to(device)
+    return [t(r).to(dtype), t(k).to(dtype), t(v).to(dtype), t(logw), t(u), t(S0)]
+
+
+def _close_or_one_bf16_step(got, want, bf16):
+    err = (got - want).abs()
+    scale = max(float(want.abs().max()), 1.0)
+    if bf16:
+        assert bool((err <= BF16_STEP * want.abs() + F32_REL * scale).all())
+    else:
+        assert float(err.max()) <= F32_REL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,D,L,ww,with_S0", [
+    (2, 3, 64, 64, 16, None, False),     # RWKV6-3B's head and chunk
+    (2, 3, 64, 64, 16, None, True),      # a given initial state
+    (1, 2, 16, 64, 16, None, True),      # T == L
+    (1, 2, 8, 64, 8, None, False),       # T < chunk: wkv_full takes L = T
+    (2, 2, 32, 16, 8, 10.0, True),       # logw = -e^10 (clip end)
+    (2, 2, 32, 16, 8, -20.0, True),      # logw = -e^-20 (clip end)
+    (1, 1, 96, 64, 32, None, False),     # a chunk past 48 KB of shared memory
+])
+def test_wkv_kernel_matches_plain_version(cuda, dtype, B, H, T, D, L, ww,
+                                          with_S0):
+    ops = _wkv_operands(cuda, dtype, B, H, T, D, ww=ww, with_S0=with_S0)
+    before = WK.wkv.launches
+    o, S = WK.wkv(*ops, chunk=L)
+    torch.cuda.synchronize()
+    assert WK.wkv.launches == before + 1
+    o_ref, S_ref = WK.wkv_reference(*ops, chunk=L)
+    assert WK.wkv.launches == before + 1
+    assert o.dtype == S.dtype == torch.float32
+    assert bool(torch.isfinite(o).all() and torch.isfinite(S).all())
+    _close_or_one_bf16_step(o, o_ref, dtype == torch.bfloat16)
+    _close_or_one_bf16_step(S, S_ref, dtype == torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_wkv_kernel_rejects_bad_operands(cuda):
+    r, k, v, logw, u, _ = _wkv_operands(cuda, torch.float32, 1, 2, 32, 16)
+    with pytest.raises(TypeError, match="logw"):
+        WK.wkv(r, k, v, logw.bfloat16(), u, chunk=8)
+    with pytest.raises(TypeError, match="k must be"):
+        WK.wkv(r, k.bfloat16(), v, logw, u, chunk=8)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        WK.wkv(r, k, v, logw, u, chunk=12)
+    with pytest.raises(ValueError, match="u is on cpu"):
+        WK.wkv(r, k, v, logw, u.cpu(), chunk=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        WK.wkv(r, k, v.transpose(2, 3).contiguous().transpose(2, 3), logw, u,
+               chunk=8)
+    with pytest.raises(ValueError, match="D <= 64"):
+        WK.wkv(*(torch.zeros((1, 1, 8, 128), device=cuda) for _ in range(4)),
+               torch.zeros((1, 128), device=cuda), chunk=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,n,m,density", [(32, 16, 16, 1.0), (32, 256, 768, 0.5),
+                                           (1, 40, 130, 1.0), (3, 24, 256, 0.0)])
+def test_event_matmul_kernel_matches_plain_version(cuda, dtype, B, n, m, density):
+    rng = np.random.default_rng(n + m)
+    a = rng.normal(size=(B, n)).astype(np.float32)
+    a[rng.random((B, n)) > density] = 0.0
+    R = rng.normal(size=(n, m)).astype(np.float32)
+    rmask = (rng.random((n, m)) < 0.7).astype(np.float32)
+    a, R, rmask = (torch.from_numpy(x).to(cuda) for x in (a, R, rmask))
+    a_p, R_p, act, rm = OPS.event_matmul_operands(a.to(dtype), R.to(dtype), rmask)
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    before = EM.event_matmul.launches
+    y = EM.event_matmul(a_p, R_p, act_mask=act, rmask=rm, block_count=count)
+    torch.cuda.synchronize()
+    assert EM.event_matmul.launches == before + 1
+    ref = EM.event_matmul_reference(a_p, R_p, act_mask=act, rmask=rm)
+    assert y.dtype == dtype and y.shape == ref.shape
+    _close_or_one_bf16_step(y.float(), ref.float(), dtype == torch.bfloat16)
+    assert int(count) == int(EM.executed_blocks(act, rm))
+    got = OPS.event_matmul(a.to(dtype), R.to(dtype), rmask)   # the cropped front end
+    assert tuple(got.shape) == (B, m)
+
+
+@pytest.mark.cuda
+def test_event_matmul_kernel_rejects_bad_operands(cuda):
+    a_p, R_p, act, rm = OPS.event_matmul_operands(
+        torch.ones((2, 16), device=cuda), torch.ones((16, 128), device=cuda))
+    with pytest.raises(TypeError, match="a must be"):
+        EM.event_matmul(a_p.bfloat16(), R_p, act_mask=act, rmask=rm)
+    with pytest.raises(TypeError, match="act_mask"):
+        EM.event_matmul(a_p, R_p, act_mask=act.long(), rmask=rm)
+    with pytest.raises(ValueError, match="rmask is on cpu"):
+        EM.event_matmul(a_p, R_p, act_mask=act, rmask=rm.cpu())
+    with pytest.raises(ValueError, match="padded shapes"):
+        EM.event_matmul(a_p[:, :12].contiguous(), R_p[:12].contiguous(),
+                        act_mask=act, rmask=rm)
+    with pytest.raises(TypeError, match="block_count"):
+        EM.event_matmul(a_p, R_p, act_mask=act, rmask=rm,
+                        block_count=torch.zeros(1, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", [False, True])
+def test_rwkv_prefill_on_cuda_matches_cpu(cuda, scan):
+    """The smoke RWKV6 model (2 layers, f32): a CUDA prefill launches K4
+    once per layer and agrees with the same prefill on the CPU; decoding on
+    from its cache agrees too."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import rwkv as RW
+    from repro_torch.models.module import materialize
+    from repro_torch.tree import tree_map
+    cfg = smoke_config(get_config("rwkv6-3b")).replace(scan_layers=scan)
+    params = materialize(RW.rwkv_model_specs(cfg), torch.Generator().manual_seed(0))
+    gpu = tree_map(lambda t: t.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 32)))
+    before = WK.wkv.launches
+    lg, cg = RW.prefill(cfg, gpu, toks.to(cuda))
+    assert WK.wkv.launches == before + cfg.n_layers
+    lc, cc = RW.prefill(cfg, params, toks)
+    scale = max(float(lc.abs().max()), 1.0)
+    assert float((lg.cpu() - lc).abs().max()) <= F32_REL * scale
+    nxt = lc.argmax(-1)[:, None]
+    dg, _ = RW.decode_step(cfg, gpu, nxt.to(cuda), cg, None)
+    dc, _ = RW.decode_step(cfg, params, nxt, cc, None)
+    scale = max(float(dc.abs().max()), 1.0)
+    assert float((dg.cpu() - dc).abs().max()) <= F32_REL * scale

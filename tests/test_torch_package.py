@@ -10,6 +10,17 @@ from pathlib import Path
 import pytest
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+# every module the port has so far
+EXPECTED = {
+    "configs", "configs.base", "configs.egru_spiral", "configs.rwkv6_3b",
+    "cells", "cells.egru", "core.bptt", "core.cells", "core.learner",
+    "core.sparse_rtrl", "core.stacked_rtrl", "data.spiral", "device",
+    "kernels._build", "kernels.compact", "kernels.compact_fused",
+    "kernels.event_matmul", "kernels.influence", "kernels.ops", "kernels.ref",
+    "kernels.wkv", "launch.serve", "launch.train", "models", "models.layers",
+    "models.module", "models.rwkv", "models.transformer", "optim.optimizers",
+    "runtime.online", "runtime.serving", "tree", "weights",
+}
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -29,15 +40,17 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'
              or m == 'repro' or m.startswith('repro.'))
-print(len(names), bad)
+print(len(names), bad, ' '.join(names))
 assert not bad, bad
 from repro_torch.kernels import _build
 assert not _build._loaded, 'a kernel was built or loaded at import'
 """
     r = _run(code)
     assert r.returncode == 0, r.stderr
-    n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 20
+    words = r.stdout.split()
+    names = {w.removeprefix("repro_torch.") for w in words[2:]}
+    assert int(words[0]) == len(names) >= len(EXPECTED)
+    assert EXPECTED <= names, sorted(EXPECTED - names)
 
 
 def test_package_mirrors_reference_module_paths():

@@ -1,0 +1,114 @@
+"""The port's serving path (`repro_torch.runtime.serving.Engine`,
+`repro_torch.launch.serve`) held against the JAX package's on the same
+parameters: the reference Engine's default draw (`materialize` at key 0)
+moved to the port through numpy.  Greedy decoding only: the port's gumbel
+noise comes from a torch.Generator and cannot equal `jax.random`'s.
+Token ids must be equal; the logits behind them agree to f32 round-off
+(`tests/test_torch_rwkv.py`).
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config, smoke_config as jsmoke
+from repro.runtime.serving import Engine as JEngine, ServeConfig as JServeConfig
+from repro_torch import weights as W
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.launch import serve as SERVE
+from repro_torch.runtime.serving import Engine, ServeConfig
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _engines(**scfg):
+    """(reference engine, port engine on the reference's parameters)."""
+    jeng = JEngine(jsmoke(jget_config("rwkv6-3b")), JServeConfig(**scfg))
+    params = W.params_from_numpy(jax.tree.map(np.asarray, jeng.params), "cpu",
+                                 dtype=None)
+    eng = Engine(smoke_config(get_config("rwkv6-3b")), ServeConfig(**scfg),
+                 params=params, device="cpu")
+    return jeng, eng
+
+
+def test_greedy_generate_equals_reference():
+    jeng, eng = _engines(batch_slots=2, max_seq=32)
+    prompts = [[1, 2, 3], [4, 5]]
+    want = jeng.generate(prompts, max_new=6)
+    got = eng.generate(prompts, max_new=6)
+    assert got == want
+    assert all(len(o) == 6 for o in got) and eng.failed_requests == set()
+    # more requests than slots: finished slots are refilled from the queue
+    prompts = [[7, 8, 9, 10], [11], [12, 13], [14, 15, 16]]
+    assert eng.generate(prompts, max_new=4) == jeng.generate(prompts, max_new=4)
+
+
+def test_per_request_budget_fails_only_stuck_request():
+    jeng, eng = _engines(batch_slots=2, max_seq=32, max_request_steps=6)
+    prompts = [[1, 2, 3, 4, 5, 6, 7, 8], [4, 5]]
+    want = jeng.generate(prompts, max_new=3)
+    got = eng.generate(prompts, max_new=3)
+    assert got == want
+    assert eng.failed_requests == jeng.failed_requests == {0}
+    assert len(got[0]) < 3 and len(got[1]) == 3
+
+
+def test_sampling_is_seeded_on_the_generator():
+    cfg = smoke_config(get_config("rwkv6-3b"))
+    outs = []
+    for seed in (3, 3, 4):
+        eng = Engine(cfg, ServeConfig(batch_slots=2, max_seq=32, temperature=1.0,
+                                      seed=seed), device="cpu")
+        outs.append(eng.generate([[1, 2, 3], [4, 5]], max_new=8))
+    assert outs[0] == outs[1] and outs[0] != outs[2]
+
+
+def test_serve_launcher_smoke_on_cpu(capsys):
+    out = SERVE.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu"])
+    s = out["summary"]
+    assert s["requests"] == 6 and s["tokens"] == 6 * 12 and s["failed"] == 0
+    assert out["failed_requests"] == [] and all(len(o) == 12 for o in out["outputs"])
+    assert '"tok_per_s"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--arch", "rwkv6-3b", "--fleet", "--device", "cpu"], "item 10"),
+    (["--arch", "gemma2-2b", "--smoke", "--device", "cpu"], "item 14"),
+    (["--smoke", "--device", "cpu"], "item 14"),         # the reference's default arch
+    (["--arch", "rwkv6-3b", "--smoke", "--device", "cpu", "--metrics-dir", "x"],
+     "item 11"),
+])
+def test_serve_launcher_rejects_what_is_not_ported(argv, match):
+    with pytest.raises(NotImplementedError, match=match):
+        SERVE.main(argv)
+
+
+def test_engine_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = smoke_config(get_config("rwkv6-3b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, ServeConfig())
+
+
+def test_serve_entry_point_raises_without_cuda():
+    code = """
+import torch
+torch.cuda.is_available = lambda: False
+from repro_torch.launch import serve
+try:
+    serve.main(['--arch', 'rwkv6-3b', '--smoke'])
+except RuntimeError as e:
+    print('raised:', e)
+else:
+    raise SystemExit('ran without CUDA')
+"""
+    r = subprocess.run([sys.executable, "-c", code],
+                       env=dict(os.environ, PYTHONPATH=str(SRC)),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "raised: CUDA is not available" in r.stdout
