@@ -26,7 +26,13 @@ checkout, it exits non-zero and prints no result.  Phases:
      Dead row and column blocks must be exactly zero, and the kernel's
      executed-block counter must equal `realized_block_savings` times the
      block count.  Times at (a) and (b): kernel, plain version, the bound,
-     and as `library_ms` torch.baddbmm(M-bar, J-hat, M) with TF32 off;
+     and as `library_ms` torch.baddbmm(M-bar, J-hat, M) with TF32 off, each
+     by time_ms (one window of back-to-back calls); besides, the kernel and
+     the library call timed in turn (the median of 5 rounds); the device µs
+     of both from a torch.profiler trace; at (a) the wrapper's host µs and
+     where they go (checks, allocation, stream, the ctypes call, the rest);
+     the launch floor, an empty kernel through the same ctypes route, timed
+     by time_ms;
   4. the main paths: `repro_torch.launch.train --arch egru-spiral --online
      --rtrl-backend B --sparsity 0.8 --update-every 8 --steps 20` on the
      card, in-process, for B = compact_fused (K1 launches counted), pallas
@@ -42,7 +48,10 @@ checkout, it exits non-zero and prints no result.  Phases:
      n=256, m=768 with activity and parameter blocks at block density 0.5,
      (c) the shape (1, 40, 130) and an all-zero a; its executed-block
      counter against the host count; times at (a) and (b) beside the bound
-     and `torch.matmul`; then its entry point `kernels.ops.event_matmul`
+     and `torch.matmul` in the same dtype (by time_ms, and in turn, as
+     K2's), device
+     µs of both (profiler) and the wrapper's host µs as for K2; then its
+     entry point `kernels.ops.event_matmul`
      driven over the main path's first window (3 gates x 8 steps, counts
      reset before and read after), held against the dense a_prev @ R
      (no engine calls K3, as in the reference);
@@ -132,6 +141,67 @@ def time_ms(torch, fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_alternating(torch, fns, iters, rounds=5):
+    """Median ms per call of each of `fns` ({name: fn}) over `rounds` rounds
+    of time_ms(iters), the fns taken in turn in every round, so that drift
+    in the shared host's speed falls on all of them alike."""
+    got = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            got[name].append(time_ms(torch, fn, iters))
+    return {name: statistics.median(v) for name, v in got.items()}
+
+
+def device_us(torch, fn, calls=20):
+    """Device µs per call of fn: every device kernel's time in a
+    torch.profiler trace of `calls` back-to-back calls, summed, over the
+    calls; None where the profiler records no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    return sum(dev) / calls if dev else None
+
+
+def host_us(torch, fn, iters=2000, warmup=20):
+    """Host µs per call: the host clock over `iters` back-to-back calls,
+    the device drained before; what the caller's thread spends to issue
+    one call, where the device keeps up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def launch_path(torch, parts):
+    """Host µs of a wrapper's call and of each part of its launch path,
+    each timed alone ({name: fn} in, {name: µs} out); "rest" is what the
+    call spends beyond the parts (argument handling, the counter)."""
+    got = {name: host_us(torch, fn) for name, fn in parts.items()}
+    got["rest"] = got["call"] - sum(v for k, v in got.items()
+                                    if k not in ("call", "launch floor"))
+    return got
+
+
+def fmt_path(path):
+    return (f"call {path['call']:.2f} us = " + " + ".join(
+        f"{k} {v:.2f}" for k, v in path.items()
+        if k not in ("call", "launch floor")) +
+        f"; launch floor (empty kernel, same route) {path['launch floor']:.2f} us")
 
 
 def k1_bound(torch, ops):
@@ -316,23 +386,52 @@ def compare_k2(torch, IN, OPS, unpadded, label):
     return err, ops
 
 
-def time_k2(torch, IN, ops, iters):
-    """(kernel ms, plain ms, library ms, bound ms, bound_by)."""
+def time_k2(torch, IN, ops, iters, alt_iters, host=True):
+    """(kernel ms, plain ms, library ms, bound ms, bound_by), each by
+    time_ms (one window); the kernel and the library call also timed in
+    turn (alt_ms, alt_library_ms: the median of 5 rounds of alt_iters
+    calls); the device µs of both (profiler); with `host` the wrapper's
+    launch path in host µs."""
+    from repro_torch.kernels import _build
     masks = k2_masks(ops)
-    ms = time_ms(torch, lambda: IN.influence_update(*ops[:4], **masks), iters)
+    call = lambda: IN.influence_update(*ops[:4], **masks)
+    ms = time_ms(torch, call, iters)
     plain = time_ms(torch, lambda: IN.influence_reference(*ops[:4], **masks),
                     max(iters // 10, 3))
     hp, J, M, Mbar = ops[:4]
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        lib = time_ms(torch, lambda: torch.baddbmm(Mbar, J, M), iters)
+        library = lambda: torch.baddbmm(Mbar, J, M)
+        lib = time_ms(torch, library, iters)
+        alt = time_alternating(torch, {"ms": call, "lib": library},
+                               alt_iters)
+        lib_dev = device_us(torch, library)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     bound, by, nbytes, flops = k2_bound(torch, ops)
-    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-            "flops": flops}
+    out = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+           "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+           "flops": flops, "alt_ms": alt["ms"], "alt_library_ms": alt["lib"],
+           "device_us": device_us(torch, call),
+           "library_device_us": lib_dev}
+    if host:
+        B, n, P = M.shape
+        dev, args = M.device, tuple(ops[:8])
+        ptrs = [t.data_ptr() for t in args]
+        kc = IN._call(B, n, P, dev, False)
+        y = torch.empty_like(M)
+        packed = kc.pack(*ptrs, y.data_ptr(), 0, *kc.dims,
+                         _build.current_stream(dev))
+        out["host_us"] = launch_path(torch, {
+            "call": call,
+            "checks": lambda: (kc.matches(args),
+                               list(map(torch.Tensor.data_ptr, args))),
+            "allocation": lambda: torch.empty_like(M),
+            "stream": lambda: _build.current_stream(dev),
+            "ctypes call": lambda: kc.fn(packed),
+            "launch floor": lambda: IN.empty_launch(dev)})
+    return out
 
 
 def k2_main_operands(torch, TRAIN, SP, ON, dev, *extra, steps=5):
@@ -615,15 +714,37 @@ def compare_k3(torch, EM, OPS, a, R, rmask, label):
 
 
 def time_k3(torch, EM, ops, iters):
+    """K3's times as time_k2's, beside torch.matmul in the same dtype."""
+    from repro_torch.kernels import _build, influence as IN
     a, R, act, rm = ops
-    ms = time_ms(torch, lambda: EM.event_matmul(a, R, act_mask=act, rmask=rm),
-                 iters)
+    call = lambda: EM.event_matmul(a, R, act_mask=act, rmask=rm)
+    ms = time_ms(torch, call, iters)
     plain = time_ms(torch, lambda: EM.event_matmul_reference(
         a, R, act_mask=act, rmask=rm), max(iters // 10, 3))
-    lib = time_ms(torch, lambda: torch.matmul(a, R), iters)
+    library = lambda: torch.matmul(a, R)
+    lib = time_ms(torch, library, iters)
+    alt = time_alternating(torch, {"ms": call, "lib": library}, iters // 5)
     bound, by, nbytes, flops = k3_bound(torch, ops)
+    B, n, m, dev = a.shape[0], a.shape[1], R.shape[1], R.device
+    args = (R, a, act, rm)
+    ptrs = [t.data_ptr() for t in args]
+    kc = EM._call(B, n, m, R.dtype, dev, False)
+    y = torch.empty_like(kc.out_like)
+    packed = kc.pack(ptrs[1], ptrs[0], ptrs[2], ptrs[3], y.data_ptr(), 0,
+                     *kc.dims, _build.current_stream(dev))
+    host = launch_path(torch, {
+        "call": call,
+        "checks": lambda: (kc.matches(args),
+                           list(map(torch.Tensor.data_ptr, args))),
+        "allocation": lambda: torch.empty_like(kc.out_like),
+        "stream": lambda: _build.current_stream(dev),
+        "ctypes call": lambda: kc.fn(packed),
+        "launch floor": lambda: IN.empty_launch(dev)})
     return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
-            "bound_by": by, "bytes": nbytes, "flops": flops}
+            "bound_by": by, "bytes": nbytes, "flops": flops,
+            "alt_ms": alt["ms"], "alt_library_ms": alt["lib"],
+            "device_us": device_us(torch, call),
+            "library_device_us": device_us(torch, library), "host_us": host}
 
 
 def k3_main_operands(torch, TRAIN, ON, steps=5):
@@ -713,10 +834,16 @@ def k3_checks(torch, dev, TRAIN, ON, EM, OPS):
                 "(b) n=256 f32": time_k3(torch, EM, k3_big_ops, 200),
                 "(b) n=256 bf16": time_k3(torch, EM, k3_big_bf16, 200)}
     for label, t in k3_times.items():
+        dt = label.split()[-1]
         log(f"K3 time {label}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, torch.matmul {t['library_ms']:.4f} ms, "
-            f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {t['bytes']:.0f} "
-            f"B, {t['flops']:.0f} FLOP)")
+            f"{t['plain_ms']:.4f} ms, torch.matmul ({dt}) "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']}: {t['bytes']:.0f} B, {t['flops']:.0f} FLOP)")
+        log(f"K3 in turn {label}: kernel {t['alt_ms']:.4f} ms, torch.matmul "
+            f"({dt}) {t['alt_library_ms']:.4f} ms (median of 5 rounds)")
+        log(f"K3 device {label}: kernel {t['device_us']} us, torch.matmul "
+            f"({dt}) {t['library_device_us']} us (profiler, 20 calls)")
+        log(f"K3 host {label}: {fmt_path(t['host_us'])}")
     log("K3 times json: " + json.dumps(k3_times))
     k3_counts = k3_path(torch, TRAIN, OPS)
     t3 = k3_times["(a) f32"]
@@ -1112,15 +1239,27 @@ def main():
     edge_masked, edge_first = k2_edges(torch, dev)
     compare_k2(torch, IN, OPS, edge_masked, "(c) padded, dead example")
     compare_k2(torch, IN, OPS, edge_first, "(c) first step, no masks")
-    k2_times = {"(a) full width": time_k2(torch, IN, k2_full_ops, 500),
-                "(a) column-compact": time_k2(torch, IN, k2_comp_ops, 500),
-                "(b) n=256": time_k2(torch, IN, k2_big_ops, 20)}
+    k2_times = {"(a) full width": time_k2(torch, IN, k2_full_ops, 500, 100),
+                "(a) column-compact": time_k2(torch, IN, k2_comp_ops, 500,
+                                              100),
+                # device-bound: its host path is the one timed at (a)
+                "(b) n=256": time_k2(torch, IN, k2_big_ops, 20, 50,
+                                     host=False)}
     del k2_big_ops
     for label, t in k2_times.items():
         log(f"K2 time {label}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, baddbmm {t['library_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']:.0f} B, "
             f"{t['flops']:.0f} FLOP)")
+        log(f"K2 in turn {label}: kernel {t['alt_ms']:.4f} ms, baddbmm "
+            f"{t['alt_library_ms']:.4f} ms (median of 5 rounds)")
+        log(f"K2 device {label}: kernel {t['device_us']} us, baddbmm "
+            f"{t['library_device_us']} us (profiler, 20 calls)")
+        if "host_us" in t:
+            log(f"K2 host {label}: {fmt_path(t['host_us'])}")
+    log("launch floor: an empty kernel through the kernels' ctypes route, "
+        f"{time_ms(torch, lambda: IN.empty_launch(dev), 2000):.5f} ms a call "
+        "(time_ms)")
     log("K2 times json: " + json.dumps(k2_times))
 
     # -- phase 4: the main paths --------------------------------------------

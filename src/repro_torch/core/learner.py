@@ -33,7 +33,7 @@ import torch
 from repro_torch.cells import resolve_cell
 from repro_torch.core import cells, sparse_rtrl as SP
 from repro_torch.core.cells import EGRUConfig, StackedEGRUConfig
-from repro_torch.kernels import compact as CK
+from repro_torch.kernels import compact as CK, ops as kops
 from repro_torch.tree import tree_map
 
 Tree = Any
@@ -199,6 +199,10 @@ class SparseLearner(_LearnerBase):
             self._colm = colm
             self._jm = SP.flat_jmask(cfg, masks)
             P_carry = self._cl.Pc_pad if col_compact else layout.P_pad
+            # the kernel's column and J block masks are fixed for the run
+            self._kmasks = kops.constant_block_masks(
+                cfg.n_hidden, P_carry, self._jm,
+                self._cl.live if col_compact else colm, device=device)
             carry["gw"] = torch.zeros((P_carry,), dtype=torch.float32,
                                       device=device)
             carry["M"] = torch.zeros((B, cfg.n_hidden, P_carry),
@@ -238,11 +242,11 @@ class SparseLearner(_LearnerBase):
             new["M"] = M_new
             row_density = SP._row_density(M_new)
         elif self.backend == "pallas":
-            from repro_torch.kernels import ops as kops
             a_new, hp, operands = SP.pallas_step_operands(
                 cfg, w, self.layout, carry["a"], carry["M"], x_t, cl=self._cl,
                 col_mask=self._colm, jmask=self._jm)
-            M_new = kops.influence_update(*operands)
+            M_new = kops.influence_update(*operands,
+                                          block_masks=self._kmasks)
             lt, logits, gout_t, cbar = self._inst_loss_and_grads(
                 params["out"], a_new, y_t, carry["t_total"])
             gw_t = torch.einsum("bk,bkp->p", cbar, M_new)

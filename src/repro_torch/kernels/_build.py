@@ -4,14 +4,23 @@ Each source `csrc/<name>.cu` exposes a plain C interface and is compiled by
 nvcc, at first use, into a shared library under `build/repro_torch/` at the
 repository root, named by a hash of the source and the flags — a changed
 source builds anew, an unchanged one is reused.  The library is loaded with
-ctypes; every pointer and the stream are passed as `c_void_p`.
+ctypes, with `argtypes` set: every pointer and the stream are `c_void_p`
+there, so a wrapper may hand them over as plain Python ints.  K2 and K3
+take their launch arguments packed in one buffer of 64-bit ints
+(`KernelCall.launch`): one argument for ctypes to convert instead of 11 to
+14.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so csrc/<name>.cu \\
+         -lcuda
 
 `build(names)` starts one nvcc per source, all together, and waits for them;
 a failed build raises with nvcc's stderr.  Nothing here runs at import.
-`check_operand` is the operand check every kernel's wrapper makes.
+`check_operand` is the operand check every kernel's wrapper makes;
+`KernelCall` makes the same check in one comparison per operand, for the
+wrappers whose host time matters (K2, K3), and `KernelCall.launch` keeps
+the rest of their launch path light: the device entered only when it is
+not current, the raw stream handle, the arguments packed.
 """
 from __future__ import annotations
 
@@ -19,14 +28,18 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIBS = ("-lcuda",)   # the driver API (csrc/driver_launch.cuh); after the source
 KERNELS = ("compact_fused", "influence", "event_matmul", "wkv")
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
@@ -37,11 +50,13 @@ SIGNATURES = {
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "influence": {
-        "repro_influence_update": ([_P] * 10 + [_I] * 3 + [_P], _I),
+        # the launch arguments packed in one buffer (`KernelCall`)
+        "repro_influence_update": ([ctypes.c_char_p], _I),
+        "repro_empty_launch": ([ctypes.c_char_p], _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "event_matmul": {
-        "repro_event_matmul": ([_P] * 6 + [_I] * 4 + [_P], _I),
+        "repro_event_matmul": ([ctypes.c_char_p], _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "wkv": {
@@ -67,8 +82,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, the shared
+    headers (csrc/*.cuh) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + " ".join(FLAGS + LIBS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -84,7 +102,7 @@ def build(names=KERNELS) -> float:
     procs = {}
     for name in todo:
         tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [exe, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [exe, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"), *LIBS]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failed = []
@@ -132,3 +150,71 @@ def check_operand(kernel: str, name: str, t, dtypes, shape, device) -> None:
         raise ValueError(f"{kernel}: {name} must be contiguous")
     if t.device != device:
         raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
+
+
+def contiguous_strides(shape) -> tuple:
+    """The strides torch gives a contiguous tensor of `shape`."""
+    strides, step = [], 1
+    for d in reversed(shape):
+        strides.append(step)
+        step *= max(d, 1)
+    return tuple(reversed(strides))
+
+
+_get_device = (getattr(torch._C, "_cuda_getDevice", None)
+               or torch.cuda.current_device)
+_raw_stream = (getattr(torch._C, "_cuda_getCurrentRawStream", None)
+               or (lambda index: torch.cuda.current_stream(index).cuda_stream))
+
+
+def current_stream(device) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA device."""
+    index = device.index
+    return _raw_stream(_get_device() if index is None else index)
+
+
+class KernelCall:
+    """One kernel's launch at one set of shapes, built once per shape.
+
+    `entries` say what each operand must be: (name, dtype, allowed dtypes,
+    shape), contiguous, on `device`.  `matches` compares one (dtype, shape,
+    stride, device) tuple per tensor with the expected ones; `check` raises
+    with the reason where one differs, through `check_operand` (a tensor
+    whose size-1 dims carry other strides is still contiguous, and passes).
+    `launch(*ptrs)` calls the entry point `fn` of library `lib` on the
+    `n_ptrs` pointers, then `dims`, then the current stream, packed as
+    64-bit ints, with the device entered only when it is not current; it
+    raises if the launch fails.  `out_like`, if given, is a tensor shaped
+    like the output, for `torch.empty_like` (the cheapest allocation call)."""
+
+    def __init__(self, kernel: str, device, entries, lib, fn, dims, n_ptrs,
+                 out_like=None):
+        self.kernel, self.device, self.entries = kernel, device, entries
+        self.lib, self.fn, self.dims = lib, fn, tuple(dims)
+        self.out_like = out_like
+        self.want = [(dtype, torch.Size(shape), contiguous_strides(shape),
+                      device) for _, dtype, _, shape in entries]
+        self.pack = struct.Struct(f"{n_ptrs + len(self.dims) + 1}Q").pack
+
+    def matches(self, tensors) -> bool:
+        return [(t.dtype, t.shape, t.stride(), t.device)
+                for t in tensors] == self.want
+
+    def check(self, tensors) -> None:
+        if not self.matches(tensors):
+            for (name, _, allowed, shape), t in zip(self.entries, tensors):
+                check_operand(self.kernel, name, t, allowed, shape,
+                              self.device)
+
+    def launch(self, *ptrs: int) -> None:
+        index = self.device.index
+        if index == _get_device():
+            err = self.fn(self.pack(*ptrs, *self.dims, _raw_stream(index)))
+        else:
+            with torch.cuda.device(self.device):
+                err = self.fn(self.pack(*ptrs, *self.dims,
+                                        current_stream(self.device)))
+        if err != 0:
+            raise RuntimeError(f"{self.kernel}: kernel launch failed: "
+                               f"{error_string(self.lib, err)}")
+

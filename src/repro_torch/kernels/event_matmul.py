@@ -23,8 +23,6 @@ f32 and the output has R's dtype.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build
@@ -49,6 +47,32 @@ def event_matmul_reference(a, R, *, act_mask, rmask):
     return y.to(R.dtype)
 
 
+_CALLS: dict = {}
+_last: list = [None]        # the last call's KernelCall, tried first
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _call(B, n, m, dtype, device, counted) -> _build.KernelCall:
+    """The kernel's launch at these shapes, built once; `dtype` is R's (a
+    kernel dtype, or the entries' check raises on R)."""
+    key = (B, n, m, dtype, device, counted)
+    call = _CALLS.get(key)
+    if call is None:
+        i32 = torch.int32
+        entries = [("R", dtype, _DTYPES, (n, m)),
+                   ("a", dtype, (dtype,), (B, n)),
+                   ("act_mask", i32, (i32,), (B, n // BL)),
+                   ("rmask", i32, (i32,), (n // BL, m // BM))]
+        if counted:
+            entries.append(("block_count", torch.int64, (torch.int64,), (1,)))
+        lib = _build.load("event_matmul")
+        call = _CALLS[key] = _build.KernelCall(
+            "event_matmul", device, entries, lib, lib.repro_event_matmul,
+            (B, n, m, int(dtype == torch.bfloat16)), n_ptrs=6,
+            out_like=torch.empty((B, m), dtype=dtype, device=device))
+    return call
+
+
 def event_matmul(a, R, *, act_mask, rmask,
                  block_count: torch.Tensor | None = None):
     """y = a @ R over the live blocks, on padded operands (see the module
@@ -58,39 +82,38 @@ def event_matmul(a, R, *, act_mask, rmask,
     which the number of executed (b, lb, mb) blocks is added.
 
     CPU tensors go to `event_matmul_reference`; CUDA tensors launch the
-    kernel (one launch, counted in `event_matmul.launches`) or raise."""
-    if R.device.type == "cpu":
-        if block_count is not None:
-            block_count += executed_blocks(act_mask, rmask)
-        return event_matmul_reference(a, R, act_mask=act_mask, rmask=rmask)
-    if R.device.type != "cuda":
-        raise ValueError(f"event_matmul: no kernel for device {R.device}")
-    B, n = a.shape
-    m = R.shape[1]
-    if n % BL or m % BM:
-        raise ValueError(f"event_matmul: padded shapes need n % {BL} == 0 and "
-                         f"m % {BM} == 0, got n={n}, m={m}")
-    dev, i32 = R.device, (torch.int32,)
-    for name, t, dtypes, shape in (
-            ("R", R, (torch.float32, torch.bfloat16), (n, m)),
-            ("a", a, (R.dtype,), (B, n)),
-            ("act_mask", act_mask, i32, (B, n // BL)),
-            ("rmask", rmask, i32, (n // BL, m // BM)),
-            ("block_count", block_count, (torch.int64,), (1,))):
-        if t is not None:
-            _build.check_operand("event_matmul", name, t, dtypes, shape, dev)
-    y = torch.empty((B, m), dtype=R.dtype, device=dev)
-    lib = _build.load("event_matmul")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    counter = None if block_count is None else block_count.data_ptr()
-    with torch.cuda.device(dev):
-        err = lib.repro_event_matmul(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (a, R, act_mask, rmask, y)),
-            ctypes.c_void_p(counter), B, n, m, int(R.dtype == torch.bfloat16),
-            ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"event_matmul: kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
+    kernel (one launch, counted in `event_matmul.launches`) or raise.  a and
+    R must be 16-byte aligned (the kernel copies 16 bytes at a time); a
+    fresh or padded tensor is.  The operands are checked in one comparison
+    per tensor against the last call's shapes; only where that fails are
+    the shapes looked at again."""
+    args = (R, a, act_mask, rmask)
+    if block_count is not None:
+        args += (block_count,)
+    call = _last[0]
+    if call is None or not call.matches(args):
+        dev = R.device
+        if dev.type == "cpu":
+            if block_count is not None:
+                block_count += executed_blocks(act_mask, rmask)
+            return event_matmul_reference(a, R, act_mask=act_mask, rmask=rmask)
+        if dev.type != "cuda":
+            raise ValueError(f"event_matmul: no kernel for device {dev}")
+        B, n = a.shape
+        m = R.shape[1]
+        if n % BL or m % BM:
+            raise ValueError(f"event_matmul: padded shapes need n % {BL} == 0 "
+                             f"and m % {BM} == 0, got n={n}, m={m}")
+        dtype = R.dtype if R.dtype in _DTYPES else torch.float32
+        call = _call(B, n, m, dtype, dev, block_count is not None)
+        call.check(args)
+        _last[0] = call
+    ptrs = list(map(torch.Tensor.data_ptr, args))
+    if (ptrs[0] | ptrs[1]) & 15:
+        raise ValueError("event_matmul: a and R must be 16-byte aligned")
+    y = torch.empty_like(call.out_like)
+    call.launch(ptrs[1], ptrs[0], ptrs[2], ptrs[3], y.data_ptr(),
+                ptrs[4] if block_count is not None else 0)
     event_matmul.launches += 1
     return y
 

@@ -25,12 +25,14 @@ factors at block granularity:
     block masks explicitly, so it equals the kernel on any inputs; on
     inputs whose masks are derived from them (`build_block_masks`) it
     equals `ref.influence_ref`.
-  * `block_any`, `build_block_masks`, `executed_blocks` — the masks, and
-    the count of (b, kb, lb, pb) blocks they leave to multiply.
+  * `block_any`, `build_block_masks` (= `step_block_masks`, rebuilt every
+    step, + `constant_block_masks`, fixed by the parameter masks),
+    `executed_blocks` — the masks, and the count of (b, kb, lb, pb) blocks
+    they leave to multiply.
+  * `empty_launch` — an empty kernel through the same route: the launch
+    floor.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -47,35 +49,52 @@ def block_any(x: torch.Tensor, block: int, axis: int) -> torch.Tensor:
     return (x.reshape(shape) != 0).any(dim=axis + 1).int()
 
 
-def build_block_masks(hp_p, M_p, col_mask, jmask, *, bk: int = BK,
-                      bl: int = BL, bp: int = BP):
-    """The four per-step block masks of the padded operands (hp_p [B, n_p],
-    M_p [B, n_p, P_p]); col_mask is the [P] column liveness and jmask the
-    [n, n] J pattern in R layout ([l, k], as `flat_jmask` returns it), both
-    optional and unpadded.  Returns int32 (row_mask [B, n_p/bk], prev_mask
-    [B, n_p/bl], col_blocks [P_p/bp], j_blocks [n_p/bk, n_p/bl]).
+def step_block_masks(hp_p, M_p, *, bk: int = BK, bl: int = BL):
+    """The two block masks that change every step, of the padded operands
+    (hp_p [B, n_p], M_p [B, n_p, P_p]): int32 (row_mask [B, n_p/bk],
+    prev_mask [B, n_p/bl])."""
+    row_mask = block_any(hp_p, bk, axis=1)
+    prev_mask = block_any((M_p != 0).any(dim=2).int(), bl, axis=1)
+    return row_mask, prev_mask
+
+
+def constant_block_masks(col_mask, jmask, n_p: int, P_p: int, device, *,
+                         bk: int = BK, bl: int = BL, bp: int = BP):
+    """The two block masks fixed by the parameter masks, for operands
+    padded to n_p rows and P_p columns: col_mask is the [P] column liveness
+    and jmask the [n, n] J pattern in R layout ([l, k], as `flat_jmask`
+    returns it), both optional and unpadded.  Returns int32 (col_blocks
+    [P_p/bp], j_blocks [n_p/bk, n_p/bl]).
 
     j_blocks is indexed [kb, lb] like J-hat itself, hence the transpose of
     the [l, k] pattern."""
-    n_p, P_p = M_p.shape[1], M_p.shape[2]
-    dev = M_p.device
-    row_mask = block_any(hp_p, bk, axis=1)
-    prev_mask = block_any((M_p != 0).any(dim=2).int(), bl, axis=1)
     if col_mask is None:
-        col_blocks = torch.ones((P_p // bp,), dtype=torch.int32, device=dev)
+        col_blocks = torch.ones((P_p // bp,), dtype=torch.int32, device=device)
     else:
         cm = torch.nn.functional.pad(col_mask.int(), (0, P_p - col_mask.shape[0]))
         col_blocks = block_any(cm[None], bp, axis=1)[0]
     if jmask is None:
         j_blocks = torch.ones((n_p // bk, n_p // bl), dtype=torch.int32,
-                              device=dev)
+                              device=device)
     else:
         jmT = jmask.T.int()                                 # [k, l]
         jmT = torch.nn.functional.pad(
             jmT, (0, n_p - jmT.shape[1], 0, n_p - jmT.shape[0]))
         j_blocks = (jmT.reshape(n_p // bk, bk, n_p // bl, bl) != 0).any(
             dim=3).any(dim=1).int()
-    return row_mask, prev_mask, col_blocks, j_blocks
+    return col_blocks, j_blocks
+
+
+def build_block_masks(hp_p, M_p, col_mask, jmask, *, bk: int = BK,
+                      bl: int = BL, bp: int = BP):
+    """The four per-step block masks of the padded operands (hp_p [B, n_p],
+    M_p [B, n_p, P_p]); col_mask and jmask as in `constant_block_masks`.
+    Returns int32 (row_mask [B, n_p/bk], prev_mask [B, n_p/bl], col_blocks
+    [P_p/bp], j_blocks [n_p/bk, n_p/bl])."""
+    n_p, P_p = M_p.shape[1], M_p.shape[2]
+    return (*step_block_masks(hp_p, M_p, bk=bk, bl=bl),
+            *constant_block_masks(col_mask, jmask, n_p, P_p, M_p.device,
+                                  bk=bk, bl=bl, bp=bp))
 
 
 def executed_blocks(row_mask, prev_mask, col_mask, jmask) -> torch.Tensor:
@@ -111,6 +130,33 @@ def influence_reference(hp, Jhat, M, Mbar, *, row_mask, prev_mask, col_mask,
 # The wrapper: the CUDA kernel on the card, the plain version on the CPU
 # ---------------------------------------------------------------------------
 
+_CALLS: dict = {}
+_last: list = [None]        # the last call's KernelCall, tried first
+
+
+def _call(B, n, P, device, counted) -> _build.KernelCall:
+    """The kernel's launch at these shapes, built once."""
+    key = (B, n, P, device, counted)
+    call = _CALLS.get(key)
+    if call is None:
+        f32, i32 = torch.float32, torch.int32
+        entries = [("hp", f32, (f32,), (B, n)),
+                   ("Jhat", f32, (f32,), (B, n, n)),
+                   ("M", f32, (f32,), (B, n, P)),
+                   ("Mbar", f32, (f32,), (B, n, P)),
+                   ("row_mask", i32, (i32,), (B, n // BK)),
+                   ("prev_mask", i32, (i32,), (B, n // BL)),
+                   ("col_mask", i32, (i32,), (P // BP,)),
+                   ("jmask", i32, (i32,), (n // BK, n // BL))]
+        if counted:
+            entries.append(("block_count", torch.int64, (torch.int64,), (1,)))
+        lib = _build.load("influence")
+        call = _CALLS[key] = _build.KernelCall(
+            "influence_update", device, entries, lib,
+            lib.repro_influence_update, (B, n, P), n_ptrs=10)
+    return call
+
+
 def influence_update(hp, Jhat, M, Mbar, *, row_mask, prev_mask, col_mask,
                      jmask, block_count: torch.Tensor | None = None):
     """One block-sparse influence update on padded operands (see the module
@@ -120,48 +166,56 @@ def influence_update(hp, Jhat, M, Mbar, *, row_mask, prev_mask, col_mask,
     which the number of executed (b, kb, lb, pb) blocks is added.
 
     CPU tensors go to `influence_reference`; CUDA tensors launch the kernel
-    (one launch, counted in `influence_update.launches`) or raise."""
-    masks = dict(row_mask=row_mask, prev_mask=prev_mask, col_mask=col_mask,
-                 jmask=jmask)
-    if M.device.type == "cpu":
-        if block_count is not None:
-            block_count += executed_blocks(**masks)
-        return influence_reference(hp, Jhat, M, Mbar, **masks)
-    if M.device.type != "cuda":
-        raise ValueError(f"influence_update: no kernel for device {M.device}")
-    B, n, P = M.shape
-    if n % BK or P % BP:
-        raise ValueError(f"influence_update: padded shapes need n % {BK} == 0 "
-                         f"and P % {BP} == 0, got n={n}, P={P}")
-    f32, i32 = (torch.float32,), (torch.int32,)
-    for name, t, dtypes, shape in (
-            ("M", M, f32, (B, n, P)),
-            ("Mbar", Mbar, f32, (B, n, P)),
-            ("Jhat", Jhat, f32, (B, n, n)),
-            ("hp", hp, f32, (B, n)),
-            ("row_mask", row_mask, i32, (B, n // BK)),
-            ("prev_mask", prev_mask, i32, (B, n // BL)),
-            ("col_mask", col_mask, i32, (P // BP,)),
-            ("jmask", jmask, i32, (n // BK, n // BL)),
-            ("block_count", block_count, (torch.int64,), (1,))):
-        if t is not None:
-            _build.check_operand("influence_update", name, t, dtypes, shape,
-                                 M.device)
-    args = [hp, Jhat, M, Mbar, row_mask, prev_mask, col_mask, jmask]
+    (one launch, counted in `influence_update.launches`) or raise.  The
+    float operands must be 16-byte aligned (the kernel copies 16 bytes at a
+    time); a fresh or padded tensor is.  The operands are checked in one
+    comparison per tensor against the last call's shapes; only where that
+    fails are the shapes looked at again."""
+    args = (hp, Jhat, M, Mbar, row_mask, prev_mask, col_mask, jmask)
+    if block_count is not None:
+        args += (block_count,)
+    call = _last[0]
+    if call is None or not call.matches(args):
+        dev = M.device
+        if dev.type == "cpu":
+            masks = dict(row_mask=row_mask, prev_mask=prev_mask,
+                         col_mask=col_mask, jmask=jmask)
+            if block_count is not None:
+                block_count += executed_blocks(**masks)
+            return influence_reference(hp, Jhat, M, Mbar, **masks)
+        if dev.type != "cuda":
+            raise ValueError(f"influence_update: no kernel for device {dev}")
+        B, n, P = M.shape
+        if n % BK or P % BP:
+            raise ValueError(f"influence_update: padded shapes need n % {BK} "
+                             f"== 0 and P % {BP} == 0, got n={n}, P={P}")
+        call = _call(B, n, P, dev, block_count is not None)
+        call.check(args)
+        _last[0] = call
+    ptrs = list(map(torch.Tensor.data_ptr, args))
+    if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15:
+        raise ValueError("influence_update: hp, Jhat, M and Mbar must be "
+                         "16-byte aligned")
     out = torch.empty_like(M)
-    lib = _build.load("influence")
-    stream = torch.cuda.current_stream(M.device).cuda_stream
-    counter = None if block_count is None else block_count.data_ptr()
-    with torch.cuda.device(M.device):
-        err = lib.repro_influence_update(
-            *(ctypes.c_void_p(t.data_ptr()) for t in args[:8]),
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(counter),
-            B, n, P, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"influence_update: kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
+    call.launch(*ptrs[:8], out.data_ptr(),
+                ptrs[8] if block_count is not None else 0)
     influence_update.launches += 1
     return out
 
 
 influence_update.launches = 0
+
+
+def empty_launch(device) -> None:
+    """Launch an empty kernel through the same route as `influence_update`
+    (packed arguments, driver API; no operands, no check): the launch floor
+    any wrapper of this route pays.  Not counted."""
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    call = _CALLS.get(("empty", device))
+    if call is None:
+        lib = _build.load("influence")
+        call = _CALLS[("empty", device)] = _build.KernelCall(
+            "empty_launch", device, [], lib, lib.repro_empty_launch, (),
+            n_ptrs=0)
+    call.launch()

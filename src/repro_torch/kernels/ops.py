@@ -2,9 +2,10 @@
 
 Counterpart of `repro.kernels.ops`.  `influence_update` pads the operands
 to the kernel's block multiples (8 rows, 128 columns), derives the four
-block masks, hands them to `kernels.influence.influence_update` (the CUDA
-kernel on CUDA tensors, its plain version on CPU tensors) and crops the
-result back.  `event_matmul` does the same for
+block masks (or takes the two constant ones from `constant_block_masks`,
+built once for a run), hands them to `kernels.influence.influence_update`
+(the CUDA kernel on CUDA tensors, its plain version on CPU tensors) and
+crops the result back.  `event_matmul` does the same for
 `kernels.event_matmul.event_matmul`: pads a to 8 columns and R to 8 rows
 and 128 columns, takes the activity blocks of a and the parameter blocks of
 an optional rmask, and crops.
@@ -25,30 +26,49 @@ def _pad_to(x: torch.Tensor, mult: int, axis: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, widths)
 
 
-def influence_operands(hp, Jhat, M, Mbar, jmask=None, col_mask=None):
+def constant_block_masks(n, P, jmask=None, col_mask=None, *, device):
+    """The two block masks that the parameter masks fix for a whole run, of
+    operands [B, n, P] padded to the kernel's blocks: int32 (col_blocks,
+    j_blocks).  jmask and col_mask as in `influence_update`.  Hand them to
+    `influence_update` as `block_masks`, so a step builds only row_mask and
+    prev_mask."""
+    n_p, P_p = n + (-n) % IN.BK, P + (-P) % IN.BP
+    return tuple(t.contiguous() for t in IN.constant_block_masks(
+        col_mask, jmask, n_p, P_p, device))
+
+
+def influence_operands(hp, Jhat, M, Mbar, jmask=None, col_mask=None, *,
+                       block_masks=None):
     """The kernel's padded, contiguous operands and block masks:
     (hp_p, J_p, M_p, Mbar_p, row_mask, prev_mask, col_blocks, j_blocks).
 
     hp [B, n]; Jhat [B, n, n]; M, Mbar [B, n, P]; jmask an optional [n, n]
     J pattern in R layout ([l, k]); col_mask an optional [P] column
-    liveness."""
+    liveness.  block_masks, if given, is `constant_block_masks` of the same
+    n, P, jmask and col_mask, which are then not read."""
     hp_p = _pad_to(hp, IN.BK, 1)
     J_p = _pad_to(_pad_to(Jhat, IN.BK, 1), IN.BL, 2)
     M_p = _pad_to(_pad_to(M, IN.BL, 1), IN.BP, 2)
     Mb_p = _pad_to(_pad_to(Mbar, IN.BK, 1), IN.BP, 2)
-    masks = IN.build_block_masks(hp_p, M_p, col_mask, jmask)
+    if block_masks is None:
+        masks = IN.build_block_masks(hp_p, M_p, col_mask, jmask)
+    else:
+        masks = (*IN.step_block_masks(hp_p, M_p), *block_masks)
     return tuple(t.contiguous() for t in (hp_p, J_p, M_p, Mb_p, *masks))
 
 
-def influence_update(hp, Jhat, M, Mbar, jmask=None, col_mask=None):
+def influence_update(hp, Jhat, M, Mbar, jmask=None, col_mask=None, *,
+                     block_masks=None):
     """Block-sparse M_t = D(hp)[Jhat M_{t-1} + Mbar].
 
     hp: [B,n]; Jhat: [B,n,n]; M, Mbar: [B,n,P] float32.  jmask: optional
     [n,n] J pattern (R layout); col_mask: optional [P] parameter-column
-    liveness.  Shapes are padded internally; the result is cropped back."""
+    liveness; block_masks: optional `constant_block_masks(n, P, jmask,
+    col_mask)`, built once for a run.  Shapes are padded internally; the
+    result is cropped back."""
     B, n, P = M.shape
     hp_p, J_p, M_p, Mb_p, row, prev, cols, jm = influence_operands(
-        hp, Jhat, M, Mbar, jmask, col_mask)
+        hp, Jhat, M, Mbar, jmask, col_mask, block_masks=block_masks)
     out = IN.influence_update(hp_p, J_p, M_p, Mb_p, row_mask=row,
                               prev_mask=prev, col_mask=cols, jmask=jm)
     return out[:, :n, :P]

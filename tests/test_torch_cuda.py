@@ -152,6 +152,93 @@ def test_influence_kernel_matches_plain_version(cuda, B, n, P, beta,
     assert float((got - ref[:, :n, :P]).abs().max()) <= F32_REL * scale
 
 
+def _k2_edge_operands(case, seed=5):
+    """Unpadded K2 operands at the edges of the kernel's tiles (a CTA holds
+    up to 8 row blocks = 64 rows and 128 columns), and the executed-block
+    count they must give where it is known by construction (else None)."""
+    rng = np.random.default_rng(seed)
+    B, n, P = {"n72": (3, 72, 256), "dead_group": (2, 256, 256),
+               "one_row_block": (2, 64, 256), "dead_last_tile": (2, 40, 640),
+               "large_grid": (4, 256, 5120)}[case]
+    hp = (rng.random((B, n)) + 0.1).astype(np.float32)
+    Jhat = rng.normal(size=(B, n, n)).astype(np.float32)
+    M = rng.normal(size=(B, n, P)).astype(np.float32)
+    Mbar = rng.normal(size=(B, n, P)).astype(np.float32)
+    jmask = col_mask = expect = None
+    if case == "n72":                       # one full group, one of 1 block
+        hp[rng.random((B, n)) < 0.3] = 0.0
+        hp[0, 64:] = 0.0                    # the partial group's block dead
+        hp[1, 8:16] = 0.0
+        M[rng.random((B, n)) < 0.3] = 0.0
+    elif case == "dead_group":              # rows 64..127: a whole group dead
+        hp[:, 64:128] = 0.0
+        hp[1, 200:208] = 0.0
+    elif case == "one_row_block":
+        # l-blocks 3 and 5 alone are live; J pattern [kb, lb]: l-block 3
+        # only for row block 5, l-block 5 for every row block
+        M[:] = 0.0
+        M[:, 24:32] = rng.normal(size=(B, 8, P))
+        M[:, 40:48] = rng.normal(size=(B, 8, P))
+        blocks = np.zeros((8, 8), bool)             # [kb, lb]
+        blocks[5, 3] = True
+        blocks[:, 5] = True
+        jmask = np.kron(blocks.T, np.ones((8, 8))).astype(np.float32)
+        Jhat *= jmask.T[None]
+        expect = B * (1 + 8) * (P // 128)
+    elif case == "large_grid":              # 1280 CTAs: several waves
+        hp[rng.random((B, n)) < 0.5] = 0.0
+        hp[1, :] = 0.0
+        M[rng.random((B, n)) < 0.5] = 0.0
+        col_mask = (rng.random(P) > 0.5).astype(np.float32)
+        M *= col_mask
+        Mbar *= col_mask
+    else:                                   # the last column tile dead
+        col_mask = (rng.random(P) > 0.3).astype(np.float32)
+        col_mask[512:] = 0.0
+        col_mask[:128] = 1.0
+        M *= col_mask
+        Mbar *= col_mask
+    return (hp, Jhat, M, Mbar, jmask, col_mask), expect
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["n72", "dead_group", "one_row_block",
+                                  "dead_last_tile", "large_grid"])
+def test_influence_kernel_at_tile_edges(cuda, case):
+    arrays, expect = _k2_edge_operands(case)
+    t = [None if a is None else torch.from_numpy(a).to(cuda) for a in arrays]
+    ops = OPS.influence_operands(*t)
+    masks = dict(row_mask=ops[4], prev_mask=ops[5], col_mask=ops[6],
+                 jmask=ops[7])
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    out = IN.influence_update(*ops[:4], **masks, block_count=count)
+    torch.cuda.synchronize()
+    ref = IN.influence_reference(*ops[:4], **masks)
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((out - ref).abs().max()) <= F32_REL * scale
+    live = (ops[4] != 0).repeat_interleave(8, 1)[:, :, None] & \
+        (ops[6] != 0).repeat_interleave(128)
+    assert bool((out[~live] == 0).all())
+    B = ops[2].shape[0]
+    total = B * ops[4].shape[1] * ops[5].shape[1] * ops[6].shape[0]
+    sav = OPS.realized_block_savings(arrays[0], arrays[2], arrays[4],
+                                     arrays[5])
+    assert int(count) == round(sav * total)
+    if expect is not None:
+        assert int(count) == expect
+
+
+@pytest.mark.cuda
+def test_influence_kernel_with_prebuilt_masks_equals_rebuilt(cuda):
+    arrays, _ = _k2_edge_operands("dead_last_tile")
+    t = [None if a is None else torch.from_numpy(a).to(cuda) for a in arrays]
+    n, P = arrays[2].shape[1:]
+    kmasks = OPS.constant_block_masks(n, P, t[4], t[5], device=cuda)
+    got = OPS.influence_update(*t, block_masks=kmasks)
+    want = OPS.influence_update(*t)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_influence_kernel_rejects_bad_operands(cuda):
     arrays = _k2_operands(2, 16, 256, beta=0.2, dead_example=False,
@@ -297,6 +384,31 @@ def test_event_matmul_kernel_matches_plain_version(cuda, dtype, B, n, m, density
     assert int(count) == int(EM.executed_blocks(act, rm))
     got = OPS.event_matmul(a.to(dtype), R.to(dtype), rmask)   # the cropped front end
     assert tuple(got.shape) == (B, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 9, 32])
+def test_event_matmul_kernel_at_example_group_edges(cuda, dtype, B):
+    """A CTA holds up to 8 examples: one example, a full group plus one,
+    four full groups; 9 l-blocks, 3 column tiles, block density 0.5."""
+    n, m = 72, 384
+    rng = np.random.default_rng(B)
+    act = rng.random((B, n // 8)) < 0.5
+    blocks = rng.random((n // 8, m // 128)) < 0.5
+    a = rng.normal(size=(B, n)).astype(np.float32) * np.repeat(act, 8, 1)
+    rmask = np.kron(blocks, np.ones((8, 128))).astype(np.float32)
+    R = rng.normal(size=(n, m)).astype(np.float32)
+    a, R, rmask = (torch.from_numpy(x).to(cuda) for x in (a, R, rmask))
+    a_p, R_p, act_m, rm = OPS.event_matmul_operands(a.to(dtype), R.to(dtype),
+                                                    rmask)
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    y = EM.event_matmul(a_p, R_p, act_mask=act_m, rmask=rm, block_count=count)
+    torch.cuda.synchronize()
+    ref = EM.event_matmul_reference(a_p, R_p, act_mask=act_m, rmask=rm)
+    assert y.dtype == dtype and y.shape == ref.shape
+    _close_or_one_bf16_step(y.float(), ref.float(), dtype == torch.bfloat16)
+    assert int(count) == int((act[:, :, None] & blocks[None]).sum())
 
 
 @pytest.mark.cuda
