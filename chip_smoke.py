@@ -7,9 +7,11 @@ Run from the root of a checkout.  It imports nothing of JAX or of the JAX
 package (`src/repro`), and it has no CPU path: without CUDA, or outside a
 checkout, it exits non-zero and prints no result.  Phases:
 
-  1. device: the card's name and power limit (nvidia-smi), then every
+  1. device: the card's name and power limit, and its UUID and serial
+     (nvidia-smi: which card a run's times come from), then every
      kernel of the port built from the sources in the checkout (one nvcc
-     per source, all at once);
+     per source, all at once), each build's ptxas report (registers,
+     spills);
   2. K1 (`kernels/compact_fused.py::fused_update`, the CUDA kernel) against
      its plain PyTorch version on the card, f32 and bf16 carries, at (a)
      the main path's shapes with operands from a real step, (b) n=256,
@@ -32,7 +34,8 @@ checkout, it exits non-zero and prints no result.  Phases:
      of both from a torch.profiler trace; at (a) the wrapper's host µs and
      where they go (checks, allocation, stream, the ctypes call, the rest);
      the launch floor, an empty kernel through the same ctypes route, timed
-     by time_ms;
+     by time_ms; the host µs parts include the autograd check that every
+     wrapper makes before its launch;
   4. the main paths: `repro_torch.launch.train --arch egru-spiral --online
      --rtrl-backend B --sparsity 0.8 --update-every 8 --steps 20` on the
      card, in-process, for B = compact_fused (K1 launches counted), pallas
@@ -69,12 +72,13 @@ checkout, it exits non-zero and prints no result.  Phases:
      layers); the prefill in f32 compute at full depth with the kernel and
      with the plain WKV, within 1e-4 of the largest logit; K4
      (`kernels/wkv.py::wkv`, the CUDA kernel) against its plain version on
-     (a) layer 0's operands of
-     that prefill (bf16 r/k/v), (b) the same from a non-zero S0, (c) T == L,
-     T < L, and decays at both clip ends, o and S_final; K4's time beside
-     its bound; and at full width, 2 layers, f32: prefill with the kernel
-     vs the plain WKV and vs a teacher-forced decode over 64 tokens, each
-     within 1e-4 of the largest logit;
+     (a) layer 0's operands of that prefill (bf16 r/k/v), (b) the same from
+     a non-zero S0, (c) T == L, T < L, and decays at both clip ends, o and
+     S_final; K4's time beside its bound and its launch shape (grid,
+     threads, shared bytes, registers, CTAs an SM); and at full width, 2
+     layers, f32: prefill with the kernel vs the plain WKV and vs a
+     teacher-forced decode over 64 tokens, each within 1e-4 of the largest
+     logit;
   7. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
      then the result line {"ok": true, "device": {...}}.
 
@@ -427,6 +431,8 @@ def time_k2(torch, IN, ops, iters, alt_iters, host=True):
             "call": call,
             "checks": lambda: (kc.matches(args),
                                list(map(torch.Tensor.data_ptr, args))),
+            "autograd check": lambda: _build.refuse_autograd(
+                "influence_update", hp, J, M, Mbar),
             "allocation": lambda: torch.empty_like(M),
             "stream": lambda: _build.current_stream(dev),
             "ctypes call": lambda: kc.fn(packed),
@@ -736,6 +742,7 @@ def time_k3(torch, EM, ops, iters):
         "call": call,
         "checks": lambda: (kc.matches(args),
                            list(map(torch.Tensor.data_ptr, args))),
+        "autograd check": lambda: _build.refuse_autograd("event_matmul", a, R),
         "allocation": lambda: torch.empty_like(kc.out_like),
         "stream": lambda: _build.current_stream(dev),
         "ctypes call": lambda: kc.fn(packed),
@@ -910,7 +917,21 @@ def time_k4(torch, WK, ops, chunk, iters):
                     warmup=1)
     bound, by, nbytes, flops = k4_bound(torch, ops, chunk)
     return {"ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bound,
-            "bound_by": by, "bytes": nbytes, "flops": flops}
+            "bound_by": by, "bytes": nbytes, "flops": flops,
+            "device_us": device_us(torch, lambda: WK.wkv(*ops, chunk=chunk))}
+
+
+def k4_launch_shape(WK, ops, chunk):
+    """K4's launch on these operands: grid, cluster, threads, shared bytes,
+    registers, residency (`wkv.geometry`), as one line."""
+    B, H, T, D = ops[0].shape
+    geo = WK.geometry(B, H, D, chunk, ops[0].dtype, ops[0].device)
+    return (f"grid {geo['grid']} CTAs ({geo['ctas_per_head']} a head, "
+            f"clusters of {geo['cluster']}), {geo['threads']} threads, "
+            f"{geo['smem_bytes']} shared bytes a CTA, {geo['registers']} "
+            f"registers and {geo['spill_bytes']} spilled bytes a thread, "
+            f"{geo['ctas_per_sm']} CTAs an SM, {geo['clusters_resident']} "
+            f"clusters resident on the card, {geo['stages']} input stages")
 
 
 @contextlib.contextmanager
@@ -1117,7 +1138,9 @@ def rwkv_serving(torch, dev, WK):
     t4 = time_k4(torch, WK, ops, cfg.rwkv_chunk, 20)
     log(f"K4 time (a): kernel {t4['ms']:.4f} ms, plain {t4['plain_ms']:.4f} ms, "
         f"no library call computes WKV, bound {t4['bound_ms']:.4f} ms "
-        f"({t4['bound_by']}: {t4['bytes']:.0f} B, {t4['flops']:.0f} FLOP)")
+        f"({t4['bound_by']}: {t4['bytes']:.0f} B, {t4['flops']:.0f} FLOP); "
+        f"device {t4['device_us']} us (profiler, 20 calls)")
+    log(f"K4 launch (a): {k4_launch_shape(WK, ops, cfg.rwkv_chunk)}")
     log("K4 times json: " + json.dumps(t4))
     del params, cache, dec_cache, ops, S_a, logits, f32_logits, f32_plain
     torch.cuda.empty_cache()
@@ -1181,6 +1204,11 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     log(smi)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid,serial", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"card (uuid, serial): {card}")
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     log(f"device: {name} x{torch.cuda.device_count()}; torch "

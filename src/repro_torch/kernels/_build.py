@@ -5,10 +5,10 @@ nvcc, at first use, into a shared library under `build/repro_torch/` at the
 repository root, named by a hash of the source and the flags — a changed
 source builds anew, an unchanged one is reused.  The library is loaded with
 ctypes, with `argtypes` set: every pointer and the stream are `c_void_p`
-there, so a wrapper may hand them over as plain Python ints.  K2 and K3
-take their launch arguments packed in one buffer of 64-bit ints
+there, so a wrapper may hand them over as plain Python ints.  K2, K3 and
+K4 take their launch arguments packed in one buffer of 64-bit ints
 (`KernelCall.launch`): one argument for ctypes to convert instead of 11 to
-14.
+15.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so csrc/<name>.cu \\
@@ -17,10 +17,11 @@ take their launch arguments packed in one buffer of 64-bit ints
 `build(names)` starts one nvcc per source, all together, and waits for them;
 a failed build raises with nvcc's stderr.  Nothing here runs at import.
 `check_operand` is the operand check every kernel's wrapper makes;
-`KernelCall` makes the same check in one comparison per operand, for the
-wrappers whose host time matters (K2, K3), and `KernelCall.launch` keeps
-the rest of their launch path light: the device entered only when it is
-not current, the raw stream handle, the arguments packed.
+`KernelCall` makes the same check in one comparison per operand (K2, K3,
+K4), and `KernelCall.launch` keeps the rest of the launch path light: the
+device entered only when it is not current, the raw stream handle, the
+arguments packed.  `refuse_autograd` is the check every wrapper makes
+before a launch: the kernels have no backward.
 """
 from __future__ import annotations
 
@@ -60,7 +61,9 @@ SIGNATURES = {
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "wkv": {
-        "repro_wkv": ([_P] * 8 + [_I] * 6 + [_P], _I),
+        "repro_wkv": ([ctypes.c_char_p], _I),
+        "repro_wkv_geometry": ([_I] * 4 + [ctypes.POINTER(ctypes.c_longlong)],
+                               _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -135,6 +138,19 @@ def load(name: str) -> ctypes.CDLL:
 
 def error_string(lib: ctypes.CDLL, err: int) -> str:
     return f"error {err}: {lib.repro_error_string(err).decode()}"
+
+
+def refuse_autograd(kernel: str, *tensors) -> None:
+    """Raise where grad mode is on and an operand requires grad.  A kernel
+    fills its outputs through ctypes, so they carry no grad_fn, and none has
+    a backward: a loss through it would silently miss its gradient."""
+    if torch.is_grad_enabled():
+        for t in tensors:
+            if t.requires_grad:
+                raise RuntimeError(
+                    f"{kernel}: an operand requires grad, and the CUDA kernel "
+                    "has no backward: call under torch.no_grad() or use the "
+                    "plain version")
 
 
 def check_operand(kernel: str, name: str, t, dtypes, shape, device) -> None:

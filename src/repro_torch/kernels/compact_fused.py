@@ -125,7 +125,9 @@ def fused_update(Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev,
     Returns the new carry [B, K, Pc] in vals.dtype.
 
     CPU tensors go to `fused_reference`; CUDA tensors launch the kernel
-    (one launch, counted in `fused_update.launches`) or raise."""
+    (one launch, counted in `fused_update.launches`) or raise.  The kernel
+    has no backward: an operand that requires grad under grad mode
+    raises."""
     if vals.device.type == "cpu":
         return fused_reference(Jhat, vals, mbar_rows, hp_rows, idx_new,
                                idx_prev, count_new, count_prev)
@@ -147,6 +149,7 @@ def fused_update(Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev,
                              vals.device)
     args = (Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev, count_new,
             count_prev)
+    _build.refuse_autograd("fused_update", Jhat, vals, mbar_rows, hp_rows)
     out = torch.empty_like(vals)
     lib = _build.load("compact_fused")
     stream = torch.cuda.current_stream(vals.device).cuda_stream

@@ -1,5 +1,6 @@
 // Kernel launches through the CUDA driver API, for the port's kernels whose
-// host launch cost matters (K2 influence.cu, K3 event_matmul.cu).
+// host launch cost matters (K2 influence.cu, K3 event_matmul.cu) and K4
+// (wkv.cu), which launches thread-block clusters.
 //
 // cuLaunchKernel on a handle looked up once a device (cudaGetFuncBySymbol)
 // took less host time than the runtime's <<<>>> launch, which goes through
@@ -22,11 +23,12 @@ struct DriverFunction {
 };
 
 // Launches `kernel` on `grid` x `threads` with `smem` bytes of dynamic
-// shared memory on `stream`; params[i] points at the kernel's i-th argument.
-// Returns 0 when launched.
+// shared memory on `stream`, in clusters of `cluster` CTAs along x where
+// cluster > 1; params[i] points at the kernel's i-th argument.  Returns 0
+// when launched.
 inline int driver_launch(DriverFunction& fn, const void* kernel, dim3 grid,
                          int threads, size_t smem, cudaStream_t stream,
-                         void** params) {
+                         void** params, unsigned cluster = 1) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -36,10 +38,30 @@ inline int driver_launch(DriverFunction& fn, const void* kernel, dim3 grid,
     e = cudaGetFuncBySymbol(&f, kernel);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const CUresult r = cuLaunchKernel(f, grid.x, grid.y, grid.z, threads, 1, 1,
-                                    static_cast<unsigned>(smem),
-                                    reinterpret_cast<CUstream>(stream), params,
-                                    nullptr);
+  CUresult r;
+  if (cluster > 1) {
+    CUlaunchAttribute attr = {};
+    attr.id = CU_LAUNCH_ATTRIBUTE_CLUSTER_DIMENSION;
+    attr.value.clusterDim.x = cluster;
+    attr.value.clusterDim.y = 1;
+    attr.value.clusterDim.z = 1;
+    CUlaunchConfig config = {};
+    config.gridDimX = grid.x;
+    config.gridDimY = grid.y;
+    config.gridDimZ = grid.z;
+    config.blockDimX = static_cast<unsigned>(threads);
+    config.blockDimY = 1;
+    config.blockDimZ = 1;
+    config.sharedMemBytes = static_cast<unsigned>(smem);
+    config.hStream = reinterpret_cast<CUstream>(stream);
+    config.attrs = &attr;
+    config.numAttrs = 1;
+    r = cuLaunchKernelEx(&config, f, params, nullptr);
+  } else {
+    r = cuLaunchKernel(f, grid.x, grid.y, grid.z, threads, 1, 1,
+                       static_cast<unsigned>(smem),
+                       reinterpret_cast<CUstream>(stream), params, nullptr);
+  }
   return r == CUDA_SUCCESS ? 0 : kDriverErrorBase - static_cast<int>(r);
 }
 

@@ -86,7 +86,8 @@ def event_matmul(a, R, *, act_mask, rmask,
     R must be 16-byte aligned (the kernel copies 16 bytes at a time); a
     fresh or padded tensor is.  The operands are checked in one comparison
     per tensor against the last call's shapes; only where that fails are
-    the shapes looked at again."""
+    the shapes looked at again.  The kernel has no backward: a float
+    operand that requires grad under grad mode raises."""
     args = (R, a, act_mask, rmask)
     if block_count is not None:
         args += (block_count,)
@@ -108,6 +109,7 @@ def event_matmul(a, R, *, act_mask, rmask,
         call = _call(B, n, m, dtype, dev, block_count is not None)
         call.check(args)
         _last[0] = call
+    _build.refuse_autograd("event_matmul", a, R)
     ptrs = list(map(torch.Tensor.data_ptr, args))
     if (ptrs[0] | ptrs[1]) & 15:
         raise ValueError("event_matmul: a and R must be 16-byte aligned")

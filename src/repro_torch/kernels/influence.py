@@ -170,7 +170,8 @@ def influence_update(hp, Jhat, M, Mbar, *, row_mask, prev_mask, col_mask,
     float operands must be 16-byte aligned (the kernel copies 16 bytes at a
     time); a fresh or padded tensor is.  The operands are checked in one
     comparison per tensor against the last call's shapes; only where that
-    fails are the shapes looked at again."""
+    fails are the shapes looked at again.  The kernel has no backward: a
+    float operand that requires grad under grad mode raises."""
     args = (hp, Jhat, M, Mbar, row_mask, prev_mask, col_mask, jmask)
     if block_count is not None:
         args += (block_count,)
@@ -192,6 +193,7 @@ def influence_update(hp, Jhat, M, Mbar, *, row_mask, prev_mask, col_mask,
         call = _call(B, n, P, dev, block_count is not None)
         call.check(args)
         _last[0] = call
+    _build.refuse_autograd("influence_update", hp, Jhat, M, Mbar)
     ptrs = list(map(torch.Tensor.data_ptr, args))
     if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15:
         raise ValueError("influence_update: hp, Jhat, M and Mbar must be "

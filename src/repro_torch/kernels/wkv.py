@@ -18,7 +18,9 @@ an optional S0 and the final state is returned.  With S0 = 0 the output
 is `wkv_pallas`'s function.
 
   * `wkv` — the wrapper.  On CUDA tensors it launches the hand-written
-    kernel (`csrc/wkv.cu`, built at first use by `kernels._build`) or
+    kernel (`csrc/wkv.cu`, built at first use by `kernels._build`; one CTA
+    per (b, h, 32 value columns) at D = 64, a head's two CTAs a cluster
+    that shares the column-independent work, the state in registers) or
     raises; on CPU tensors it runs `wkv_reference`.  `wkv.launches` counts
     launches.
   * `wkv_reference` — the plain PyTorch version: `wkv_chunk` chained over
@@ -35,6 +37,7 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_D = 64         # head width the kernel takes (RWKV6-3B: 64)
+D_STEP = 16        # ... in multiples of the narrowest CTA's value columns
 MAX_L = 64         # chunk length the kernel takes (RWKV6-3B: 16)
 
 
@@ -91,6 +94,46 @@ def wkv_reference(r, k, v, logw, u, S0=None, *, chunk: int = 16):
     return torch.cat(outs, dim=2), S
 
 
+_CALLS: dict = {}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _call(B, H, T, D, chunk, dtype, device, has_S0) -> _build.KernelCall:
+    """The kernel's launch at these shapes, built once; `dtype` is r's (a
+    kernel dtype, or the entries' check raises on r)."""
+    key = (B, H, T, D, chunk, dtype, device, has_S0)
+    call = _CALLS.get(key)
+    if call is None:
+        f32 = torch.float32
+        entries = [("r", dtype, _DTYPES, (B, H, T, D)),
+                   ("k", dtype, (dtype,), (B, H, T, D)),
+                   ("v", dtype, (dtype,), (B, H, T, D)),
+                   ("logw", f32, (f32,), (B, H, T, D)),
+                   ("u", f32, (f32,), (H, D))]
+        if has_S0:
+            entries.append(("S0", f32, (f32,), (B, H, D, D)))
+        lib = _build.load("wkv")
+        call = _CALLS[key] = _build.KernelCall(
+            "wkv", device, entries, lib, lib.repro_wkv,
+            (B, H, T, D, chunk, int(dtype == torch.bfloat16)), n_ptrs=8)
+    return call
+
+
+def launch(call: _build.KernelCall, args) -> tuple:
+    """Launch `call` on checked operands (r, k, v, logw, u[, S0]) into new
+    outputs; returns (o, S_final).  Not counted: `wkv` counts its own."""
+    r = args[0]
+    B, H, T, D = r.shape
+    ptrs = [t.data_ptr() for t in args]
+    if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15:
+        raise ValueError("wkv: r, k, v and logw must be 16-byte aligned")
+    o = torch.empty((B, H, T, D), dtype=torch.float32, device=r.device)
+    S = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+    call.launch(*ptrs[:5], ptrs[5] if len(ptrs) > 5 else 0, o.data_ptr(),
+                S.data_ptr())
+    return o, S
+
+
 def wkv(r, k, v, logw, u, S0=None, *, chunk: int = 16):
     """Chunked WKV over [B, H, T, D] (see the module docstring): r/k/v
     bf16 or f32 (one dtype), logw f32 (<= 0), u [H, D] f32, S0 an optional
@@ -98,41 +141,48 @@ def wkv(r, k, v, logw, u, S0=None, *, chunk: int = 16):
     Returns (o [B,H,T,D] f32, S_final [B,H,D,D] f32).
 
     CPU tensors go to `wkv_reference`; CUDA tensors launch the kernel (one
-    launch, counted in `wkv.launches`) or raise."""
+    launch, counted in `wkv.launches`) or raise.  The kernel takes D a
+    multiple of 16 up to 64, chunk <= 64, and r, k, v, logw 16-byte
+    aligned (it copies 16 bytes at a time); a fresh tensor is.  It has no
+    backward: an operand that requires grad under grad mode raises."""
     B, H, T, D = r.shape
     _check_chunk(T, chunk)
     if r.device.type == "cpu":
         return wkv_reference(r, k, v, logw, u, S0, chunk=chunk)
     if r.device.type != "cuda":
         raise ValueError(f"wkv: no kernel for device {r.device}")
-    if D > MAX_D or chunk > MAX_L:
-        raise ValueError(f"wkv: the kernel takes D <= {MAX_D} and chunk <= "
-                         f"{MAX_L}, got D={D}, chunk={chunk}")
-    dev, f32 = r.device, torch.float32
-    for name, t, dtypes, shape in (
-            ("r", r, (torch.bfloat16, f32), (B, H, T, D)),
-            ("k", k, (r.dtype,), (B, H, T, D)),
-            ("v", v, (r.dtype,), (B, H, T, D)),
-            ("logw", logw, (f32,), (B, H, T, D)),
-            ("u", u, (f32,), (H, D)),
-            ("S0", S0, (f32,), (B, H, D, D))):
-        if t is not None:
-            _build.check_operand("wkv", name, t, dtypes, shape, dev)
-    o = torch.empty((B, H, T, D), dtype=f32, device=dev)
-    S = torch.empty((B, H, D, D), dtype=f32, device=dev)
-    lib = _build.load("wkv")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
-    with torch.cuda.device(dev):
-        err = lib.repro_wkv(ptr(r), ptr(k), ptr(v), ptr(logw), ptr(u),
-                            ptr(S0), ptr(o), ptr(S), B, H, T, D, chunk,
-                            int(r.dtype == torch.bfloat16),
-                            ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"wkv: kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
+    if D > MAX_D or D % D_STEP or chunk > MAX_L:
+        raise ValueError(f"wkv: the kernel takes D <= {MAX_D}, a multiple of "
+                         f"{D_STEP}, and chunk <= {MAX_L}, got D={D}, "
+                         f"chunk={chunk}")
+    args = (r, k, v, logw, u) + (() if S0 is None else (S0,))
+    _build.refuse_autograd("wkv", *args)
+    dtype = r.dtype if r.dtype in _DTYPES else torch.float32
+    call = _call(B, H, T, D, chunk, dtype, r.device, S0 is not None)
+    call.check(args)
+    out = launch(call, args)
     wkv.launches += 1
-    return o, S
+    return out
 
 
 wkv.launches = 0
+
+
+def geometry(B: int, H: int, D: int, chunk: int, dtype, device) -> dict:
+    """The kernel's launch at B*H heads of width D and this chunk: CTAs
+    per (b, h) and a cluster, threads and dynamic shared bytes a CTA,
+    registers and spilled bytes a thread, CTAs resident on an SM and
+    clusters on the card (the card's own occupancy counts), input stages
+    (2: the next chunk loads while one computes), and the grid."""
+    lib = _build.load("wkv")
+    out = (ctypes.c_longlong * 9)()
+    with torch.cuda.device(device):
+        err = lib.repro_wkv_geometry(D, chunk, int(dtype == torch.bfloat16),
+                                     B * H, out)
+    if err != 0:
+        raise RuntimeError(f"wkv: {_build.error_string(lib, err)}")
+    geo = dict(zip(("ctas_per_head", "cluster", "threads", "smem_bytes",
+                    "registers", "spill_bytes", "ctas_per_sm",
+                    "clusters_resident", "stages"), out))
+    geo["grid"] = B * H * geo["ctas_per_head"]
+    return geo

@@ -326,6 +326,10 @@ def _close_or_one_bf16_step(got, want, bf16):
     (2, 2, 32, 16, 8, 10.0, True),       # logw = -e^10 (clip end)
     (2, 2, 32, 16, 8, -20.0, True),      # logw = -e^-20 (clip end)
     (1, 1, 96, 64, 32, None, False),     # a chunk past 48 KB of shared memory
+    (2, 3, 64, 32, 16, None, True),      # D = 32: one CTA a head, no cluster
+    (1, 2, 64, 48, 16, None, True),      # D = 48: three 16-column CTAs a head
+    (8, 40, 64, 64, 16, None, True),     # 640 CTAs: more than one wave
+    (1, 2, 128, 64, 64, None, True),     # L = 64, the longest chunk
 ])
 def test_wkv_kernel_matches_plain_version(cuda, dtype, B, H, T, D, L, ww,
                                           with_S0):
@@ -359,6 +363,52 @@ def test_wkv_kernel_rejects_bad_operands(cuda):
     with pytest.raises(ValueError, match="D <= 64"):
         WK.wkv(*(torch.zeros((1, 1, 8, 128), device=cuda) for _ in range(4)),
                torch.zeros((1, 128), device=cuda), chunk=8)
+    for D in (8, 24):        # a CTA owns 16 or 32 value columns
+        with pytest.raises(ValueError, match="a multiple of 16"):
+            WK.wkv(*(torch.zeros((1, 1, 8, D), device=cuda) for _ in range(4)),
+                   torch.zeros((1, D), device=cuda), chunk=8)
+    shifted = torch.zeros(r.numel() + 1, device=cuda)[1:].view(r.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        WK.wkv(shifted, k, v, logw, u, chunk=8)
+
+
+def _refusal_case(name, device):
+    """(wrapper, args, kwargs, index of a float operand) for one kernel."""
+    if name == "fused_update":
+        return CF.fused_update, _operands(device, torch.float32, 3, 16, 40, 384), {}, 1
+    if name == "influence_update":
+        arrays = _k2_operands(2, 16, 256, beta=0.2, dead_example=False,
+                              masked=True, zero_M=False)
+        t = [None if a is None else torch.from_numpy(a).to(device) for a in arrays]
+        ops = list(OPS.influence_operands(*t))
+        return (IN.influence_update, ops[:4], dict(
+            row_mask=ops[4], prev_mask=ops[5], col_mask=ops[6], jmask=ops[7]), 2)
+    if name == "event_matmul":
+        a_p, R_p, act, rm = OPS.event_matmul_operands(
+            torch.ones((2, 16), device=device), torch.ones((16, 128), device=device))
+        return EM.event_matmul, [a_p, R_p], dict(act_mask=act, rmask=rm), 1
+    return WK.wkv, _wkv_operands(device, torch.float32, 1, 2, 32, 16)[:5], dict(chunk=8), 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_update", "influence_update",
+                                  "event_matmul", "wkv"])
+def test_kernel_wrappers_refuse_autograd(cuda, name):
+    """A kernel has no backward: an operand that requires grad under grad
+    mode raises before any launch; under torch.no_grad() the call runs."""
+    fn, args, kwargs, i = _refusal_case(name, cuda)
+    args = list(args)
+    args[i] = args[i].clone().requires_grad_(True)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match=r"call under torch\.no_grad\(\)"):
+        fn(*args, **kwargs)
+    assert fn.launches == before
+    with torch.no_grad():
+        out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    first = out[0] if isinstance(out, tuple) else out
+    assert not first.requires_grad and bool(first.float().isfinite().all())
 
 
 @pytest.mark.cuda

@@ -141,3 +141,25 @@ def test_wkv_without_a_kernel_for_the_device_raises():
     with pytest.raises(ValueError, match="no kernel for device meta"):
         WK.wkv(*ops, torch.empty((H, D), device="meta"), chunk=8)
     assert WK.wkv.launches == before
+
+
+def test_kernel_library_is_keyed_by_its_source_and_the_shared_headers(
+        tmp_path, monkeypatch):
+    """csrc/wkv.cu includes driver_launch.cuh: an edit to either names a new
+    library, so a stale build is never loaded; an unchanged tree keeps its
+    name."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    base = _build.library_path("wkv")
+    assert base == _build.library_path("wkv")
+    assert base.name.startswith("wkv-") and base.suffix == ".so"
+    (csrc / "driver_launch.cuh").write_text(
+        (csrc / "driver_launch.cuh").read_text() + "\n// edited\n")
+    after_header = _build.library_path("wkv")
+    (csrc / "wkv.cu").write_text((csrc / "wkv.cu").read_text() + "\n")
+    after_source = _build.library_path("wkv")
+    assert len({base, after_header, after_source}) == 3
