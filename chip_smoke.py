@@ -19,7 +19,11 @@ checkout, it exits non-zero and prints no result.  Phases:
      example, a one-row example, count_prev = 0); dead rows must be exactly
      zero.  Times at (a) and (b): kernel, plain version, the bound, and as
      `library_ms` a torch.baddbmm on pre-gathered tiles (a partial
-     yardstick the port never calls);
+     yardstick the port never calls), each by time_ms; besides, the kernel
+     and the yardstick timed in turn (the median of 5 rounds), the device
+     µs of both (profiler), at (a) the wrapper's host µs and its parts,
+     and the kernel's launch shape (grid, threads, shared bytes,
+     registers, spills, CTAs an SM);
   3. K2 (`kernels/influence.py::influence_update`, the CUDA kernel) against
      its plain version, at (a) the pallas main path's shapes with operands
      from a real step, full width (P_pad=1024) and column-compact
@@ -288,18 +292,59 @@ def compare_k1(torch, CF, ops, label):
     return float(err.max())
 
 
-def time_k1(torch, CF, CK, ops, iters):
-    """(kernel ms, plain ms, library ms, bound ms, bound_by)."""
-    ms = time_ms(torch, lambda: CF.fused_update(*ops), iters)
+def time_k1(torch, CF, CK, ops, iters, alt_iters, host=False):
+    """(kernel ms, plain ms, library ms, bound ms, bound_by), each by
+    time_ms (one window); the kernel and the partial yardstick (baddbmm on
+    pre-gathered tiles) also timed in turn (alt_ms, alt_library_ms: the
+    median of 5 rounds of alt_iters calls); the device µs of both
+    (profiler); with `host` the wrapper's launch path in host µs."""
+    from repro_torch.kernels import _build, influence as IN
+    call = lambda: CF.fused_update(*ops)
+    ms = time_ms(torch, call, iters)
     plain = time_ms(torch, lambda: CF.fused_reference(*ops), max(iters // 10, 3))
     J, vals, mbar, hp, idx_new, idx_prev = ops[:6]
     Jgg = CK.gather_j_tiles(J, idx_new, idx_prev).contiguous()
     vf = vals.float().contiguous()
-    lib = time_ms(torch, lambda: torch.baddbmm(mbar, Jgg, vf), iters)
+    library = lambda: torch.baddbmm(mbar, Jgg, vf)
+    lib = time_ms(torch, library, iters)
+    alt = time_alternating(torch, {"ms": call, "lib": library}, alt_iters)
     bound, by, nbytes, flops = k1_bound(torch, ops)
-    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-            "flops": flops}
+    out = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+           "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+           "flops": flops, "alt_ms": alt["ms"], "alt_library_ms": alt["lib"],
+           "device_us": device_us(torch, call),
+           "library_device_us": device_us(torch, library)}
+    if host:
+        B, K, Pc = vals.shape
+        dev, args = vals.device, tuple(ops)
+        kc = CF._call(B, J.shape[-1], K, Pc, vals.dtype, dev)
+        y = torch.empty_like(vals)
+        packed = kc.pack(*(t.data_ptr() for t in args), y.data_ptr(),
+                         *kc.dims, _build.current_stream(dev))
+        out["host_us"] = launch_path(torch, {
+            "call": call,
+            "checks": lambda: (kc.matches(args),
+                               list(map(torch.Tensor.data_ptr, args))),
+            "autograd check": lambda: _build.refuse_autograd(
+                "fused_update", J, vals, mbar, hp),
+            "allocation": lambda: torch.empty_like(vals),
+            "stream": lambda: _build.current_stream(dev),
+            "ctypes call": lambda: kc.fn(packed),
+            "launch floor": lambda: IN.empty_launch(dev)})
+    return out
+
+
+def k1_launch_shape(CF, ops):
+    """K1's launch on these operands: grid, threads, rows and shared bytes
+    a CTA, registers, spills, residency (`fused_update`'s `geometry`), as
+    one line."""
+    B, K, Pc = ops[1].shape
+    geo = CF.geometry(B, K, Pc, ops[1].dtype, ops[1].device)
+    return (f"grid {geo['grid']} CTAs of {geo['threads']} threads "
+            f"({geo['warps']} warps, {geo['rows']} rows x 128 columns), "
+            f"{geo['smem_bytes']} shared bytes a CTA, {geo['registers']} "
+            f"registers and {geo['spill_bytes']} spilled bytes a thread, "
+            f"{geo['ctas_per_sm']} CTAs an SM, {geo['stages']} ring stages")
 
 
 def main_path_operands(torch, TRAIN, SP, ON, dev, steps=5):
@@ -1245,15 +1290,25 @@ def main():
     compare_k1(torch, CF, edge, "(c) edges f32")
     compare_k1(torch, CF, with_carry_dtype(torch, edge, torch.bfloat16),
                "(c) edges bf16")
-    times = {"(a) f32": time_k1(torch, CF, CK, main_ops, 500),
-             "(b) n=256 f32": time_k1(torch, CF, CK, big_ops, 20),
-             "(b) n=256 bf16": time_k1(torch, CF, CK, big_bf16, 20)}
+    times = {"(a) f32": time_k1(torch, CF, CK, main_ops, 500, 100,
+                                host=True),
+             "(b) n=256 f32": time_k1(torch, CF, CK, big_ops, 20, 50),
+             "(b) n=256 bf16": time_k1(torch, CF, CK, big_bf16, 20, 50)}
     for label, t in times.items():
         log(f"K1 time {label}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, baddbmm on pre-gathered tiles "
             f"(partial yardstick) {t['library_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']:.0f} B, "
             f"{t['flops']:.0f} FLOP)")
+        log(f"K1 in turn {label}: kernel {t['alt_ms']:.4f} ms, baddbmm "
+            f"{t['alt_library_ms']:.4f} ms (median of 5 rounds)")
+        log(f"K1 device {label}: kernel {t['device_us']} us, baddbmm "
+            f"{t['library_device_us']} us (profiler, 20 calls)")
+        if "host_us" in t:
+            log(f"K1 host {label}: {fmt_path(t['host_us'])}")
+    for label, ops in (("(a) f32", main_ops), ("(b) n=256 f32", big_ops),
+                       ("(b) n=256 bf16", big_bf16)):
+        log(f"K1 launch shape {label}: {k1_launch_shape(CF, ops)}")
     log("K1 times json: " + json.dumps(times))
 
     # -- phase 3: K2 against its plain version ------------------------------

@@ -4,11 +4,9 @@ Each source `csrc/<name>.cu` exposes a plain C interface and is compiled by
 nvcc, at first use, into a shared library under `build/repro_torch/` at the
 repository root, named by a hash of the source and the flags — a changed
 source builds anew, an unchanged one is reused.  The library is loaded with
-ctypes, with `argtypes` set: every pointer and the stream are `c_void_p`
-there, so a wrapper may hand them over as plain Python ints.  K2, K3 and
-K4 take their launch arguments packed in one buffer of 64-bit ints
-(`KernelCall.launch`): one argument for ctypes to convert instead of 11 to
-15.
+ctypes, with `argtypes` set.  All four kernels (K1-K4) take their launch
+arguments packed in one buffer of 64-bit ints (`KernelCall.launch`): one
+argument for ctypes to convert instead of 11 to 15.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so csrc/<name>.cu \\
@@ -16,11 +14,11 @@ K4 take their launch arguments packed in one buffer of 64-bit ints
 
 `build(names)` starts one nvcc per source, all together, and waits for them;
 a failed build raises with nvcc's stderr.  Nothing here runs at import.
-`check_operand` is the operand check every kernel's wrapper makes;
-`KernelCall` makes the same check in one comparison per operand (K2, K3,
-K4), and `KernelCall.launch` keeps the rest of the launch path light: the
-device entered only when it is not current, the raw stream handle, the
-arguments packed.  `refuse_autograd` is the check every wrapper makes
+`KernelCall` checks a kernel's operands in one comparison per operand
+(`check_operand` gives the reason where one differs), and
+`KernelCall.launch` keeps the rest of the launch path light: the device
+entered only when it is not current, the raw stream handle, the arguments
+packed.  `refuse_autograd` is the check every wrapper makes
 before a launch: the kernels have no backward.
 """
 from __future__ import annotations
@@ -46,12 +44,14 @@ KERNELS = ("compact_fused", "influence", "event_matmul", "wkv")
 _I, _P = ctypes.c_int, ctypes.c_void_p
 # C signatures: (argtypes, restype) of every exported function
 SIGNATURES = {
+    # every launch takes its arguments packed in one buffer (`KernelCall`)
     "compact_fused": {
-        "repro_fused_update": ([_I] + [_P] * 9 + [_I] * 4 + [_P], _I),
+        "repro_fused_update": ([ctypes.c_char_p], _I),
+        "repro_fused_geometry": ([_I] * 2 + [ctypes.POINTER(ctypes.c_longlong)],
+                                 _I),
         "repro_error_string": ([_I], ctypes.c_char_p),
     },
     "influence": {
-        # the launch arguments packed in one buffer (`KernelCall`)
         "repro_influence_update": ([ctypes.c_char_p], _I),
         "repro_empty_launch": ([ctypes.c_char_p], _I),
         "repro_error_string": ([_I], ctypes.c_char_p),

@@ -13,11 +13,16 @@ and rows r >= count_new[b] are exactly 0.  Accumulation is f32; the carry
 
   * `fused_update` — the wrapper the engine calls.  On a CUDA tensor it
     launches the hand-written kernel (`csrc/compact_fused.cu`, built at
-    first use by `kernels._build`) or raises; on a CPU tensor it runs
-    `fused_reference`.  `fused_update.launches` counts kernel launches.
+    first use by `kernels._build`; one CTA per (16, 32 or 64 new rows,
+    128 columns, example), 8 rows x 4 columns a thread, 2 x 4 at K <= 16,
+    previous rows through a cp.async ring) through `_build.KernelCall`, or
+    raises; on a CPU tensor it runs `fused_reference`.
+    `fused_update.launches` counts kernel launches.
   * `fused_reference` — the plain PyTorch version, with the JAX oracle's
     blockwise (bl=8) f32 accumulation and its zeroing of rows past
     count_new.
+  * `geometry` — the kernel's launch shape (grid, threads, shared bytes,
+    registers, residency) at a capacity.
 
 The JAX package's XLA lowering (`fused_update_blocks`, with its capacity
 ladder) has no counterpart: the plain version and the kernel fill its role.
@@ -111,7 +116,31 @@ def fused_reference(Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev,
 # The wrapper: the CUDA kernel on the card, the plain version on the CPU
 # ---------------------------------------------------------------------------
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+_CALLS: dict = {}
+_last: list = [None]        # the last call's KernelCall, tried first
+
+
+def _call(B, n, K, Pc, dtype, device) -> _build.KernelCall:
+    """The kernel's launch at these shapes and carry dtype, built once;
+    `dtype` is vals' (a kernel dtype, or the entries' check raises)."""
+    key = (B, n, K, Pc, dtype, device)
+    call = _CALLS.get(key)
+    if call is None:
+        f32, i32 = torch.float32, torch.int32
+        entries = [("Jhat", f32, (f32,), (B, n, n)),
+                   ("vals", dtype, _DTYPES, (B, K, Pc)),
+                   ("mbar_rows", f32, (f32,), (B, K, Pc)),
+                   ("hp_rows", f32, (f32,), (B, K)),
+                   ("idx_new", i32, (i32,), (B, K)),
+                   ("idx_prev", i32, (i32,), (B, K)),
+                   ("count_new", i32, (i32,), (B,)),
+                   ("count_prev", i32, (i32,), (B,))]
+        lib = _build.load("compact_fused")
+        call = _CALLS[key] = _build.KernelCall(
+            "fused_update", device, entries, lib, lib.repro_fused_update,
+            (B, n, K, Pc, int(dtype == torch.bfloat16)), n_ptrs=9)
+    return call
 
 
 def fused_update(Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev,
@@ -126,44 +155,55 @@ def fused_update(Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev,
 
     CPU tensors go to `fused_reference`; CUDA tensors launch the kernel
     (one launch, counted in `fused_update.launches`) or raise.  The kernel
-    has no backward: an operand that requires grad under grad mode
-    raises."""
-    if vals.device.type == "cpu":
-        return fused_reference(Jhat, vals, mbar_rows, hp_rows, idx_new,
-                               idx_prev, count_new, count_prev)
-    if vals.device.type != "cuda":
-        raise ValueError(f"fused_update: no kernel for device {vals.device}")
-    B, K, Pc = vals.shape
-    n = Jhat.shape[-1]
-    f32, i32 = (torch.float32,), (torch.int32,)
-    for name, t, dtypes, shape in (
-            ("vals", vals, tuple(_DTYPE_CODE), (B, K, Pc)),
-            ("Jhat", Jhat, f32, (B, n, n)),
-            ("mbar_rows", mbar_rows, f32, (B, K, Pc)),
-            ("hp_rows", hp_rows, f32, (B, K)),
-            ("idx_new", idx_new, i32, (B, K)),
-            ("idx_prev", idx_prev, i32, (B, K)),
-            ("count_new", count_new, i32, (B,)),
-            ("count_prev", count_prev, i32, (B,))):
-        _build.check_operand("fused_update", name, t, dtypes, shape,
-                             vals.device)
+    takes Pc % 8 == 0 and vals and mbar_rows 16-byte aligned (it copies 16
+    bytes at a time); the compact carry's Pc_pad and a fresh tensor are.
+    The operands are checked in one comparison per tensor against the last
+    call's shapes; only where that fails are the shapes looked at again.
+    The kernel has no backward: an operand that requires grad under grad
+    mode raises."""
     args = (Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev, count_new,
             count_prev)
+    call = _last[0]
+    if call is None or not call.matches(args):
+        dev = vals.device
+        if dev.type == "cpu":
+            return fused_reference(*args)
+        if dev.type != "cuda":
+            raise ValueError(f"fused_update: no kernel for device {dev}")
+        B, K, Pc = vals.shape
+        if Pc % 8:
+            raise ValueError(f"fused_update: the kernel takes Pc % 8 == 0 "
+                             f"(16-byte rows of a bf16 carry), got Pc={Pc}")
+        dtype = vals.dtype if vals.dtype in _DTYPES else torch.float32
+        call = _call(B, Jhat.shape[-1], K, Pc, dtype, dev)
+        call.check(args)
+        _last[0] = call
     _build.refuse_autograd("fused_update", Jhat, vals, mbar_rows, hp_rows)
+    ptrs = list(map(torch.Tensor.data_ptr, args))
+    if (ptrs[1] | ptrs[2]) & 15:
+        raise ValueError("fused_update: vals and mbar_rows must be 16-byte "
+                         "aligned")
     out = torch.empty_like(vals)
-    lib = _build.load("compact_fused")
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    with torch.cuda.device(vals.device):
-        err = lib.repro_fused_update(
-            _DTYPE_CODE[vals.dtype],
-            *(ctypes.c_void_p(t.data_ptr()) for t in args),
-            ctypes.c_void_p(out.data_ptr()), B, n, K, Pc,
-            ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"fused_update: kernel launch failed: "
-                           f"{_build.error_string(lib, err)}")
+    call.launch(*ptrs, out.data_ptr())
     fused_update.launches += 1
     return out
 
 
 fused_update.launches = 0
+
+
+def geometry(B: int, K: int, Pc: int, dtype, device) -> dict:
+    """The kernel's launch for B examples of capacity K and Pc columns:
+    warps, threads and rows a CTA, dynamic shared bytes a CTA, registers
+    and spilled bytes a thread, CTAs resident on an SM (the card's own
+    occupancy count), ring stages, and the grid."""
+    lib = _build.load("compact_fused")
+    out = (ctypes.c_longlong * 8)()
+    with torch.cuda.device(device):
+        err = lib.repro_fused_geometry(K, int(dtype == torch.bfloat16), out)
+    if err != 0:
+        raise RuntimeError(f"fused_update: {_build.error_string(lib, err)}")
+    geo = dict(zip(("warps", "threads", "rows", "smem_bytes", "registers",
+                    "spill_bytes", "ctas_per_sm", "stages"), out))
+    geo["grid"] = B * -(-K // geo["rows"]) * -(-Pc // 128)
+    return geo

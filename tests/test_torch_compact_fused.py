@@ -194,3 +194,85 @@ def test_library_path_is_keyed_by_source_hash():
     assert p.parent == _build.BUILD_DIR and p.suffix == ".so"
     assert p.name.startswith("compact_fused-")
     assert p == _build.library_path("compact_fused")
+
+
+def _fused_args_fields():
+    """The field names of the packed launch buffer, in the order the C
+    entry point reads them (`struct FusedArgs` in csrc/compact_fused.cu)."""
+    import re
+    src = (_build.CSRC / "compact_fused.cu").read_text()
+    body = re.search(r"struct FusedArgs \{(.*?)\};", src, re.S).group(1)
+    body = body.replace("unsigned long long", "")
+    return [f.strip() for f in body.replace(";", "").split(",")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_call_packs_in_entry_point_order_and_raises(monkeypatch, dtype):
+    """K1's launch route (`_build.KernelCall`) on CPU tensors, with the
+    library and the device and stream lookups stubbed: the eight operand
+    pointers, out, (B, n, K, Pc), the carry dtype and the stream packed as
+    64-bit ints in the order of the C entry point's struct; a mis-shaped
+    or misaligned operand raises before any launch."""
+    import struct
+    packed = []
+
+    class Lib:
+        @staticmethod
+        def repro_fused_update(buf):
+            packed.append(struct.unpack(f"{len(buf) // 8}Q", buf))
+            return 0
+
+        @staticmethod
+        def repro_error_string(err):
+            return b"bad launch"
+
+    monkeypatch.setattr(_build, "load", lambda name: Lib)
+    monkeypatch.setattr(_build, "_get_device", lambda: None)
+    monkeypatch.setattr(_build, "_raw_stream", lambda index: 77)
+    monkeypatch.setattr(CF, "_CALLS", {})
+    monkeypatch.setattr(CF, "_last", [None])
+    ops = _torch_args(_ragged_np(7, B=3, K=16, n=40, Pc_pad=128), dtype)
+    B, K, Pc = ops[1].shape
+    call = CF._call(B, 40, K, Pc, dtype, torch.device("cpu"))
+    assert call.matches(ops) and CF._call(B, 40, K, Pc, dtype,
+                                          torch.device("cpu")) is call
+    CF._last[0] = call            # the CPU tensors now take the launch route
+    before = CF.fused_update.launches
+    out = CF.fused_update(*ops)
+    assert CF.fused_update.launches == before + 1
+    assert out.dtype == dtype and out.shape == ops[1].shape
+    got = dict(zip(_fused_args_fields(), packed[-1], strict=True))
+    names = ("J", "vals", "mbar", "hp", "idx_new", "idx_prev", "count_new",
+             "count_prev")
+    assert {k: got[k] for k in names} == {
+        k: t.data_ptr() for k, t in zip(names, ops)}
+    assert got["out"] == out.data_ptr()
+    assert (got["B"], got["n"], got["K"], got["Pc"]) == (B, 40, K, Pc)
+    assert got["bf16"] == int(dtype == torch.bfloat16)
+    assert got["stream"] == 77
+    bad = list(ops)
+    bad[3] = torch.zeros((B, K + 1))
+    assert not call.matches(bad)
+    with pytest.raises(ValueError, match=r"hp_rows has shape \(3, 17\)"):
+        call.check(bad)
+    bad = list(ops)
+    bad[2] = torch.zeros(ops[2].numel() + 1)[1:].view(ops[2].shape)
+    CF._last[0] = call
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        CF.fused_update(*bad)
+    assert CF.fused_update.launches == before + 1
+
+
+def test_every_launch_entry_takes_one_packed_buffer():
+    """Every kernel launches through `KernelCall`: each exported launch
+    function takes one packed buffer, and no source keeps a runtime
+    `<<<>>>` launch."""
+    import ctypes
+    for name, fns in _build.SIGNATURES.items():
+        launches = [f for f in fns
+                    if not f.endswith(("_error_string", "_geometry"))]
+        assert launches, name
+        for f in launches:
+            assert fns[f] == ([ctypes.c_char_p], ctypes.c_int), (name, f)
+    for src in _build.CSRC.glob("*.cu"):
+        assert "<<<" not in src.read_text(), src.name

@@ -29,13 +29,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _operands(device, dtype, B, K, n, Pc, seed=0):
+def _operands(device, dtype, B, K, n, Pc, seed=0, counts=None):
     """Ragged operands: one full example, one one-row example, one with
-    count_prev = 0, the rest random; -1 sentinels past each count."""
+    count_prev = 0, the rest random; or the given (count_new, count_prev);
+    -1 sentinels past each count."""
     rng = np.random.default_rng(seed)
-    cn = rng.integers(1, K + 1, B)
-    cp = rng.integers(1, K + 1, B)
-    cn[0], cp[0], cn[1], cp[2] = K, K, 1, 0
+    if counts is None:
+        cn = rng.integers(1, K + 1, B)
+        cp = rng.integers(1, K + 1, B)
+        cn[0], cp[0], cn[1], cp[2] = K, K, 1, 0
+    else:
+        cn, cp = (np.array(c) for c in counts)
     idx_new = np.full((B, K), -1, np.int32)
     idx_prev = np.full((B, K), -1, np.int32)
     for b in range(B):
@@ -53,12 +57,9 @@ def _operands(device, dtype, B, K, n, Pc, seed=0):
     return ops
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,K,n,Pc", [(3, 16, 40, 384), (32, 16, 16, 256),
-                                      (3, 256, 256, 1024), (4, 20, 20, 200)])
-def test_kernel_matches_plain_version(cuda, dtype, B, K, n, Pc):
-    ops = _operands(cuda, dtype, B, K, n, Pc)
+def _check_fused(ops, dtype):
+    """One kernel launch on `ops` against the plain version: within the
+    tolerance, rows past count_new exactly 0."""
     before = CF.fused_update.launches
     out = CF.fused_update(*ops)
     torch.cuda.synchronize()
@@ -72,9 +73,35 @@ def test_kernel_matches_plain_version(cuda, dtype, B, K, n, Pc):
         assert float(err.max()) <= F32_REL * scale
     else:
         assert bool((err <= BF16_STEP * r.abs() + F32_REL * scale).all())
-    rows = torch.arange(K, device=cuda)[None, :]
+    K = ops[1].shape[1]
+    rows = torch.arange(K, device=out.device)[None, :]
     dead = rows >= ops[6][:, None]
     assert bool((o[dead] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,n,Pc", [(3, 16, 40, 384), (32, 16, 16, 256),
+                                      (3, 256, 256, 1024), (4, 20, 20, 200),
+                                      (3, 72, 80, 264),       # a partial 2nd row tile
+                                      (3, 512, 512, 384),     # 16 ring chunks
+                                      (8, 256, 256, 4352)])   # 1,088 CTAs
+def test_kernel_matches_plain_version(cuda, dtype, B, K, n, Pc):
+    _check_fused(_operands(cuda, dtype, B, K, n, Pc), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("counts", [
+    # count_new 8 / 9: a dead warp and a one-row warp in a live tile; 72 / 65:
+    # the partial 2nd tile full and one row; count_prev at the ring chunks'
+    # edges (31, 32, 33) and past two chunks (65)
+    ([8, 9, 72, 65], [31, 32, 33, 65]),
+    # an example with no live row (its first tile dead), one with no
+    # previous row
+    ([9, 0, 1, 64], [65, 32, 0, 31])])
+def test_kernel_at_tile_and_ring_edges(cuda, dtype, counts):
+    _check_fused(_operands(cuda, dtype, 4, 72, 80, 256, counts=counts), dtype)
 
 
 @pytest.mark.cuda
@@ -88,6 +115,13 @@ def test_kernel_rejects_bad_operands(cuda):
     bad[2] = bad[2].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         CF.fused_update(*bad)
+    bad = list(ops)
+    bad[1] = torch.zeros(bad[1].numel() + 1, device=cuda)[1:].view(bad[1].shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        CF.fused_update(*bad)
+    odd = _operands(cuda, torch.float32, 3, 16, 40, 196)
+    with pytest.raises(ValueError, match=r"Pc % 8 == 0"):
+        CF.fused_update(*odd)
 
 
 def _k2_operands(B, n, P, *, beta, dead_example, masked, zero_M, seed=0):
