@@ -41,15 +41,34 @@ checkout, it exits non-zero and prints no result.  Phases:
      by time_ms; the host µs parts include the autograd check that every
      wrapper makes before its launch;
   4. the main paths: `repro_torch.launch.train --arch egru-spiral --online
-     --rtrl-backend B --sparsity 0.8 --update-every 8 --steps 20` on the
-     card, in-process, for B = compact_fused (K1 launches counted), pallas
-     (K2 launches counted), dense and compact, each with every kernel's
-     count set to 0 just before and read just after; then the first
+     --rtrl-backend B --sparsity 0.8 --update-every 8 --steps 20
+     --ckpt-every 0` on the card, in-process, for B = compact_fused (K1
+     launches counted), pallas (K2 launches counted), dense and compact,
+     each with every kernel's count set to 0 just before and read just
+     after; then the first
      window's loss and gradients of every backend on the card, of pallas
      and compact on the CPU and of the BPTT oracle on the card must agree;
      then a torch.profiler trace of two more windows of compact_fused and
      of pallas (device busy share, launches per step);
-  5. K3 (`kernels/event_matmul.py::event_matmul`, the CUDA kernel) against
+  5. checkpoint, restart and the offline path, under a temporary directory
+     that is removed at the end, every run with the counts set to 0 just
+     before and read just after: (r1) the main path with compact_fused and
+     `--ckpt-every 5 --fail-at 7`, and the same run without the crash:
+     restarts 1 and 0, 160 stream steps each, K1 launches 176 (two windows
+     replayed) and 160, the windows after the resume equal to the uncrashed
+     run's and the final checkpoints, loaded through the port's
+     load_checkpoint, bitwise on every leaf but the RNG key data; the same
+     with a bf16 carry (the vals leaf on disk as its uint16 bits); (r2) the
+     same with pallas and K2; (r3) the window after update 10 from the
+     card's checkpoint on the CPU and on the card, and from a CPU run's
+     checkpoint on the card and on the CPU, within 1e-5 (loss and
+     gradients); (r4) the offline path (`--steps 20`, no --online) with
+     compact_fused and pallas, crashed and uncrashed: 17 launches a step
+     (340 uncrashed), final checkpoints bitwise, and the first step's loss
+     and gradients against the offline compact backend's within 1e-5; then
+     the bytes of a checkpoint and the ms of one save() and one restore,
+     and the median offline step ms per backend;
+  6. K3 (`kernels/event_matmul.py::event_matmul`, the CUDA kernel) against
      its plain version, f32 and bf16, at (a) the spiral main path's a_prev
      [32, 16] and the u gate's masked R [16, 16] from a real step, (b) B=32,
      n=256, m=768 with activity and parameter blocks at block density 0.5,
@@ -62,7 +81,7 @@ checkout, it exits non-zero and prints no result.  Phases:
      driven over the main path's first window (3 gates x 8 steps, counts
      reset before and read after), held against the dense a_prev @ R
      (no engine calls K3, as in the reference);
-  6. RWKV6-3B serving at full width and depth (32 layers, d 2560, 40 x 64
+  7. RWKV6-3B serving at full width and depth (32 layers, d 2560, 40 x 64
      heads, d_ff 8960, vocab 65536, bf16, ~3.1 B parameters drawn on the
      card from a seeded generator): the main path with every count reset
      before and read after — `models.rwkv.prefill` of 4 prompts x 2048
@@ -83,7 +102,7 @@ checkout, it exits non-zero and prints no result.  Phases:
      layers, f32: prefill with the kernel vs the plain WKV and vs a
      teacher-forced decode over 64 tokens, each within 1e-4 of the largest
      logit;
-  7. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
+  8. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
      then the result line {"ok": true, "device": {...}}.
 
 Tolerances: a float32 kernel result is within 1e-5 of the largest
@@ -610,7 +629,7 @@ def bptt_first_window(torch, TRAIN, BP, ST):
     return float(loss), ST.apply_stacked_masks(grads, run["masks"])
 
 
-def compare_grads(a, b, label):
+def compare_grads(a, b, label, what="first-window gradients"):
     worst = 0.0
     ia, ib = tree_items(a), tree_items(b)
     check([k for k, _ in ia] == [k for k, _ in ib],
@@ -623,7 +642,7 @@ def compare_grads(a, b, label):
         check(err <= F32_REL * scale,
               f"{label}: gradient leaf differs by {err:.3e} (scale {scale:.3e})")
         worst = max(worst, err / scale)
-    log(f"first-window gradients {label}: max rel err {worst:.3e}")
+    log(f"{what} {label}: max rel err {worst:.3e}")
 
 
 def trace_main_path(torch, TRAIN, ON, backend, kernel, warm=2, traced=2,
@@ -676,6 +695,242 @@ def trace_main_path(torch, TRAIN, ON, backend, kernel, warm=2, traced=2,
         log(f"  {tot / steps:8.2f} us/step  x{cnt / steps:5.1f}/step  {n[:90]}")
 
 # ---------------------------------------------------------------------------
+# phase 5: checkpoint, restart and the offline path
+# ---------------------------------------------------------------------------
+
+def offline_argv(backend, *extra):
+    """The offline path's launcher arguments (no --device: it runs on
+    CUDA): 20 whole-sequence steps of 17 stream steps."""
+    return ["--arch", "egru-spiral", "--rtrl-backend", backend,
+            "--sparsity", "0.8", "--steps", "20", "--seed", "0", *extra]
+
+
+def run_counted(TRAIN, argv):
+    """One launcher run with every kernel's count set to 0 just before and
+    read just after."""
+    reset_counts()
+    out = TRAIN.main(argv)
+    return out, read_counts()
+
+
+def ckpt_like(TRAIN, argv):
+    """The checkpoint tree of a launcher run's trainer, for load_checkpoint."""
+    args = TRAIN.parse_args(argv)
+    if args.online:
+        return TRAIN.online_trainers(args, TRAIN.build_online(args))(1) \
+            ._ckpt_tree()
+    return TRAIN.offline_trainers(args, TRAIN.build_offline(args))(1) \
+        ._ckpt_tree()
+
+
+def checkpoints_bitwise(torch, CKP, root_a, root_b, like, label):
+    """The newest checkpoints under root_a and root_b, loaded through the
+    port's load_checkpoint, equal bit for bit on every leaf but the RNG key
+    data."""
+    import numpy as np
+    from repro_torch.tree import tree_flatten_with_path
+    ta, sa = CKP.load_checkpoint(root_a, like)
+    tb, sb = CKP.load_checkpoint(root_b, like)
+    check(sa == sb >= 0, f"{label}: final checkpoints at {sa} and {sb}")
+    n = 0
+    for (path, a), (_, b) in zip(tree_flatten_with_path(ta),
+                                 tree_flatten_with_path(tb)):
+        if path == ("key",):
+            continue
+        if isinstance(a, torch.Tensor):
+            same = torch.equal(a.reshape(-1).view(torch.uint8),
+                               b.reshape(-1).view(torch.uint8))
+        else:
+            same = np.array_equal(a, b)
+        check(same, f"{label}: leaf {path} differs between the crashed and "
+                    "the uncrashed run")
+        n += 1
+    return n, tb
+
+
+def crash_and_resume(torch, TRAIN, CKP, argv, kernel, root, label):
+    """The run with one crash at update/step 7 (checkpoints every 5) and
+    the same run without it: restarts 1 and 0, the launches of `kernel`
+    (the crashed run replays two windows or steps), the records after the
+    resume equal to the uncrashed run's, and the final checkpoints bit for
+    bit."""
+    online = "--online" in argv
+    a, ca = run_counted(TRAIN, [*argv, "--fail-at", "7", "--ckpt-dir",
+                                str(root / "a")])
+    b, cb = run_counted(TRAIN, [*argv, "--ckpt-dir", str(root / "b")])
+    per = 8 if online else 17                 # stream steps a window / step
+    done = 160 if online else 20
+    check((a["restarts"], b["restarts"]) == (1, 0),
+          f"{label}: restarts {a['restarts']} / {b['restarts']}")
+    check(a["final_step"] == b["final_step"] == done,
+          f"{label}: final steps {a['final_step']} / {b['final_step']}")
+    n_units = done // 8 if online else done
+    check_counts(ca, {kernel: (n_units + 2) * per}, f"{label} crashed")
+    check_counts(cb, {kernel: n_units * per}, f"{label} uncrashed")
+    key, recs = ("update", "windows") if online else ("step", "steps")
+    b_loss = {r[key]: r["loss"] for r in b[recs]}
+    check([r[key] for r in a[recs]] == list(range(6, n_units + 1)),
+          f"{label}: the restart did not resume at 5")
+    check(all(r["loss"] == b_loss[r[key]] for r in a[recs]),
+          f"{label}: losses after the resume differ from the uncrashed run")
+    like = ckpt_like(TRAIN, [*argv, "--ckpt-dir", str(root / "like")])
+    n, tree = checkpoints_bitwise(torch, CKP, root / "a", root / "b", like,
+                                  label)
+    log(f"resume {label}: restarts 1 / 0, {kernel} launches "
+        f"{ca[kernel]} / {cb[kernel]}, final step {done}, {len(a[recs])} "
+        f"records after the resume equal to the uncrashed run's, final "
+        f"checkpoints bitwise on {n} leaves")
+    return a, b, tree
+
+
+def resumed_window(torch, TRAIN, ON, CKP, ckpt_root, device, root, step=10):
+    """Loss and gradients of the window after update `step`, from the
+    checkpoint of that update, on `device`."""
+    import numpy as np
+    argv = main_argv("compact_fused", "--ckpt-every", "5", "--ckpt-dir",
+                     str(root / f"like-{device}"), "--device", device)
+    args = TRAIN.parse_args(argv)
+    run = TRAIN.build_online(args)
+    tree, got = CKP.load_checkpoint(
+        ckpt_root, TRAIN.online_trainers(args, run)(1)._ckpt_tree(),
+        step=step)
+    pos = int(tree["pos"])
+    check(got == step and pos == 8 * step, f"checkpoint {got} at {pos}")
+    xs, ys = zip(*(run["stream"](pos + t) for t in range(8)))
+    xs = torch.from_numpy(np.stack(xs)).to(run["device"])
+    ys = torch.from_numpy(np.stack(ys)).to(run["device"])
+    _, loss, grads, _ = ON.stream_grads(run["learner"], tree["carry"], xs, ys)
+    return float(loss), grads
+
+
+def ckpt_costs(torch, TRAIN, CKP, argv, root):
+    """What one checkpoint of a run's carry and optimizer state costs
+    (median of 5): its bytes on disk; the ms until save() returns (the
+    copies to the host, in the caller's thread) and until the background
+    write is joined (np.save of every leaf and the rename); the ms of one
+    restore onto the card, and of the newest-valid scan inside it (every
+    leaf's header read)."""
+    like = ckpt_like(TRAIN, [*argv, "--ckpt-dir", str(root / "like")])
+    m = CKP.CheckpointManager(root / "timed", keep=1)
+    times = {"save returns": [], "save joined": [], "restore": [],
+             "valid-step scan": []}
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.save(i, like)
+        t1 = time.perf_counter()
+        m.wait()
+        t2 = time.perf_counter()
+        CKP.load_checkpoint(root / "timed", like)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        CKP.valid_steps(root / "timed")
+        t4 = time.perf_counter()
+        for key, dt in zip(times, (t1 - t0, t2 - t0, t3 - t2, t4 - t3)):
+            times[key].append(dt * 1e3)
+    step_dir = root / "timed" / "step_00000004"
+    nbytes = sum(f.stat().st_size for f in step_dir.glob("*.npy"))
+    return nbytes, len(list(step_dir.glob("*.npy"))), {
+        k: statistics.median(v) for k, v in times.items()}
+
+
+def checkpoint_phase(torch, TRAIN, ON, CKP):
+    """(r1)-(r4) of the checkpoint, restart and offline paths, under a
+    temporary directory that is removed at the end."""
+    import shutil
+    import tempfile
+    import numpy as np
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        # (r1) crash and resume with K1, f32 and bf16
+        _, b_fused, _ = crash_and_resume(
+            torch, TRAIN, CKP, main_argv("compact_fused", "--ckpt-every",
+                                         "5"),
+            "compact_fused", root / "r1", "online compact_fused f32")
+        _, _, tree = crash_and_resume(
+            torch, TRAIN, CKP, main_argv("compact_fused", "--ckpt-every", "5",
+                                         "--influence-dtype", "bfloat16"),
+            "compact_fused", root / "r1bf", "online compact_fused bf16")
+        vals = tree["carry"]["vals"]
+        step_dir = root / "r1bf" / "b" / "step_00000020"
+        raw = np.load(step_dir / "carry__vals.s_full.npy")
+        entry = [e for e in json.loads((step_dir / "manifest.json")
+                                       .read_text())["leaves"]
+                 if e["name"] == "carry__vals"][0]
+        check(vals.dtype == torch.bfloat16 and raw.dtype == np.uint16
+              and entry["dtype"] == "bfloat16"
+              and np.array_equal(raw, vals.view(torch.int16).cpu().numpy()
+                                 .view(np.uint16)),
+              "bf16 carry: the vals leaf is not its uint16 bits on disk")
+        log(f"resume bf16: carry__vals {tuple(vals.shape)} on disk as "
+            f"{raw.dtype} under manifest dtype {entry['dtype']}, bitwise")
+        # (r2) the same with K2
+        crash_and_resume(torch, TRAIN, CKP,
+                         main_argv("pallas", "--ckpt-every", "5"),
+                         "influence", root / "r2", "online pallas")
+        # (r3) across devices, from the checkpoint of update 10
+        b_root = root / "r1" / "b"
+        lg, gg = resumed_window(torch, TRAIN, ON, CKP, b_root, "cuda", root)
+        lc, gc = resumed_window(torch, TRAIN, ON, CKP, b_root, "cpu", root)
+        b_next = [w["loss"] for w in b_fused["windows"] if w["update"] == 11]
+        check(lg == b_next[0], f"card checkpoint resumed on the card: window "
+                               f"11 loss {lg} vs the uncrashed run's {b_next}")
+        check(abs(lc - lg) <= F32_REL * abs(lg),
+              f"card checkpoint on the CPU: loss {lc} vs {lg}")
+        compare_grads(gc, gg, "card checkpoint resumed on the CPU vs the card",
+                      "window-11 gradients")
+        TRAIN.main(main_argv("compact_fused", "--ckpt-every", "10", "--steps",
+                             "10", "--device", "cpu", "--ckpt-dir",
+                             str(root / "r3cpu")))
+        lc2, gc2 = resumed_window(torch, TRAIN, ON, CKP, root / "r3cpu",
+                                  "cpu", root)
+        lg2, gg2 = resumed_window(torch, TRAIN, ON, CKP, root / "r3cpu",
+                                  "cuda", root)
+        check(abs(lg2 - lc2) <= F32_REL * abs(lc2),
+              f"CPU checkpoint on the card: loss {lg2} vs {lc2}")
+        compare_grads(gg2, gc2, "CPU checkpoint resumed on the card vs the CPU",
+                      "window-11 gradients")
+        log(f"resume across devices: window 11 loss card {lg:.8f} (the "
+            f"uncrashed run's {b_next[0]:.8f}), CPU {lc:.8f}; from the CPU's "
+            f"checkpoint CPU {lc2:.8f}, card {lg2:.8f}")
+        # (r4) offline, with K1 and K2
+        offline = {}
+        for backend, kernel in (("compact_fused", "compact_fused"),
+                                ("pallas", "influence")):
+            _, offline[backend], _ = crash_and_resume(
+                torch, TRAIN, CKP, offline_argv(backend, "--ckpt-every", "5"),
+                kernel, root / f"r4{backend}", f"offline {backend}")
+        firsts = {}
+        for backend in ("compact", "compact_fused", "pallas"):
+            run = TRAIN.build_offline(TRAIN.parse_args(offline_argv(backend)))
+            xs, ys = run["data_at"](0)
+            loss, grads, _ = run["loss_and_grads"](run["params"], xs, ys)
+            firsts[backend] = (float(loss), grads)
+        lc, gc = firsts["compact"]
+        for backend in ("compact_fused", "pallas"):
+            lb, gb = firsts[backend]
+            check(abs(lb - lc) <= F32_REL * abs(lc),
+                  f"offline first step {backend} {lb} vs compact {lc}")
+            compare_grads(gb, gc, f"{backend} vs compact (cuda)",
+                          "offline first-step gradients")
+        for backend, out in offline.items():
+            s = out["summary"]
+            log(f"offline {backend}: median step {s['median_step_ms']:.3f} ms "
+                f"(17 stream steps and the update; {len(out['steps'])} "
+                f"steps), first loss {s['first_loss']:.6f}, final loss "
+                f"{s['final_loss']:.6f}")
+        # what a checkpoint costs
+        for backend in ("compact_fused", "pallas"):
+            nbytes, files, ms = ckpt_costs(
+                torch, TRAIN, CKP, main_argv(backend, "--ckpt-every", "5"),
+                root / f"cost-{backend}")
+            log(f"checkpoint online {backend}: {nbytes} bytes on disk in "
+                f"{files} files; ms (median of 5): " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in ms.items()))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+# ---------------------------------------------------------------------------
 # launch counts of every kernel wrapper
 # ---------------------------------------------------------------------------
 
@@ -718,7 +973,7 @@ def within(got, ref, bf16, label):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: K3 against its plain version, and its entry point on the main path
+# phase 6: K3 against its plain version, and its entry point on the main path
 # ---------------------------------------------------------------------------
 
 def k3_bound(torch, ops):
@@ -909,7 +1164,7 @@ def k3_checks(torch, dev, TRAIN, ON, EM, OPS):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: K4 against its plain version, and RWKV6-3B serving
+# phase 7: K4 against its plain version, and RWKV6-3B serving
 # ---------------------------------------------------------------------------
 
 def k4_bound(torch, ops, chunk):
@@ -1235,6 +1490,7 @@ def main():
               "from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import checkpoint as CKP
     from repro_torch.core import bptt as BP, sparse_rtrl as SP
     from repro_torch.core import stacked_rtrl as ST
     from repro_torch.kernels import _build, compact as CK
@@ -1349,7 +1605,7 @@ def main():
     runs, launches = {}, {}
     for backend in ("compact_fused", "pallas", "dense", "compact"):
         reset_counts()
-        runs[backend] = TRAIN.main(main_argv(backend))
+        runs[backend] = TRAIN.main(main_argv(backend, "--ckpt-every", "0"))
         counts = read_counts()
         launches[backend] = (counts["compact_fused"], counts["influence"])
         out = runs[backend]
@@ -1395,13 +1651,16 @@ def main():
     trace_main_path(torch, TRAIN, ON, "compact_fused", "fused_update_kernel")
     trace_main_path(torch, TRAIN, ON, "pallas", "influence_kernel")
 
-    # -- phase 5: K3 against its plain version, and its entry point ----------
+    # -- phase 5: checkpoint, restart and the offline path ------------------
+    checkpoint_phase(torch, TRAIN, ON, CKP)
+
+    # -- phase 6: K3 against its plain version, and its entry point ----------
     k3_entry = k3_checks(torch, dev, TRAIN, ON, EM, OPS)
 
-    # -- phase 6: RWKV6-3B serving with K4 ----------------------------------
+    # -- phase 7: RWKV6-3B serving with K4 ----------------------------------
     k4_entry, _ = rwkv_serving(torch, dev, WK)
 
-    # -- phase 7: the kernels line and the result ---------------------------
+    # -- phase 8: the kernels line and the result ---------------------------
     t1, t2 = times["(a) f32"], k2_times["(a) column-compact"]
     kernels = [{"name": "compact_fused", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/compact_fused.cu",

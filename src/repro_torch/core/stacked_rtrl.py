@@ -3,9 +3,10 @@
 Counterpart of `repro.core.stacked_rtrl`.  The launcher builds the stacked
 engine even for one layer; at L=1 it delegates to the single-layer engine
 (`core.learner._SingleLayerStackedLearner`).  What is here are the stacked
-mask and layout helpers that path uses.  The block lower-triangular engine
-for L >= 2 (`stacked_compact_step`, the cross-layer term) is ROADMAP Queue 1
-item 7.
+mask and layout helpers that path uses, and the whole-sequence
+`stacked_rtrl_loss_and_grads` of the offline trainer.  The block
+lower-triangular engine for L >= 2 (`stacked_compact_step`, the
+cross-layer term) is ROADMAP Queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -77,3 +78,28 @@ def stacked_col_mask(slayout: StackedFlatLayout, masks: list | None, *,
              for l, lay in enumerate(slayout.layers)]
     live = np.pad(np.concatenate(parts), (0, slayout.P_pad - slayout.P_total))
     return torch.from_numpy(live).to(device)
+
+
+def stacked_rtrl_loss_and_grads(cfg: StackedEGRUConfig, params: Tree,
+                                xs: torch.Tensor, labels: torch.Tensor,
+                                masks: list | None = None, *,
+                                backend: str = "dense",
+                                capacity: float = 1.0,
+                                col_compact: bool | None = None,
+                                influence_dtype: str = "float32"):
+    """Exact stacked RTRL over a whole sequence xs [T, B, n_in] with labels
+    [B].  Returns (loss, grads, stats), grads as {"layers": [...], "out"},
+    every stat stacked over T.
+
+    A whole-sequence `scan_learner` over the stacked learner, as in the
+    JAX package, at L = 1 (the single-layer engine).  L >= 2 is ROADMAP
+    Queue 1 item 7."""
+    from repro_torch.core.learner import LearnerSpec, make_learner, scan_learner
+    if cfg.n_layers != 1:
+        raise NotImplementedError(
+            "stacked_rtrl_loss_and_grads for L >= 2 is not ported yet: "
+            "ROADMAP Queue 1 item 7")
+    learner = make_learner(LearnerSpec(
+        engine="stacked", cfg=cfg, backend=backend, capacity=capacity,
+        col_compact=col_compact, influence_dtype=influence_dtype))
+    return scan_learner(learner, params, masks, xs, labels)

@@ -1,25 +1,46 @@
-"""Online training launcher of the port: the paper's spiral experiment.
+"""Training launcher of the port: the paper's spiral experiment.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch egru-spiral \\
-        --online [--rtrl-backend {dense,pallas,compact,compact_fused}] \\
+        [--online] [--rtrl-backend {dense,pallas,compact,compact_fused}] \\
         --sparsity 0.8 [--col-compact {auto,on,off}] \\
         [--update-every 8] [--steps 20] [--seed 0] [--capacity 1.0] \\
-        [--influence-dtype float32] [--smoke] [--device cpu]
+        [--influence-dtype float32] [--smoke] [--device cpu] \\
+        [--ckpt-every 10] [--ckpt-dir DIR] [--fail-at K] [--metrics FILE]
 
-Counterpart of `repro.launch.train` (`train_egru` -> `train_egru_online`):
-a one-layer EGRU (n=16, n_in=2, batch 32) trained by exact sparse RTRL on
-the spiral stream, with a masked adamw update every `--update-every` stream
-steps.  `--steps` counts optimizer updates; `--smoke` caps them at 12.  The
-backend defaults to "dense", as in the reference.  It runs on CUDA unless
-`--device cpu` is given, and raises without a card.
+Counterpart of `repro.launch.train` (`train_egru`): a one-layer EGRU (n=16,
+n_in=2, batch 32) trained by exact sparse RTRL on the spiral task with a
+masked adamw update, through the checkpoint/restart supervisor
+(`runtime.trainer.run_with_restart`).
 
-Params are drawn from torch.Generator(2*seed) and masks from
-torch.Generator(2*seed + 1): a seed reproduces a run on every device, but
-not the JAX package's `jax.random` draws.  The stream is the JAX launcher's
-step-keyed numpy stream, element for element.
+  * `--online`: the spiral stream, an update every `--update-every` stream
+    steps, mid-sequence (`runtime.online.OnlineTrainer`); `--steps` counts
+    optimizer updates and `--smoke` caps them at 12.  Checkpoints hold the
+    learner carry, so a restart resumes mid-stream.
+  * otherwise, offline: one whole 17-step sequence per optimizer step
+    (`core.stacked_rtrl.stacked_rtrl_loss_and_grads`,
+    `runtime.trainer.Trainer`); `--steps` counts steps.  The batch of step s
+    is drawn from np.random.default_rng(1234 + s), whatever `--seed`, as
+    in the reference.  Backend `compact_fused` runs here too (the port
+    builds eagerly; the reference's traced offline path cannot build its
+    gate segments).
 
-Flags of later slices raise: --layers > 1, --guard, --rewire, --metrics-dir,
---ckpt-every, --fail-at.
+`--ckpt-every N` checkpoints every N updates (online) or steps (offline)
+into `--ckpt-dir` (default `<tempdir>/repro_torch_ckpt`, the port's own:
+never the JAX launcher's /tmp/repro_ckpt); 0 turns the periodic
+checkpoints off (offline still writes the final one).  A run resumes from
+the newest valid checkpoint in its directory, so a rerun into the same
+directory resumes at its end.  `--fail-at K` injects one crash at update
+(online) or step (offline) K, and the supervisor restarts from the last
+checkpoint.  `--metrics FILE` appends the logged records as JSON lines.
+
+The backend defaults to "dense", as in the reference.  It runs on CUDA
+unless `--device cpu` is given, and raises without a card.  Params are
+drawn from torch.Generator(2*seed) and masks from torch.Generator(2*seed +
+1): a seed reproduces a run on every device, but not the JAX package's
+`jax.random` draws.  The online stream is the JAX launcher's step-keyed
+numpy stream, element for element.
+
+Flags of later slices raise: --layers > 1, --guard, --rewire, --metrics-dir.
 """
 from __future__ import annotations
 
@@ -51,13 +72,44 @@ def make_stream(cfg, seed: int):
     return stream
 
 
+def make_offline_data(cfg):
+    """The JAX launcher's offline batches (`train_egru`'s `data_at`): step
+    -> (xs [T, B, n_in], labels [B]) as numpy, from default_rng(1234 +
+    step)."""
+    from repro_torch.data.spiral import spiral_dataset
+    xs_all, ys_all = spiral_dataset(T=cfg.seq_len, seed=0)
+
+    def data_at(step):
+        rng = np.random.default_rng(1234 + step)
+        sel = rng.integers(0, ys_all.shape[0], size=cfg.batch_size)
+        return np.swapaxes(xs_all[sel], 0, 1), ys_all[sel]
+
+    return data_at
+
+
+def _loss_fields(metrics: list) -> dict:
+    """first/final loss (+ sparsity) from the trainer's metric records; {}
+    when the run executed nothing (it resumed at its end)."""
+    with_loss = [m for m in metrics if "loss" in m]
+    if not with_loss:
+        return {}
+    first, last = with_loss[0], with_loss[-1]
+    out = {"first_loss": first["loss"], "final_loss": last["loss"]}
+    if "alpha" in last:
+        out["act_sparsity"] = last["alpha"]
+    if "beta" in last:
+        out["bwd_sparsity"] = last["beta"]
+    return out
+
+
+def _median_ms(records: list) -> float | None:
+    return statistics.median(r["ms"] for r in records) if records else None
+
+
 def _reject_later_slices(args) -> None:
     later = []
     if args.arch not in ARCHS:
         later.append(f"--arch {args.arch} (the port has egru-spiral only)")
-    if not args.online:
-        later.append("offline sequence training (pass --online; the offline "
-                     "Trainer is ROADMAP Queue 1 item 4)")
     if args.layers != 1:
         later.append("--layers > 1 (stacked engine, ROADMAP Queue 1 item 7)")
     if args.guard:
@@ -66,20 +118,16 @@ def _reject_later_slices(args) -> None:
         later.append("--rewire (ROADMAP Queue 1 item 8)")
     if args.metrics_dir:
         later.append("--metrics-dir (ROADMAP Queue 1 item 11)")
-    if args.ckpt_every:
-        later.append("--ckpt-every (ROADMAP Queue 1 item 4)")
-    if args.fail_at >= 0:
-        later.append("--fail-at (ROADMAP Queue 1 item 4)")
     if later:
         raise SystemExit("not ported yet: " + "; ".join(later))
 
 
-def build_online(args) -> dict:
-    """Everything the online run needs, on the resolved device: cfg, masks,
-    params (masked), opt, learner, stream, device."""
+def _build_common(args) -> dict:
+    """What both paths need, on the resolved device: cfg, masks, a params
+    factory (masked), opt, the explicit col_compact flag and the device.
+    Every refusal comes before anything is written."""
     from repro_torch.configs import egru_spiral
     from repro_torch.core import cells, stacked_rtrl as ST
-    from repro_torch.core.learner import LearnerSpec, make_learner
     from repro_torch.optim.optimizers import make_optimizer, masked
 
     _reject_later_slices(args)
@@ -103,11 +151,15 @@ def build_online(args) -> dict:
     else:
         col_compact = (masks is not None and backend != "dense"
                        if col_flag is None else col_flag)
-    params = cells.init_stacked_params(
-        cfg, torch.Generator().manual_seed(2 * args.seed), device=device)
+
+    def make_params():
+        params = cells.init_stacked_params(
+            cfg, torch.Generator().manual_seed(2 * args.seed), device=device)
+        return params if masks is None else ST.apply_stacked_masks(params,
+                                                                   masks)
+
     opt = make_optimizer("adamw", lr=cfg.lr)
     if masks is not None:
-        params = ST.apply_stacked_masks(params, masks)
         opt = masked(opt, {"layers": masks, "out": None})
     if masks is not None and backend != "dense":
         slayout = ST.stacked_layout(cfg)
@@ -115,46 +167,146 @@ def build_online(args) -> dict:
         print(f"influence columns: {live}/{slayout.P_total} live "
               f"(omega~={ST.stacked_omega_tilde(masks):.3f}); col-compact "
               f"carry {'ON' if col_compact else 'OFF'}")
-    learner = make_learner(LearnerSpec(
-        engine="stacked", cfg=cfg, backend=backend, capacity=args.capacity,
-        col_compact=col_compact, influence_dtype=args.influence_dtype))
-    return {"cfg": cfg, "masks": masks, "params": params, "opt": opt,
-            "learner": learner, "stream": make_stream(cfg, args.seed),
+    return {"cfg": cfg, "masks": masks, "make_params": make_params,
+            "params": make_params(), "opt": opt, "col_compact": col_compact,
             "device": device}
+
+
+def build_online(args) -> dict:
+    """Everything the online run needs, on the resolved device: cfg, masks,
+    params (masked) and their factory, opt, learner, stream, device."""
+    from repro_torch.core.learner import LearnerSpec, make_learner
+    run = _build_common(args)
+    run["learner"] = make_learner(LearnerSpec(
+        engine="stacked", cfg=run["cfg"], backend=args.rtrl_backend,
+        capacity=args.capacity, col_compact=run["col_compact"],
+        influence_dtype=args.influence_dtype))
+    run["stream"] = make_stream(run["cfg"], args.seed)
+    return run
+
+
+def online_trainers(args, run):
+    """make_trainer(attempt) for `run_with_restart`: an OnlineTrainer on
+    the run's learner with fresh params, `--fail-at` armed on attempt 0
+    only."""
+    from repro_torch.runtime.online import OnlineTrainer, OnlineTrainerConfig
+    updates = min(args.steps, 12) if args.smoke else args.steps
+    k = args.update_every
+
+    def make_trainer(attempt=0):
+        ocfg = OnlineTrainerConfig(
+            total_steps=updates * k, update_every=k,
+            ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
+            fail_at_update=args.fail_at if attempt == 0 else -1,
+            metrics_path=args.metrics, seed=args.seed)
+        return OnlineTrainer(ocfg, run["learner"], run["opt"],
+                             run["make_params"](), run["masks"],
+                             run["stream"], device=run["device"])
+
+    return make_trainer
 
 
 def train_egru_online(args) -> dict:
     """True ONLINE training on the spiral stream; `--steps` counts optimizer
     updates.  Returns the trainer's result plus the printed summary."""
-    from repro_torch.runtime.online import OnlineTrainer, OnlineTrainerConfig
+    from repro_torch.runtime.trainer import run_with_restart
     run = build_online(args)
-    updates = min(args.steps, 12) if args.smoke else args.steps
-    k = args.update_every
-    ocfg = OnlineTrainerConfig(total_steps=updates * k, update_every=k)
-    trainer = OnlineTrainer(ocfg, run["learner"], run["opt"], run["params"],
-                            run["masks"], run["stream"],
-                            device=run["device"])
-    out = trainer.run()
-    with_loss = [m for m in out["metrics"] if "loss" in m]
+    out = run_with_restart(online_trainers(args, run))
     summary = {"arch": "egru-spiral", "mode": "online", "layers": args.layers,
                "backend": args.rtrl_backend, "device": str(run["device"]),
-               "update_every": k, "updates": out["updates"],
-               "final_step": out["final_step"],
+               "update_every": args.update_every, "updates": out["updates"],
+               "final_step": out["final_step"], "restarts": out["restarts"],
+               "stragglers": out["stragglers"],
                "carry_bytes": out["carry_bytes"],
-               "first_loss": with_loss[0]["loss"],
-               "final_loss": with_loss[-1]["loss"],
-               "act_sparsity": with_loss[-1].get("alpha"),
-               "bwd_sparsity": with_loss[-1].get("beta"),
-               "overflow": max(w.get("overflow", 0.0)
-                               for w in out["windows"]),
-               "median_window_ms": statistics.median(
-                   w["ms"] for w in out["windows"])}
+               "carry_live_bytes": out["carry_live_bytes"],
+               **_loss_fields(out["metrics"]),
+               "overflow": max((w.get("overflow", 0.0)
+                                for w in out["windows"]), default=0.0),
+               "median_window_ms": _median_ms(out["windows"])}
+    print(json.dumps(summary))
+    out["summary"] = summary
+    return out
+
+
+def offline_fns(args, cfg, masks, opt, col_compact: bool):
+    """(loss_and_grads, step_fn) of the offline path:
+    loss_and_grads(params, xs, labels) -> (loss, grads, stats) is
+    `stacked_rtrl_loss_and_grads` with the run's backend; step_fn(params,
+    opt_state, (xs, labels), step) adds the masked adamw update."""
+    from repro_torch.core import stacked_rtrl as ST
+
+    def loss_and_grads(params, xs, labels):
+        return ST.stacked_rtrl_loss_and_grads(
+            cfg, params, xs, labels, masks, backend=args.rtrl_backend,
+            capacity=args.capacity, col_compact=col_compact,
+            influence_dtype=args.influence_dtype)
+
+    def step_fn(params, opt_state, batch, step):
+        loss, grads, stats = loss_and_grads(params, *batch)
+        params, opt_state = opt.update(grads, opt_state, params, step)
+        metrics = {"loss": loss, "alpha": stats["alpha"].mean(),
+                   "beta": stats["beta"].mean()}
+        if "overflow" in stats:
+            metrics["overflow"] = stats["overflow"].max()
+        return params, opt_state, metrics
+
+    return loss_and_grads, step_fn
+
+
+def build_offline(args) -> dict:
+    """Everything the offline run needs: build_online's common part plus
+    loss_and_grads, step_fn and data_at (the batch of a step, on the
+    device)."""
+    run = _build_common(args)
+    run["loss_and_grads"], run["step_fn"] = offline_fns(
+        args, run["cfg"], run["masks"], run["opt"], run["col_compact"])
+    batches = make_offline_data(run["cfg"])
+
+    def data_at(step):                   # step-keyed: replay-exact
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+            run["device"]) for a in batches(step))
+
+    run["data_at"] = data_at
+    return run
+
+
+def offline_trainers(args, run):
+    """make_trainer(attempt) for `run_with_restart`: a Trainer with fresh
+    params, `--fail-at` armed on attempt 0 only."""
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    def make_trainer(attempt=0):
+        params = run["make_params"]()
+        tcfg = TrainerConfig(total_steps=args.steps,
+                             ckpt_every=args.ckpt_every,
+                             ckpt_dir=args.ckpt_dir,
+                             fail_at_step=args.fail_at if attempt == 0 else -1,
+                             metrics_path=args.metrics)
+        return Trainer(tcfg, run["step_fn"], params, run["opt"].init(params),
+                       run["data_at"])
+
+    return make_trainer
+
+
+def train_egru_offline(args) -> dict:
+    """Whole-sequence exact-RTRL training; `--steps` counts sequences."""
+    from repro_torch.runtime.trainer import run_with_restart
+    run = build_offline(args)
+    out = run_with_restart(offline_trainers(args, run))
+    summary = {"arch": "egru-spiral", "mode": "offline",
+               "layers": args.layers, "backend": args.rtrl_backend,
+               "device": str(run["device"]),
+               "final_step": out["final_step"], "restarts": out["restarts"],
+               "stragglers": out["stragglers"],
+               **_loss_fields(out["metrics"]),
+               "median_step_ms": _median_ms(out["steps"])}
     print(json.dumps(summary))
     out["summary"] = summary
     return out
 
 
 def parse_args(argv=None):
+    from repro_torch.runtime.trainer import default_ckpt_dir
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="egru-spiral")
     ap.add_argument("--online", action="store_true",
@@ -178,22 +330,38 @@ def parse_args(argv=None):
     ap.add_argument("--capacity", type=float, default=1.0,
                     help="compact row capacity fraction")
     ap.add_argument("--smoke", action="store_true",
-                    help="cap the run at 12 updates")
+                    help="online: cap the run at 12 updates")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
+    ap.add_argument("--ckpt-every", type=int, default=10,
+                    help="checkpoint every N updates (online) or steps "
+                         "(offline); 0: no periodic checkpoint")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint root; a run resumes from its newest "
+                         "valid checkpoint (default <tempdir>/"
+                         "repro_torch_ckpt)")
+    ap.add_argument("--fail-at", type=int, default=-1,
+                    help="inject one crash at this update (online) or step "
+                         "(offline); the supervisor restarts from the last "
+                         "checkpoint")
+    ap.add_argument("--metrics", default=None,
+                    help="append the logged metric records to this file as "
+                         "JSON lines")
     # flags of later slices: accepted so that they fail with a clear error
     ap.add_argument("--layers", type=int, default=1)
     ap.add_argument("--guard", action="store_true")
     ap.add_argument("--rewire", default="off")
     ap.add_argument("--metrics-dir", default=None)
-    ap.add_argument("--ckpt-every", type=int, default=0)
-    ap.add_argument("--fail-at", type=int, default=-1)
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.ckpt_dir is None:
+        args.ckpt_dir = default_ckpt_dir()
+    return args
 
 
 def main(argv=None) -> dict:
-    return train_egru_online(parse_args(argv))
+    args = parse_args(argv)
+    return (train_egru_online if args.online else train_egru_offline)(args)
 
 
 if __name__ == "__main__":

@@ -538,3 +538,93 @@ def test_rwkv_prefill_on_cuda_matches_cpu(cuda, scan):
     dc, _ = RW.decode_step(cfg, params, nxt, cc, None)
     scale = max(float(dc.abs().max()), 1.0)
     assert float((dg.cpu() - dc).abs().max()) <= F32_REL * scale
+
+
+def _launches():
+    return CF.fused_update.launches, IN.influence_update.launches
+
+
+def _checkpoints_bitwise(root_a, root_b, like):
+    """Every leaf but the RNG key data bit for bit."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.tree import tree_flatten_with_path
+    ta, sa = load_checkpoint(root_a, like)
+    tb, sb = load_checkpoint(root_b, like)
+    assert sa == sb >= 0
+    for (path, a), (_, b) in zip(tree_flatten_with_path(ta),
+                                 tree_flatten_with_path(tb)):
+        if path == ("key",):
+            continue
+        if isinstance(a, torch.Tensor):
+            assert a.device.type == "cuda", path
+            assert torch.equal(a.reshape(-1).view(torch.uint8),
+                               b.reshape(-1).view(torch.uint8)), path
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,dtype", [("compact_fused", "float32"),
+                                           ("compact_fused", "bfloat16"),
+                                           ("pallas", "float32")])
+def test_online_crash_resume_on_cuda_is_bitwise(cuda, backend, dtype,
+                                                tmp_path):
+    """A crash at update 7 of 10 with a checkpoint every 5 replays updates
+    6-7 through the kernel (96 launches against 80) and ends bit for bit
+    where the uncrashed run ends."""
+    from repro_torch.launch import train as TRAIN
+    argv = ["--arch", "egru-spiral", "--online", "--rtrl-backend", backend,
+            "--sparsity", "0.8", "--update-every", "8", "--steps", "10",
+            "--ckpt-every", "5", "--influence-dtype", dtype]
+    slot = 0 if backend == "compact_fused" else 1
+    runs = {}
+    for name, extra in (("a", ["--fail-at", "7"]), ("b", [])):
+        before = _launches()
+        runs[name] = TRAIN.main([*argv, *extra, "--ckpt-dir",
+                                 str(tmp_path / name)])
+        runs[name]["launched"] = _launches()[slot] - before[slot]
+    assert (runs["a"]["restarts"], runs["b"]["restarts"]) == (1, 0)
+    assert runs["a"]["final_step"] == runs["b"]["final_step"] == 80
+    assert (runs["a"]["launched"], runs["b"]["launched"]) == (96, 80)
+    b_loss = {w["update"]: w["loss"] for w in runs["b"]["windows"]}
+    assert [w["loss"] for w in runs["a"]["windows"]] == \
+        [b_loss[u] for u in range(6, 11)]
+    args = TRAIN.parse_args([*argv, "--ckpt-dir", str(tmp_path / "like")])
+    like = TRAIN.online_trainers(args, TRAIN.build_online(args))(1) \
+        ._ckpt_tree()
+    _checkpoints_bitwise(tmp_path / "a", tmp_path / "b", like)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["compact_fused", "pallas"])
+def test_offline_crash_resume_on_cuda(cuda, backend, tmp_path):
+    """Offline on the card: 17 launches a step (170 in 10 steps; 204 with
+    the crash at step 7 replaying steps 6-7), the crashed run's final
+    checkpoint bit for bit the uncrashed one's, and the first step's loss
+    and gradients within F32_REL of the offline compact backend's."""
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.tree import tree_leaves
+    argv = ["--arch", "egru-spiral", "--rtrl-backend", backend, "--sparsity",
+            "0.8", "--steps", "10", "--ckpt-every", "5"]
+    slot = 0 if backend == "compact_fused" else 1
+    runs = {}
+    for name, extra in (("a", ["--fail-at", "7"]), ("b", [])):
+        before = _launches()
+        runs[name] = TRAIN.main([*argv, *extra, "--ckpt-dir",
+                                 str(tmp_path / name)])
+        runs[name]["launched"] = _launches()[slot] - before[slot]
+    assert (runs["a"]["restarts"], runs["b"]["restarts"]) == (1, 0)
+    assert (runs["a"]["launched"], runs["b"]["launched"]) == (204, 170)
+    args = TRAIN.parse_args([*argv, "--ckpt-dir", str(tmp_path / "like")])
+    run = TRAIN.build_offline(args)
+    _checkpoints_bitwise(tmp_path / "a", tmp_path / "b",
+                         TRAIN.offline_trainers(args, run)(1)._ckpt_tree())
+    ref = TRAIN.build_offline(TRAIN.parse_args(
+        ["--rtrl-backend", "compact", "--sparsity", "0.8"]))
+    xs, ys = run["data_at"](0)
+    lb, gb, _ = run["loss_and_grads"](run["params"], xs, ys)
+    lc, gc, _ = ref["loss_and_grads"](ref["params"], xs, ys)
+    assert float(lb) == pytest.approx(float(lc), rel=F32_REL)
+    for a, b in zip(tree_leaves(gb), tree_leaves(gc)):
+        scale = max(float(b.abs().max()), 1e-3)
+        assert float((a - b).abs().max()) <= F32_REL * scale

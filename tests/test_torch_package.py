@@ -13,13 +13,15 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 # every module the port has so far
 EXPECTED = {
     "configs", "configs.base", "configs.egru_spiral", "configs.rwkv6_3b",
-    "cells", "cells.egru", "core.bptt", "core.cells", "core.learner",
-    "core.sparse_rtrl", "core.stacked_rtrl", "data.spiral", "device",
+    "cells", "cells.egru", "checkpoint", "checkpoint.ckpt", "core.bptt",
+    "core.cells", "core.learner", "core.sparse_rtrl", "core.stacked_rtrl",
+    "data.spiral", "device",
     "kernels._build", "kernels.compact", "kernels.compact_fused",
     "kernels.event_matmul", "kernels.influence", "kernels.ops", "kernels.ref",
     "kernels.wkv", "launch.serve", "launch.train", "models", "models.layers",
     "models.module", "models.rwkv", "models.transformer", "optim.optimizers",
-    "runtime.online", "runtime.serving", "tree", "weights",
+    "runtime.online", "runtime.serving", "runtime.trainer", "tree",
+    "weights",
 }
 
 
