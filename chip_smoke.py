@@ -102,8 +102,32 @@ checkout, it exits non-zero and prints no result.  Phases:
      layers, f32: prefill with the kernel vs the plain WKV and vs a
      teacher-forced decode over 64 tokens, each within 1e-4 of the largest
      logit;
-  8. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
-     then the result line {"ok": true, "device": {...}}.
+  8. the stacked engine (`--layers L`, one K1 or K2 launch a layer a stream
+     step), every run with the counts set to 0 just before and read just
+     after: (s1) `--layers 2 --online --sparsity 0.8 --ckpt-every 0`, 20
+     updates, with every backend and with compact_fused on a bf16 carry:
+     K1 320 launches (compact_fused), K2 320 (pallas), overflow 0, finite
+     losses, each first window's loss within the f32 bar of compact's (bf16
+     one bf16 step); the first window's loss and gradients of compact_fused
+     and pallas within 1e-5 of the stacked BPTT oracle and of the jacrev
+     RTRL oracle, both run on the card, on surviving parameters; (s2)
+     `--layers 3` compact_fused: K1 480 launches, and the same oracle
+     check; (s3) K1 against its plain version at layer 1's operands of a
+     `--layers 2` step (its M-bar rows carrying the cross term), f32 and
+     bf16, and at layer 0's; K2 at layer 1's and layer 0's operands, its
+     executed-block counter equal to realized_block_savings times the
+     block count, layer 0 skipping the column blocks of layer 1's columns;
+     K1's and K2's times there as in phases 2 and 3; (s4) crash and resume
+     at `--layers 2`: online compact_fused and pallas (352 / 320
+     launches), offline compact_fused (`--steps 20`, 748 / 680), final
+     checkpoints bitwise, and the offline first step against offline
+     compact; (s5) the median window per backend, traces of the
+     compact_fused and pallas windows (device ops a stream step, idle
+     share, K1 and K2 µs a launch) and `costs.stacked_influence_update_flops`
+     at the first window's measured beta;
+  9. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
+     K1's and K2's with a "stacked" entry for phase 8's path, then the
+     result line {"ok": true, "device": {...}}.
 
 Tolerances: a float32 kernel result is within 1e-5 of the largest
 magnitude of the plain version's (the sums associate differently); a bf16
@@ -521,7 +545,8 @@ def k2_main_operands(torch, TRAIN, SP, ON, dev, *extra, steps=5):
     w = {k: v for k, v in carry["params"].items() if k != "out"}
     _, _, ops = SP.pallas_step_operands(
         lcfg, w, layout, carry["a"], carry["M"], xs[steps], cl=cl,
-        col_mask=SP.flat_col_mask(layout, masks, device=dev),
+        col_mask=cl.live if compact else SP.flat_col_mask(layout, masks,
+                                                          device=dev),
         jmask=SP.flat_jmask(lcfg, masks))
     return list(ops)
 
@@ -645,8 +670,8 @@ def compare_grads(a, b, label, what="first-window gradients"):
     log(f"{what} {label}: max rel err {worst:.3e}")
 
 
-def trace_main_path(torch, TRAIN, ON, backend, kernel, warm=2, traced=2,
-                    k=8):
+def trace_main_path(torch, TRAIN, ON, backend, kernel, *extra, warm=2,
+                    traced=2, k=8):
     """Where a main-path window's time goes: a torch.profiler trace of
     `traced` windows after `warm` untraced ones, in a run of its own (the
     window times come from the untraced run).  Reports device kernels per
@@ -655,7 +680,7 @@ def trace_main_path(torch, TRAIN, ON, backend, kernel, warm=2, traced=2,
     most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    run = TRAIN.build_online(TRAIN.parse_args(main_argv(backend)))
+    run = TRAIN.build_online(TRAIN.parse_args(main_argv(backend, *extra)))
     tr = ON.OnlineTrainer(
         ON.OnlineTrainerConfig(total_steps=warm * k, update_every=k),
         run["learner"], run["opt"], run["params"], run["masks"],
@@ -685,7 +710,8 @@ def trace_main_path(torch, TRAIN, ON, backend, kernel, warm=2, traced=2,
         by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
     kern = [v for n, v in by_name.items() if kernel in n]
     kern_us = sum(v[0] for v in kern) / max(sum(v[1] for v in kern), 1)
-    log(f"trace {backend} ({traced} windows, {steps} stream steps, profiler "
+    log(f"trace {backend}{''.join(' ' + a for a in extra)} ({traced} "
+        f"windows, {steps} stream steps, profiler "
         f"on): {len(dev) / steps:.1f} device ops per stream step, device busy "
         f"{busy:.0f} us of {wall_us:.0f} us wall "
         f"(idle share {1 - busy / wall_us:.3f}), {kernel} device time "
@@ -748,17 +774,18 @@ def checkpoints_bitwise(torch, CKP, root_a, root_b, like, label):
     return n, tb
 
 
-def crash_and_resume(torch, TRAIN, CKP, argv, kernel, root, label):
+def crash_and_resume(torch, TRAIN, CKP, argv, kernel, root, label,
+                     layers=1):
     """The run with one crash at update/step 7 (checkpoints every 5) and
     the same run without it: restarts 1 and 0, the launches of `kernel`
-    (the crashed run replays two windows or steps), the records after the
-    resume equal to the uncrashed run's, and the final checkpoints bit for
-    bit."""
+    (one a layer a stream step; the crashed run replays two windows or
+    steps), the records after the resume equal to the uncrashed run's, and
+    the final checkpoints bit for bit."""
     online = "--online" in argv
     a, ca = run_counted(TRAIN, [*argv, "--fail-at", "7", "--ckpt-dir",
                                 str(root / "a")])
     b, cb = run_counted(TRAIN, [*argv, "--ckpt-dir", str(root / "b")])
-    per = 8 if online else 17                 # stream steps a window / step
+    per = (8 if online else 17) * layers      # launches a window / step
     done = 160 if online else 20
     check((a["restarts"], b["restarts"]) == (1, 0),
           f"{label}: restarts {a['restarts']} / {b['restarts']}")
@@ -929,6 +956,246 @@ def checkpoint_phase(torch, TRAIN, ON, CKP):
                     f"{k} {v:.3f}" for k, v in ms.items()))
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+# ---------------------------------------------------------------------------
+# phase 8: the stacked engine (--layers 2 and 3)
+# ---------------------------------------------------------------------------
+
+def stacked_window(torch, TRAIN, ON, backend, layers, *extra):
+    """The first window (k=8) of `--layers L` on the card: (loss, grads,
+    stats, run, xs, label)."""
+    run = TRAIN.build_online(TRAIN.parse_args(main_argv(
+        backend, "--layers", str(layers), *extra)))
+    xs, ys = stream_window(torch, run, 8)
+    check(bool((ys == ys[0]).all()), "first window spans two sequences")
+    carry = run["learner"].init(run["params"], run["masks"], (xs[0], ys[0]),
+                                t_total=8.0)
+    _, loss, grads, stats = ON.stream_grads(run["learner"], carry, xs, ys)
+    return float(loss), grads, stats, run, xs, ys[0]
+
+
+def stacked_oracles(torch, BP, RT, ST, run, xs, label):
+    """The stacked BPTT and jacrev RTRL oracles on a run's first window,
+    on the card, masked as the optimizer masks the gradients."""
+    out = {}
+    for name, fn in (("stacked BPTT oracle", BP.stacked_bptt_loss_and_grads),
+                     ("stacked jacrev oracle",
+                      RT.stacked_rtrl_loss_and_grads)):
+        t0 = time.perf_counter()
+        loss, grads, _ = fn(run["cfg"], run["params"], xs, label)
+        torch.cuda.synchronize()
+        log(f"{name} on the card: {time.perf_counter() - t0:.2f} s")
+        out[name] = (float(loss), ST.apply_stacked_masks(grads, run["masks"]))
+    return out
+
+
+def stacked_layer_operands(torch, TRAIN, SP, CF, ON, backend, *extra,
+                           steps=5):
+    """Layer 0's and layer 1's kernel operands at a live step of the
+    `--layers 2` path: the launcher's run stepped a few times from init,
+    then the next step replayed layer by layer.  compact_fused: K1's
+    operand tuples, layer 1's M-bar rows carrying the cross term;
+    pallas: K2's unpadded (hp, J-hat, M, M-bar, jmask, col_mask), layer
+    1's M-bar carrying B-hat M^(0)_t, col_mask the layer's compact-axis
+    liveness (the columns of layers above killed)."""
+    run = TRAIN.build_online(TRAIN.parse_args(main_argv(
+        backend, "--layers", "2", *extra)))
+    cfg, learner = run["cfg"], run["learner"]
+    xs, ys = stream_window(torch, run, steps + 1)
+    carry = learner.init(run["params"], run["masks"], (xs[0], ys[0]),
+                         t_total=8.0)
+    carry, _, _, _ = ON.stream_grads(learner, carry, xs[:steps], ys[:steps])
+    ws, sl, cl = carry["params"]["layers"], learner.slayout, learner._cl
+    inp, below, out = xs[steps], None, []
+    for l in range(2):
+        lcfg, lay = cfg.layer_cfg(l), sl.layers[l]
+        if backend == "compact_fused":
+            a_new, _, ops, _ = SP.fused_step_operands(
+                lcfg, ws[l], lay, carry["a"][l], carry["vals"][l],
+                carry["idx"][l], inp, cl=cl, layer=l, below=below)
+            below = (CF.fused_reference(*ops), ops[4])
+        else:
+            a_new, _, ops = SP.pallas_step_operands(
+                lcfg, ws[l], lay, carry["a"][l], carry["M"][l], inp, cl=cl,
+                col_mask=learner._klives[l],
+                jmask=SP.flat_jmask(lcfg, run["masks"][l]), layer=l,
+                M_below=below)
+            hp, J, M, Mb = ops[:4]
+            below = hp[:, :, None] * (torch.bmm(J, M) + Mb)
+        out.append(list(ops))
+        inp = a_new
+    return out, learner
+
+
+def stacked_phase(torch, TRAIN, ON, CKP, BP, RT, ST, SP, CF, CK, IN, OPS,
+                  CO):
+    """(s1)-(s6) of the stacked engine; returns K1's and K2's stacked
+    entries for the kernels line."""
+    import shutil
+    import tempfile
+    lay2 = ("--layers", "2")
+    # (s1) online, --layers 2, every backend, and compact_fused in bf16
+    runs, entries = {}, {}
+    for backend, extra in (("compact_fused", ()), ("pallas", ()),
+                           ("dense", ()), ("compact", ()),
+                           ("compact_fused bf16",
+                            ("--influence-dtype", "bfloat16"))):
+        name = backend.split()[0]
+        reset_counts()
+        out = TRAIN.main(main_argv(name, *lay2, "--ckpt-every", "0", *extra))
+        counts = read_counts()
+        runs[backend] = out
+        want = {"compact_fused": {"compact_fused": 320},
+                "pallas": {"influence": 320}}.get(name, {})
+        check_counts(counts, want, f"--layers 2 {backend}")
+        check(out["final_step"] == 160, f"--layers 2 {backend}: "
+                                         f"{out['final_step']} stream steps")
+        losses = [w["loss"] for w in out["windows"]]
+        check(all(math.isfinite(v) for v in losses),
+              f"--layers 2 {backend}: non-finite loss {losses}")
+        check(out["summary"]["overflow"] == 0,
+              f"--layers 2 {backend}: overflow")
+        log(f"--layers 2 {backend}: launches {counts} over 160 stream steps, "
+            f"first window {losses[0]:.6f}, final loss {losses[-1]:.6f}, "
+            f"median window {out['summary']['median_window_ms']:.3f} ms, "
+            f"carry {out['carry_bytes']} bytes, row stats "
+            f"{out.get('row_stats')}")
+    l_ref = runs["compact"]["windows"][0]["loss"]
+    for backend, out in runs.items():
+        l_b = out["windows"][0]["loss"]
+        tol = BF16_STEP if "bf16" in backend else F32_REL
+        check(abs(l_b - l_ref) <= tol * abs(l_ref),
+              f"--layers 2 first window loss: {backend} {l_b} vs compact "
+              f"{l_ref}")
+    # first-window gradients against both oracles, on the card
+    first = {}
+    for layers, backends in ((2, ("compact_fused", "pallas")),
+                             (3, ("compact_fused",))):
+        for backend in backends:
+            first[layers, backend] = stacked_window(torch, TRAIN, ON, backend,
+                                                    layers)
+        _, _, _, run, xs, label = first[layers, "compact_fused"]
+        oracles = stacked_oracles(torch, BP, RT, ST, run, xs, label)
+        for oname, (lo, go) in oracles.items():
+            for backend in backends:
+                lb, gb = first[layers, backend][:2]
+                check(abs(lb - lo) <= F32_REL * abs(lo),
+                      f"--layers {layers} first window loss {backend} {lb} "
+                      f"vs {oname} {lo}")
+                compare_grads(ST.apply_stacked_masks(gb, run["masks"]), go,
+                              f"--layers {layers} {backend} vs {oname}")
+    _, _, stats2, run2, _, _ = first[2, "compact_fused"]
+    # (s2) --layers 3 compact_fused
+    reset_counts()
+    out3 = TRAIN.main(main_argv("compact_fused", "--layers", "3",
+                                "--ckpt-every", "0"))
+    counts = read_counts()
+    check_counts(counts, {"compact_fused": 480}, "--layers 3 compact_fused")
+    check(out3["summary"]["overflow"] == 0, "--layers 3: overflow")
+    check(all(math.isfinite(w["loss"]) for w in out3["windows"]),
+          "--layers 3: non-finite loss")
+    log(f"--layers 3 compact_fused: launches {counts} over "
+        f"{out3['final_step']} stream steps, median window "
+        f"{out3['summary']['median_window_ms']:.3f} ms, carry "
+        f"{out3['carry_bytes']} bytes, row stats {out3.get('row_stats')}")
+    # (s3) K1 and K2 against their plain versions at stacked operands
+    k1_ops, fl = stacked_layer_operands(torch, TRAIN, SP, CF, ON,
+                                        "compact_fused")
+    B, K, Pc = k1_ops[1][1].shape
+    log(f"K1 stacked layer 1: B={B} K={K} Pc_pad={Pc} (Pc {fl._cl.Pc}), "
+        f"count_new {k1_ops[1][6].tolist()}, count_prev "
+        f"{k1_ops[1][7].tolist()}")
+    err_k1 = compare_k1(torch, CF, k1_ops[1], "stacked layer 1 f32")
+    compare_k1(torch, CF, with_carry_dtype(torch, k1_ops[1], torch.bfloat16),
+               "stacked layer 1 bf16")
+    compare_k1(torch, CF, k1_ops[0], "stacked layer 0 f32")
+    k2_ops, _ = stacked_layer_operands(torch, TRAIN, SP, CF, ON, "pallas")
+    err_k2, k2_pad = compare_k2(torch, IN, OPS, k2_ops[1],
+                                "stacked layer 1")
+    _, k2_pad0 = compare_k2(torch, IN, OPS, k2_ops[0], "stacked layer 0")
+    live_blocks = [int((ops[6] != 0).sum()) for ops in (k2_pad0, k2_pad)]
+    n_blocks = k2_pad[6].numel()
+    check(live_blocks[0] < live_blocks[1] <= n_blocks,
+          f"K2 stacked: column blocks live at layer 0 / 1: {live_blocks} "
+          f"of {n_blocks}")
+    log(f"K2 stacked: column blocks executed at layer 0 {live_blocks[0]}, "
+        f"layer 1 {live_blocks[1]}, of {n_blocks} (layer 0 skips the "
+        f"blocks of layer 1's columns)")
+    t1 = time_k1(torch, CF, CK, k1_ops[1], 500, 100)
+    t2 = time_k2(torch, IN, k2_pad, 500, 100, host=False)
+    for name, t in (("K1 stacked layer 1", t1), ("K2 stacked layer 1", t2)):
+        log(f"{name} time: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms, baddbmm {t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} "
+            f"ms ({t['bound_by']}); in turn kernel {t['alt_ms']:.4f} ms, "
+            f"baddbmm {t['alt_library_ms']:.4f} ms; device {t['device_us']} "
+            f"us, baddbmm {t['library_device_us']} us")
+    # (s4) crash and resume at --layers 2
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_stacked_"))
+    try:
+        for backend, kernel in (("compact_fused", "compact_fused"),
+                                ("pallas", "influence")):
+            crash_and_resume(torch, TRAIN, CKP,
+                             main_argv(backend, *lay2, "--ckpt-every", "5"),
+                             kernel, root / f"on-{backend}",
+                             f"--layers 2 online {backend}", layers=2)
+        _, off, _ = crash_and_resume(
+            torch, TRAIN, CKP, offline_argv("compact_fused", *lay2,
+                                            "--ckpt-every", "5"),
+            "compact_fused", root / "off", "--layers 2 offline compact_fused",
+            layers=2)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    firsts = {}
+    for backend in ("compact", "compact_fused"):
+        run = TRAIN.build_offline(TRAIN.parse_args(offline_argv(backend,
+                                                                *lay2)))
+        xs, ys = run["data_at"](0)
+        loss, grads, _ = run["loss_and_grads"](run["params"], xs, ys)
+        firsts[backend] = (float(loss), grads)
+    (lc, gc), (lf, gf) = firsts["compact"], firsts["compact_fused"]
+    check(abs(lf - lc) <= F32_REL * abs(lc),
+          f"--layers 2 offline first step compact_fused {lf} vs compact {lc}")
+    compare_grads(gf, gc, "--layers 2 compact_fused vs compact (cuda)",
+                  "offline first-step gradients")
+    log(f"--layers 2 offline compact_fused: median step "
+        f"{off['summary']['median_step_ms']:.3f} ms (17 stream steps x 2 "
+        f"layers and the update)")
+    # (s5) where the time goes, and what the update costs at the measured
+    # activity
+    for backend, out in runs.items():
+        log(f"--layers 2 {backend}: median window "
+            f"{out['summary']['median_window_ms']:.3f} ms")
+    trace_main_path(torch, TRAIN, ON, "compact_fused", "fused_update_kernel",
+                    *lay2)
+    trace_main_path(torch, TRAIN, ON, "pallas", "influence_kernel", *lay2)
+    sl = ST.stacked_layout(run2["cfg"])
+    betas = stats2["beta_layers"].mean(dim=0).tolist()
+    betas_prev = stats2["beta_prev"].mean(dim=0).tolist()
+    omegas = [1.0 - ST.stacked_omega_tilde([m]) for m in run2["masks"]]
+    acc = CO.stacked_influence_update_flops(
+        run2["cfg"].layer_sizes, [lay.P for lay in sl.layers], betas,
+        betas_prev, omegas)
+    log(f"costs.stacked_influence_update_flops (--layers 2, first window's "
+        f"measured beta {[round(b, 4) for b in betas]}, beta_prev "
+        f"{[round(b, 4) for b in betas_prev]}, omega "
+        f"{[round(o, 4) for o in omegas]}): dense {acc['dense']:.0f}, sparse "
+        f"{acc['sparse']:.0f} FLOP a stream step, savings "
+        f"{acc['savings']:.5f}")
+    # (s6) the stacked path's numbers for the kernels line
+    entries["compact_fused"] = {
+        "path": "stacked --layers 2 / 3 (one launch a layer a stream step)",
+        "launches": {"--layers 2": 320, "--layers 3": 480},
+        "max_abs_err": err_k1, "ms": t1["ms"], "plain_ms": t1["plain_ms"],
+        "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
+        "library_ms": t1["library_ms"]}
+    entries["influence"] = {
+        "path": "stacked --layers 2 (one launch a layer a stream step)",
+        "launches": {"--layers 2": 320}, "max_abs_err": err_k2,
+        "ms": t2["ms"], "plain_ms": t2["plain_ms"],
+        "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
+        "library_ms": t2["library_ms"]}
+    return entries
+
 
 # ---------------------------------------------------------------------------
 # launch counts of every kernel wrapper
@@ -1491,8 +1758,8 @@ def main():
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import checkpoint as CKP
-    from repro_torch.core import bptt as BP, sparse_rtrl as SP
-    from repro_torch.core import stacked_rtrl as ST
+    from repro_torch.core import bptt as BP, costs as CO, rtrl as RT
+    from repro_torch.core import sparse_rtrl as SP, stacked_rtrl as ST
     from repro_torch.kernels import _build, compact as CK
     from repro_torch.kernels import compact_fused as CF, event_matmul as EM
     from repro_torch.kernels import influence as IN, ops as OPS, wkv as WK
@@ -1660,7 +1927,11 @@ def main():
     # -- phase 7: RWKV6-3B serving with K4 ----------------------------------
     k4_entry, _ = rwkv_serving(torch, dev, WK)
 
-    # -- phase 8: the kernels line and the result ---------------------------
+    # -- phase 8: the stacked engine, --layers 2 and 3 ----------------------
+    stacked = stacked_phase(torch, TRAIN, ON, CKP, BP, RT, ST, SP, CF, CK, IN,
+                            OPS, CO)
+
+    # -- phase 9: the kernels line and the result ---------------------------
     t1, t2 = times["(a) f32"], k2_times["(a) column-compact"]
     kernels = [{"name": "compact_fused", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/compact_fused.cu",
@@ -1678,6 +1949,8 @@ def main():
                 "ms": t2["ms"], "plain_ms": t2["plain_ms"],
                 "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
                 "library_ms": t2["library_ms"]}]
+    for entry in kernels:
+        entry["stacked"] = stacked[entry["name"]]
     kernels += [k3_entry, k4_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ Counterpart of `repro.cells.egru`.  Exploiting the paper's Eqs. (6)-(10):
   * Mbar_t = D(H'(v_t)) . (per-unit groups) -> same rows zero; one parameter
     group (W[:,k'], R[:,k'], b_k' [, theta_k']) per unit k'.
 
-`cell_partials_full` (the input Jacobian of stacked L >= 2 networks) is
-not ported yet (ROADMAP Queue 1 item 7).
+`cell_partials_full` adds the input Jacobian B-hat = dv/dx: the
+cross-layer injection of a stacked network, where layer l's input is the
+layer below's activity (`core.stacked_rtrl`).
 """
 from __future__ import annotations
 
@@ -34,11 +35,21 @@ def cell_partials(cfg: EGRUConfig, w: Tree, a_prev: torch.Tensor,
     """Closed-form (a_new, hp, J-hat [B,n,n], Mbar pieces).
 
     J = D(hp) @ J-hat;  Mbar rows are D(hp)-gated by construction."""
-    return _cell_partials_impl(cfg, w, a_prev, x_t)
+    a_new, hp, Jhat, _, mbar = _cell_partials_impl(cfg, w, a_prev, x_t,
+                                                   False)
+    return a_new, hp, Jhat, mbar
+
+
+def cell_partials_full(cfg: EGRUConfig, w: Tree, a_prev: torch.Tensor,
+                       x_t: torch.Tensor):
+    """cell_partials plus the INPUT Jacobian B-hat [B, n, n_in] = dv/dx
+    (hp-ungated): (a_new, hp, J-hat, B-hat, Mbar pieces).  For kind="rnn"
+    B-hat is W^T, broadcast over the batch."""
+    return _cell_partials_impl(cfg, w, a_prev, x_t, True)
 
 
 def _cell_partials_impl(cfg: EGRUConfig, w: Tree, a_prev: torch.Tensor,
-                        x_t: torch.Tensor):
+                        x_t: torch.Tensor, want_input_jac: bool):
     B, n = a_prev.shape
     ones = a_prev.new_ones((B, 1))
     if cfg.kind == "rnn":
@@ -48,7 +59,10 @@ def _cell_partials_impl(cfg: EGRUConfig, w: Tree, a_prev: torch.Tensor,
         # group vector g = (x, a_prev, 1, -1): diag Mbar coefficient = 1
         g = torch.cat([x_t, a_prev, ones, -ones], dim=1)
         mbar = {"v_diag_coef": a_prev.new_ones((B, n)), "v_g": g}
-        return a_new, hp, Jhat, mbar
+        Bhat = None
+        if want_input_jac:
+            Bhat = w["v"]["W"].T[None].expand(B, n, x_t.shape[1])
+        return a_new, hp, Jhat, Bhat, mbar
 
     v, (u, r, z) = _gru_forward(w, a_prev, x_t)
     a_new, hp = _activation(cfg, v)
@@ -72,7 +86,14 @@ def _cell_partials_impl(cfg: EGRUConfig, w: Tree, a_prev: torch.Tensor,
     mbar = {"u_diag_coef": cu, "u_g": g_u,
             "z_diag_coef": cz, "z_g": g_z,
             "r_coef": coef_r, "r_g": g_u}
-    return a_new, hp, Jhat, mbar
+    Bhat = None
+    if want_input_jac:
+        # dv_k/dx_i = cu_k Wu[i,k] + cz_k (Wz[i,k] + sum_q Rz[q,k] a_q dr_q Wr[i,q])
+        Wu, Wr, Wz = w["u"]["W"], w["r"]["W"], w["z"]["W"]
+        inner_x = torch.einsum("iq,bq,qk->bik", Wr, a_prev * dr, Rz)
+        Bhat = (cu[:, :, None] * Wu.T[None] + cz[:, :, None] * Wz.T[None]
+                + cz[:, :, None] * inner_x.transpose(1, 2))
+    return a_new, hp, Jhat, Bhat, mbar
 
 
 def _activation(cfg: EGRUConfig, v):
@@ -104,6 +125,11 @@ class EGRUCell:
     def partials(self, w: Tree, a_prev: torch.Tensor, x_t: torch.Tensor):
         """-> (a_new, hp, J-hat [B,n,n], mbar pieces)."""
         return cell_partials(self.cfg, w, a_prev, x_t)
+
+    def partials_full(self, w: Tree, a_prev: torch.Tensor,
+                      x_t: torch.Tensor):
+        """-> (a_new, hp, J-hat, B-hat [B,n,n_in], mbar pieces)."""
+        return cell_partials_full(self.cfg, w, a_prev, x_t)
 
     def readout(self, params: Tree, a: torch.Tensor) -> torch.Tensor:
         return cells.readout(params, a)

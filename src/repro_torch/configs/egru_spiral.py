@@ -2,7 +2,10 @@
 
 "We trained an EGRU with 16 hidden units for 1700 iterations with Adam and a
 batch size of 32" on 10,000 spirals of 17 timesteps (Sec. 6).
-Counterpart of `repro.configs.egru_spiral`.
+`stacked(L)` lifts it to an L-layer stack trained with exact block
+lower-triangular RTRL (`core.stacked_rtrl`); `launch.train --arch
+egru-spiral --layers L` drives it.  Counterpart of
+`repro.configs.egru_spiral`.
 """
 from repro_torch.core.cells import EGRUConfig, StackedEGRUConfig, stacked_config
 
@@ -20,3 +23,6 @@ def stacked(n_layers: int = 2,
     """The spiral experiment as an L-layer stack (16 units per layer unless
     explicit `layer_sizes` are given); n_layers=1 is the paper's setup."""
     return stacked_config(CONFIG, n_layers, layer_sizes)
+
+
+STACKED_CONFIG = stacked(2)

@@ -145,13 +145,23 @@ def step(cfg: EGRUConfig, w: dict, a_prev: torch.Tensor, x_t: torch.Tensor):
 
 
 class _HeavisideST(torch.autograd.Function):
-    """Heaviside forward, pseudo-derivative H'(v) in the backward pass."""
+    """Heaviside forward, pseudo-derivative H'(v) in the backward pass.
+
+    In the `setup_context` form with a generated vmap rule, so that
+    `torch.func` transforms (`jacrev`, `vmap`; the jacrev RTRL oracle of
+    `core.rtrl`) go through it as autograd does."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, v, gamma, eps):
+    def forward(v, gamma, eps):
+        return heaviside(v)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        v, gamma, eps = inputs
         ctx.save_for_backward(v)
         ctx.gamma, ctx.eps = gamma, eps
-        return heaviside(v)
 
     @staticmethod
     def backward(ctx, grad):
@@ -201,14 +211,22 @@ def sequence_loss(cfg: EGRUConfig, params: dict, xs: torch.Tensor,
     return losses.mean(), stats
 
 
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (logits.argmax(dim=-1) == labels).float().mean()
+
+
 # ---------------------------------------------------------------------------
 # Stacked networks: L event-based layers, layer l driven by a^{l-1}_t
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class StackedEGRUConfig:
-    """A stack of EGRU/ERNN layers with a shared readout from the top layer
-    (the port runs the stacked engine at L=1 only; see ROADMAP)."""
+    """A stack of EGRU/ERNN layers with a shared readout from the top layer.
+
+    Layer 0 sees the input x_t; layer l >= 1 sees the current-step activity
+    a^{l-1}_t of the layer below.  The stacked state Jacobian is block
+    lower-triangular, so exact RTRL factors into (l, j) influence blocks
+    (`core.stacked_rtrl`)."""
     layer_sizes: tuple = (16, 16)
     n_in: int = 2
     n_out: int = 2
@@ -277,3 +295,37 @@ def init_stacked_params(cfg: StackedEGRUConfig, gen: torch.Generator, *,
                  * _normal(gen, (n_top, cfg.n_out))).to(cfg.param_dtype),
            "b": torch.zeros((cfg.n_out,), dtype=cfg.param_dtype)}
     return {"layers": layers, "out": tree_map(lambda t: t.to(device), out)}
+
+
+def init_stacked_state(cfg: StackedEGRUConfig, batch: int, *,
+                       device: torch.device | str) -> tuple:
+    return tuple(torch.zeros((batch, n), dtype=torch.float32, device=device)
+                 for n in cfg.layer_sizes)
+
+
+def stacked_step_straight_through(cfg: StackedEGRUConfig, ws, a_prevs: tuple,
+                                  x_t: torch.Tensor) -> tuple:
+    """One stacked step with the shared surrogate gradient; layer l's input
+    is the freshly computed a^{l-1}_t (bottom-up within the step)."""
+    inp = x_t
+    outs = []
+    for l in range(cfg.n_layers):
+        inp = step_straight_through(cfg.layer_cfg(l), ws[l], a_prevs[l], inp)
+        outs.append(inp)
+    return tuple(outs)
+
+
+def stacked_sequence_loss(cfg: StackedEGRUConfig, params: dict,
+                          xs: torch.Tensor, labels: torch.Tensor):
+    """Online-decomposable stacked loss L = (1/T) sum_t CE(logits_t, y);
+    logits read from the top layer only (shared readout)."""
+    ws = params["layers"]
+    a = init_stacked_state(cfg, xs.shape[1], device=xs.device)
+    losses, alpha = [], []
+    for x_t in xs:
+        a = stacked_step_straight_through(cfg, ws, a, x_t)
+        losses.append(xent(readout(params, a[-1]), labels))
+        alpha.append(torch.stack([(al == 0.0).float().mean() for al in a]))
+    alpha_t = torch.stack(alpha)
+    stats = {"alpha": alpha_t.mean(), "alpha_layers": alpha_t.mean(dim=0)}
+    return torch.stack(losses).mean(), stats

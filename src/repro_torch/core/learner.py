@@ -19,9 +19,10 @@ Ported: engine "sparse" with all four backends — "dense" (masked-dense
 per-gate reference), "pallas" (block-sparse update on the dense flat carry,
 the CUDA kernel of `kernels.influence`), "compact" and "compact_fused" —
 with or without the column-compact carry (f32, or bf16 for the compact
-ones), and engine "stacked" at one layer, which delegates to it as the JAX
-package does.  Every other engine raises NotImplementedError naming the
-ROADMAP item that brings it.
+ones); engine "stacked" at any depth (one layer delegates to "sparse", as
+the JAX package does); and engine "bptt", the streaming BPTT oracle.  Every
+other engine raises NotImplementedError naming the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.cells import resolve_cell
-from repro_torch.core import cells, sparse_rtrl as SP
+from repro_torch.core import cells, sparse_rtrl as SP, stacked_rtrl as ST
 from repro_torch.core.cells import EGRUConfig, StackedEGRUConfig
 from repro_torch.kernels import compact as CK, ops as kops
 from repro_torch.tree import tree_map
@@ -196,28 +197,28 @@ class SparseLearner(_LearnerBase):
             # full width: the flat axis itself, dead columns zeroed by colm
             self._cl = SP.col_layout(layout, masks, device=device) \
                 if col_compact else None
-            self._colm = colm
+            # the column liveness of the carry's axis
+            self._colm = self._cl.live if col_compact else colm
             self._jm = SP.flat_jmask(cfg, masks)
             P_carry = self._cl.Pc_pad if col_compact else layout.P_pad
             # the kernel's column and J block masks are fixed for the run
             self._kmasks = kops.constant_block_masks(
-                cfg.n_hidden, P_carry, self._jm,
-                self._cl.live if col_compact else colm, device=device)
+                cfg.n_hidden, P_carry, self._jm, self._colm, device=device)
             carry["gw"] = torch.zeros((P_carry,), dtype=torch.float32,
                                       device=device)
             carry["M"] = torch.zeros((B, cfg.n_hidden, P_carry),
                                      dtype=torch.float32, device=device)
             return carry
-        # compact backends: full width is the column map over ALL columns
-        # with the dead ones masked out of M-bar; [B, K, P_pad] either way
-        self._cl = SP.col_layout(layout, masks if col_compact else None,
-                                 device=device)
-        self._colm = None if col_compact or masks is None else colm
+        # compact backends: [B, K, Pc_pad] column-compact, else [B, K,
+        # P_pad] with the dead columns masked out of M-bar by colm
+        self._cl = SP.col_layout(layout, masks, device=device) \
+            if col_compact else None
+        self._colm = None if col_compact else colm
         if self.backend == "compact_fused":
             from repro_torch.kernels import compact_fused as CF
             # checks the fused layout contract: gate columns contiguous
             self._segs = CF.fused_segments(layout, self._cl)
-        Pc = self._cl.Pc_pad
+        Pc = self._cl.Pc_pad if col_compact else layout.P_pad
         K = SP.capacity_K(cfg.n_hidden, self.spec.capacity)
         carry["gw"] = torch.zeros((Pc,), dtype=torch.float32, device=device)
         carry["vals"] = torch.zeros((B, K, Pc), dtype=layout.carry_dtype,
@@ -263,7 +264,7 @@ class SparseLearner(_LearnerBase):
                 a_new, hp, vals_new, idx_new, count, overflow = \
                     SP.flat_compact_step(cfg, w, self.layout, carry["a"],
                                          carry["vals"], carry["idx"], x_t,
-                                         cl=self._cl, col_mask=self._colm)
+                                         self._colm, cl=self._cl)
             lt, logits, gout_t, cbar = self._inst_loss_and_grads(
                 params["out"], a_new, y_t, carry["t_total"])
             gw_t = CK.compact_grads(vals_new, idx_new, cbar)
@@ -356,18 +357,259 @@ class _SingleLayerStackedLearner(_LearnerBase):
 
 
 class StackedLearner(_LearnerBase):
-    """`repro.core.stacked_rtrl` as a streaming learner.  The port runs one
-    layer (delegated to the single-layer engine); L >= 2 is ROADMAP Queue 1
-    item 7."""
+    """`repro.core.stacked_rtrl` as a streaming learner: the block
+    lower-triangular influence carried per layer, every backend.  Exact.
+    One layer delegates to the single-layer engine (unless
+    `spec.delegate_single_layer` is False)."""
 
     def __new__(cls, spec: LearnerSpec):
-        scfg = spec.cfg if isinstance(spec.cfg, StackedEGRUConfig) \
-            else cells.stacked_config(spec.cfg, spec.layers)
+        scfg = cls._stacked_cfg(spec)
         if scfg.n_layers == 1 and spec.delegate_single_layer:
             return _SingleLayerStackedLearner(spec, scfg)
-        raise NotImplementedError(
-            "the stacked engine for L >= 2 (and the undelegated L = 1 block "
-            "engine) is not ported yet: ROADMAP Queue 1 item 7")
+        return super().__new__(cls)
+
+    @staticmethod
+    def _stacked_cfg(spec: LearnerSpec) -> StackedEGRUConfig:
+        if isinstance(spec.cfg, StackedEGRUConfig):
+            return spec.cfg
+        return cells.stacked_config(spec.cfg, spec.layers)
+
+    def __init__(self, spec: LearnerSpec):
+        if spec.backend not in SP.BACKENDS:
+            raise ValueError(
+                f"backend must be one of {SP.BACKENDS}, got {spec.backend!r}")
+        if spec.rewirable:
+            raise NotImplementedError(
+                "rewirable learners are not ported yet: ROADMAP Queue 1 "
+                "item 8")
+        if (SP.influence_carry_dtype(spec.influence_dtype) != torch.float32
+                and spec.backend in ("dense", "pallas")):
+            raise ValueError("influence_dtype='bfloat16' needs a compact "
+                             "carry (backend 'compact' or 'compact_fused')")
+        self.spec = spec
+        self.cfg = self._stacked_cfg(spec)
+        self.backend = spec.backend
+        self.lcfgs = [self.cfg.layer_cfg(l) for l in range(self.cfg.n_layers)]
+
+    def init(self, params, masks, batch, t_total: float = 1.0):
+        cfg = self.cfg
+        x0, _ = batch
+        B = x0.shape[0]
+        L = cfg.n_layers
+        device = params["out"]["W"].device
+        col_compact = self.spec.col_compact
+        if self.backend == "compact_fused":
+            if col_compact is False:
+                raise ValueError("compact_fused always carries the "
+                                 "parameter axis column-compact")
+            col_compact = True
+        elif col_compact is None:
+            col_compact = masks is not None and self.backend != "dense"
+        self._freeze_static(masks=masks, col_compact=col_compact)
+        slayout = ST.stacked_layout(cfg)
+        self.slayout = slayout
+        self.colms = ST.layer_col_masks(
+            slayout, ST.stacked_col_mask(slayout, masks, device=device))
+        self._cl = ST.stacked_col_layout(slayout, masks, device=device) \
+            if col_compact else None
+        # the column liveness each layer's update sees (j > l killed)
+        self._klives = self.colms if self._cl is None \
+            else ST.layer_col_lives(slayout, self._cl)
+        if self.backend == "compact_fused":
+            from repro_torch.kernels import compact_fused as CF
+            # checks the fused layout contract: gate columns contiguous
+            self._segs = tuple(
+                CF.fused_segments(slayout.layers[l], self._cl, layer=l)
+                for l in range(L))
+        P_carry = self._cl.Pc_pad if self._cl is not None else slayout.P_pad
+        if self.backend == "pallas":
+            # every layer's column and J block masks are fixed for the run
+            self._kmasks = tuple(
+                kops.constant_block_masks(
+                    cfg.layer_sizes[l], P_carry,
+                    SP.flat_jmask(self.lcfgs[l],
+                                  None if masks is None else masks[l]),
+                    self._klives[l], device=device)
+                for l in range(L))
+        carry = self._base_carry(params, t_total, device)
+        carry["a"] = cells.init_stacked_state(cfg, B, device=device)
+        carry["gw"] = torch.zeros((P_carry,), dtype=torch.float32,
+                                  device=device)
+        carry["gout"] = tree_map(
+            lambda x: torch.zeros_like(x, dtype=torch.float32), params["out"])
+        carry["beta_prev"] = torch.ones((L,), dtype=torch.float32,
+                                        device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        if self.backend in ("dense", "pallas"):
+            carry["M"] = tuple(torch.zeros((B, n, P_carry), **f32)
+                               for n in cfg.layer_sizes)
+        else:
+            Ks = [SP.capacity_K(n, self.spec.capacity)
+                  for n in cfg.layer_sizes]
+            cdtype = SP.influence_carry_dtype(self.spec.influence_dtype)
+            carry["vals"] = tuple(
+                torch.zeros((B, K, P_carry), dtype=cdtype, device=device)
+                for K in Ks)
+            carry["idx"] = tuple(
+                torch.full((B, K), CK.DEAD, dtype=torch.int32, device=device)
+                for K in Ks)
+        return carry
+
+    def _flat_layer_step(self, l, ws, M_prev, a_prev, inp, M_below):
+        """Layer l of the dense/pallas step: (a_new, hp, M_new), the cross
+        term B-hat M^(l-1)_t added to M-bar in f32 before the update."""
+        a_new, hp, ops = SP.pallas_step_operands(
+            self.lcfgs[l], ws[l], self.slayout.layers[l], a_prev, M_prev,
+            inp, cl=self._cl, col_mask=self._klives[l], jmask=None, layer=l,
+            offset=self.slayout.offsets[l], total_pad=self.slayout.P_pad,
+            M_below=M_below)
+        if self.backend == "pallas":
+            return a_new, hp, kops.influence_update(
+                *ops, block_masks=self._kmasks[l])
+        hp, Jhat, M_prev, Mb = ops[:4]
+        return a_new, hp, hp[:, :, None] * (torch.bmm(Jhat, M_prev) + Mb)
+
+    def step(self, carry, x_t, y_t):
+        cfg, params = self.cfg, carry["params"]
+        ws = params["layers"]
+        new = dict(carry)
+        extra_stats = {}
+        if self.backend in ("dense", "pallas"):
+            inp, a_news, hps, M_news = x_t, [], [], []
+            for l in range(cfg.n_layers):
+                a_new, hp, M_new = self._flat_layer_step(
+                    l, ws, carry["M"][l], carry["a"][l], inp,
+                    M_news[-1] if l else None)
+                a_news.append(a_new)
+                hps.append(hp)
+                M_news.append(M_new)
+                inp = a_new
+            lt, logits, gout_t, cbar = self._inst_loss_and_grads(
+                params["out"], a_news[-1], y_t, carry["t_total"])
+            gw_t = torch.einsum("bk,bkp->p", cbar, M_news[-1])
+            new["M"] = tuple(M_news)
+            row_density = torch.stack([(M != 0.0).any(dim=2).float().mean()
+                                       for M in M_news]).mean()
+        else:
+            a_news, hps, vals_new, idx_new, ovs = ST.stacked_compact_step(
+                cfg, ws, self.slayout, carry["a"], carry["vals"],
+                carry["idx"], x_t, self.colms, cl=self._cl,
+                backend=self.backend)
+            lt, logits, gout_t, cbar = self._inst_loss_and_grads(
+                params["out"], a_news[-1], y_t, carry["t_total"])
+            gw_t = CK.compact_grads(vals_new[-1], idx_new[-1], cbar)
+            new["vals"], new["idx"] = vals_new, idx_new
+            row_density = torch.stack([
+                (i >= 0).sum(dim=1).float().mean() / n
+                for i, n in zip(idx_new, cfg.layer_sizes)]).mean()
+            extra_stats["overflow"] = ovs.max()
+        new["a"] = tuple(a_news)
+        new["gw"] = carry["gw"] + gw_t
+        new["gout"] = tree_map(torch.add, carry["gout"], gout_t)
+        new["loss"] = carry["loss"] + lt
+        alpha_l = torch.stack([(a == 0.0).float().mean() for a in a_news])
+        beta_l = torch.stack([(h == 0.0).float().mean() for h in hps])
+        stats = {"alpha": alpha_l.mean(), "beta": beta_l.mean(),
+                 "alpha_layers": alpha_l, "beta_layers": beta_l,
+                 "beta_prev": carry["beta_prev"],
+                 "m_row_density": row_density, **extra_stats}
+        new["beta_prev"] = beta_l
+        step_grads = None
+        if self.spec.per_step_grads:
+            step_grads = self._finish_gw(gw_t)
+            step_grads["out"] = gout_t
+        return new, StepOut(lt, logits, stats, step_grads)
+
+    def _finish_gw(self, gw):
+        if self._cl is not None:
+            gw = SP.cols_to_flat(self._cl, gw)
+        return ST.unflatten_stacked_grads(self.cfg, self.slayout, gw)
+
+    def grads(self, carry):
+        grads = self._finish_gw(carry["gw"])
+        grads["out"] = carry["gout"]
+        return grads
+
+
+# ---------------------------------------------------------------------------
+# BPTT sequence-adapter oracle
+# ---------------------------------------------------------------------------
+
+class BPTTLearner(_LearnerBase):
+    """BPTT behind the streaming protocol: the oracle that shows what RTRL
+    buys.  Buffers the last `horizon` inputs ([H, B, n_in] + labels) in the
+    carry; `grads` re-runs the window forward from its first activity and
+    differentiates it by autograd (memory O(H), NOT O(1)).
+
+    `reset_grads` restarts the window at the current activity (truncated
+    BPTT): with an update every k <= horizon steps this is TBPTT-k.  Steps
+    beyond the horizon overwrite the last slot and set the 'bptt_overflow'
+    stat: size the horizon to the update window."""
+
+    def __init__(self, spec: LearnerSpec):
+        self.spec = spec
+        self.cfg: EGRUConfig = spec.cfg
+
+    def init(self, params, masks, batch, t_total: float = 1.0):
+        cfg = self.cfg
+        x0, y0 = batch
+        B = x0.shape[0]
+        device = params["out"]["W"].device
+        H = self.spec.horizon
+        if H is None:
+            H = max(1, int(round(float(t_total))))
+        self._freeze_static(horizon=H)
+        self.horizon = H
+        carry = self._base_carry(params, t_total, device)
+        carry["a"] = cells.init_state(cfg, B, device=device)
+        carry["a0"] = cells.init_state(cfg, B, device=device)
+        carry["xbuf"] = torch.zeros((H,) + tuple(x0.shape),
+                                    dtype=torch.float32, device=device)
+        carry["ybuf"] = torch.zeros((H,) + tuple(y0.shape),
+                                    dtype=torch.int32, device=device)
+        carry["pos"] = torch.zeros((), dtype=torch.int32, device=device)
+        return carry
+
+    def step(self, carry, x_t, y_t):
+        cfg, params = self.cfg, carry["params"]
+        a_new = cells.step_straight_through(
+            cfg, cells.rec_param_tree(params), carry["a"], x_t)
+        logits = cells.readout(params, a_new)
+        lt = cells.xent(logits, y_t) / carry["t_total"]
+        slot = carry["pos"].clamp(max=self.horizon - 1).long()
+        new = dict(carry)
+        new["a"] = a_new
+        new["xbuf"] = carry["xbuf"].index_copy(
+            0, slot[None], x_t.float()[None])
+        new["ybuf"] = carry["ybuf"].index_copy(
+            0, slot[None], y_t.int()[None])
+        new["pos"] = carry["pos"] + 1
+        new["loss"] = carry["loss"] + lt
+        stats = {"alpha": (a_new == 0.0).float().mean(),
+                 "bptt_overflow": (carry["pos"] >= self.horizon).int()}
+        return new, StepOut(lt, logits, stats, None)
+
+    def grads(self, carry):
+        from repro_torch.core.bptt import _loss_and_grads
+        cfg, H = self.cfg, self.horizon
+        xbuf, ybuf, tt = carry["xbuf"], carry["ybuf"], carry["t_total"]
+        wmask = (torch.arange(H, device=xbuf.device) < carry["pos"]).float()
+
+        def loss_fn(params):
+            w = cells.rec_param_tree(params)
+            a, losses = carry["a0"], []
+            for t in range(H):
+                a = cells.step_straight_through(cfg, w, a, xbuf[t])
+                losses.append(cells.xent(cells.readout(params, a), ybuf[t]))
+            return (torch.stack(losses) * wmask).sum() / tt, {}
+
+        return _loss_and_grads(loss_fn, carry["params"])[1]
+
+    def reset_grads(self, carry, params=None):
+        carry = super().reset_grads(carry, params)
+        carry["a0"] = carry["a"]
+        carry["pos"] = torch.zeros_like(carry["pos"])
+        return carry
 
 
 _NOT_PORTED_ENGINES = {
@@ -376,11 +618,10 @@ _NOT_PORTED_ENGINES = {
     "diag_exact": "ROADMAP Queue 1 item 12",
     "eprop": "ROADMAP Queue 1 item 12",
     "snap": "ROADMAP Queue 1 item 12",
-    "bptt": "ROADMAP Queue 1 item 1 (the streaming BPTT learner; the "
-            "oracle itself is core.bptt.bptt_loss_and_grads)",
 }
 
-ENGINES = {"sparse": SparseLearner, "stacked": StackedLearner}
+ENGINES = {"sparse": SparseLearner, "stacked": StackedLearner,
+           "bptt": BPTTLearner}
 
 
 def make_learner(spec: LearnerSpec):

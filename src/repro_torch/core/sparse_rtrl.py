@@ -34,7 +34,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.cells.egru import cell_partials
+from repro_torch.cells.egru import cell_partials, cell_partials_full
 from repro_torch.core.cells import EGRUConfig
 from repro_torch.kernels import compact as CK, compact_fused as CF
 from repro_torch.tree import apply_mask_tree
@@ -406,6 +406,15 @@ def col_layout(layout: FlatLayout, masks: Tree | None,
         device=device)
 
 
+def flat_col_density(layout: FlatLayout, masks: Tree | None) -> float:
+    """Live fraction of the P logical parameter columns — the omega~ factor
+    the column compaction realises (Pc == flat_col_density * P).  Shares
+    the one live-fraction definition with `core.costs.carry_footprint`."""
+    from repro_torch.core.costs import live_col_fraction
+    live = int(_flat_col_mask_np(layout, masks).sum())
+    return live_col_fraction(live, layout.P)
+
+
 def flat_to_cols(cl: ColLayout, x: torch.Tensor) -> torch.Tensor:
     """Gather the live columns: [..., P_pad] -> [..., Pc_pad] (pad cols 0)."""
     safe = cl.src.clamp(0, cl.P_pad - 1).long()
@@ -468,15 +477,28 @@ def flat_mbar_cols(cfg: EGRUConfig, layout: FlatLayout, cl: ColLayout,
     return flat_mbar_rows_cols(cfg, layout, cl, mbar, rows, layer=layer)
 
 
+def _place(layout: FlatLayout, flat: torch.Tensor, col_mask, offset: int,
+           total_pad: int | None) -> torch.Tensor:
+    """Pad a layer's [..., P] M-bar into columns [offset, offset + P) of a
+    [..., total_pad] axis (default: the layer's own P_pad), dead columns
+    zeroed by `col_mask` [total_pad]."""
+    total = layout.P_pad if total_pad is None else total_pad
+    flat = torch.nn.functional.pad(flat, (offset, total - offset - layout.P))
+    if col_mask is not None:
+        flat = flat * col_mask
+    return flat
+
+
 def flat_mbar(cfg: EGRUConfig, layout: FlatLayout, mbar: Tree,
-              col_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Immediate influence M-bar-hat in flat layout [B, n, P_pad]
+              col_mask: torch.Tensor | None = None, *, offset: int = 0,
+              total_pad: int | None = None) -> torch.Tensor:
+    """Immediate influence M-bar-hat in flat layout [B, n, total_pad]
     (hp-ungated): the full-width M-bar of backend "pallas".
 
     u/z (and rnn v) gates are diagonal in (k, q); the r gate couples densely
-    through R_z; theta is -I.  `col_mask` [P_pad] zeroes dead columns.  (The
-    reference's `offset`/`total_pad`, which place a layer inside a stacked
-    axis, wait for the stacked engine: ROADMAP Queue 1 item 7.)"""
+    through R_z; theta is -I.  `offset` places the layer's P columns inside
+    a wider stacked axis (`core.stacked_rtrl`); `col_mask` spans the full
+    width."""
     n, m = layout.n, layout.m
     ref = mbar["v_g"] if cfg.kind == "rnn" else mbar["u_g"]
     B = ref.shape[0]
@@ -499,11 +521,50 @@ def flat_mbar(cfg: EGRUConfig, layout: FlatLayout, mbar: Tree,
                 blocks.append(diag_block(mbar[f"{g}_diag_coef"],
                                          mbar[f"{g}_g"]))
         blocks.append(-torch.eye(n, device=ref.device)[None].expand(B, n, n))
-    flat = torch.nn.functional.pad(torch.cat(blocks, dim=-1),
-                                   (0, layout.P_pad - layout.P))
-    if col_mask is not None:
-        flat = flat * col_mask
-    return flat
+    return _place(layout, torch.cat(blocks, dim=-1), col_mask, offset,
+                  total_pad)
+
+
+def flat_mbar_rows(cfg: EGRUConfig, layout: FlatLayout, mbar: Tree,
+                   safe_new: torch.Tensor,
+                   col_mask: torch.Tensor | None = None, *, offset: int = 0,
+                   total_pad: int | None = None) -> torch.Tensor:
+    """M-bar rows gathered at the active row indices: [B, K, total_pad]
+    (hp-ungated), the full-width M-bar of the compact backends.
+
+    The dense [B, n, P] immediate influence is never built; dead slots
+    (safe_new clamped) give rows that the caller gates to zero through
+    hp.  Each slot's unit is written by index assignment (one slot, one
+    unit), deterministic on CUDA."""
+    n, m = layout.n, layout.m
+    B, K = safe_new.shape
+    rows = safe_new.long()
+    bidx = torch.arange(B, device=rows.device)[:, None]
+    slot = torch.arange(K, device=rows.device)[None, :]
+    ref = mbar["v_g"] if cfg.kind == "rnn" else mbar["u_g"]
+
+    def diag_block(coef, g):
+        M4 = ref.new_zeros((B, K, n, m))
+        M4[bidx, slot, rows] = coef[bidx, rows][:, :, None] * g[:, None, :]
+        return M4.reshape(B, K, n * m)
+
+    if cfg.kind == "rnn":
+        blocks = [diag_block(mbar["v_diag_coef"], mbar["v_g"])]
+    else:
+        blocks = []
+        for g in layout.gates:
+            if g == "r":
+                coef = mbar["r_coef"][bidx, rows]               # [B, K, n]
+                M4 = coef[:, :, :, None] * mbar["r_g"][:, None, None, :]
+                blocks.append(M4.reshape(B, K, n * m))
+            else:
+                blocks.append(diag_block(mbar[f"{g}_diag_coef"],
+                                         mbar[f"{g}_g"]))
+        th = ref.new_zeros((B, K, n))
+        th[bidx, slot, rows] = -1.0
+        blocks.append(th)
+    return _place(layout, torch.cat(blocks, dim=-1), col_mask, offset,
+                  total_pad)
 
 
 def unflatten_flat_grads(cfg: EGRUConfig, layout: FlatLayout,
@@ -530,42 +591,82 @@ def pallas_step_operands(cfg: EGRUConfig, w: Tree, layout: FlatLayout,
                          a_prev: torch.Tensor, M: torch.Tensor,
                          x_t: torch.Tensor, *, cl: ColLayout | None,
                          col_mask: torch.Tensor | None,
-                         jmask: torch.Tensor | None):
-    """Everything of one backend-"pallas" step up to the block-sparse update.
+                         jmask: torch.Tensor | None, layer: int = 0,
+                         offset: int = 0, total_pad: int | None = None,
+                         M_below: torch.Tensor | None = None):
+    """Everything of one dense-flat-carry step up to the update (backends
+    "pallas" and, in the stacked engine, "dense").
 
     Returns (a_new, hp, operands) where `operands` is the argument tuple of
     `kernels.ops.influence_update`: (hp, J-hat, M, M-bar, jmask, col_mask).
-    With `cl` the carry is column-compact: M-bar is built at Pc_pad and the
-    column liveness is `cl.live`.  Without it M-bar is the full flat one,
-    its dead columns zeroed by `col_mask` [P_pad]."""
-    a_new, hp, Jhat, mbar = cell_partials(cfg, w, a_prev, x_t)
+    col_mask is the column liveness of the carry's axis: on the full-width
+    axis it also zeroes M-bar's dead columns, `offset`/`total_pad` placing
+    the layer's columns in a stacked axis; with `cl` the carry is
+    column-compact and M-bar is built at Pc_pad for `layer`'s columns.
+    With `M_below` (a stacked layer l >= 1) the cross term B-hat M^(l-1)_t
+    is added to M-bar in f32 before the update."""
+    a_new, hp, Jhat, Bhat, mbar = _partials(cfg, w, a_prev, x_t, M_below)
     if cl is not None:
-        Mbar, kcolm = flat_mbar_cols(cfg, layout, cl, mbar), cl.live
+        Mbar = flat_mbar_cols(cfg, layout, cl, mbar, layer=layer)
     else:
-        Mbar, kcolm = flat_mbar(cfg, layout, mbar, col_mask), col_mask
-    return a_new, hp, (hp, Jhat, M, Mbar, jmask, kcolm)
+        Mbar = flat_mbar(cfg, layout, mbar, col_mask, offset=offset,
+                         total_pad=total_pad)
+    if M_below is not None:
+        Mbar = Mbar + torch.bmm(Bhat, M_below)
+    return a_new, hp, (hp, Jhat, M, Mbar, jmask, col_mask)
 
 
 # ---------------------------------------------------------------------------
 # One compact RTRL step (row-compact, column-compact with `cl`)
 # ---------------------------------------------------------------------------
 
+def _partials(cfg: EGRUConfig, w: Tree, a_prev, x_t, below):
+    """(a_new, hp, J-hat, B-hat or None, mbar): the input Jacobian only
+    where a layer below feeds the cross term."""
+    if below is None:
+        a_new, hp, Jhat, mbar = cell_partials(cfg, w, a_prev, x_t)
+        return a_new, hp, Jhat, None, mbar
+    return cell_partials_full(cfg, w, a_prev, x_t)
+
+
+def _cross_term(cfg: EGRUConfig, w: Tree, Bhat, idx_new, below):
+    """B^(l) M^(l-1)_t at the new rows: the B-hat tiles gathered at (new
+    rows, active rows of the layer below) times the layer below's fresh
+    compact carry, in f32 (a bf16 carry is read as f32).  For kind="rnn"
+    B-hat = W^T, looked up from W."""
+    vals_b, idx_b = below
+    AT = w["v"]["W"] if cfg.kind == "rnn" else None
+    Bgg = CK.gather_tiles(None if AT is not None else Bhat, idx_new, idx_b,
+                          AT=AT)
+    return torch.bmm(Bgg, vals_b.float())
+
+
 def flat_compact_step(cfg: EGRUConfig, w: Tree, layout: FlatLayout,
                       a_prev: torch.Tensor, vals: torch.Tensor,
-                      idx_prev: torch.Tensor, x_t: torch.Tensor, *,
-                      cl: ColLayout, col_mask: torch.Tensor | None = None,
-                      layer: int = 0):
+                      idx_prev: torch.Tensor, x_t: torch.Tensor,
+                      col_mask: torch.Tensor | None = None, *,
+                      offset: int = 0, total_pad: int | None = None,
+                      below: tuple | None = None,
+                      cl: ColLayout | None = None, layer: int = 0):
     """One RTRL step with the influence carried row-compact (backend
-    "compact"): vals [B, K, Pc_pad], idx_prev [B, K] (-1 = dead slot).
-    Returns (a_new, hp, vals', idx', count, overflow).
+    "compact"): vals [B, K, total_pad], idx_prev [B, K] (-1 = dead slot).
+    Returns (a_new, hp, vals', idx', count, overflow).  The update costs
+    K * K_prev * P.
 
-    The parameter axis is the one `cl` maps.  The JAX package's full-width
-    carry is the map over ALL columns (`col_layout(layout, None)`, where the
-    compact axis is the flat axis itself) with the masks' dead columns
-    zeroed through `col_mask` [P_pad].  The stacked cross-layer term
-    (`below`) is not ported yet (ROADMAP Queue 1 item 7)."""
+    Stacked networks (`core.stacked_rtrl`): `offset`/`total_pad` place this
+    layer's M-bar columns inside the stacked parameter axis, and
+    `below=(vals_below, idx_below)` adds the cross-layer term
+    B^(l) M^(l-1)_t, x_t then being the layer below's activity a^{l-1}_t;
+    the B-hat tiles are gathered at (new rows, active rows of the layer
+    below), so the cross term costs K * K_below * P.
+
+    DUAL compaction: with `cl` the parameter axis is the compact one of
+    `cl` ([B, K, Pc_pad]), M-bar is built directly at that width (`layer`
+    names this layer's columns of a stacked axis) and
+    col_mask/offset/total_pad are not read (liveness and placement live in
+    `cl`)."""
     n, K = layout.n, idx_prev.shape[1]
-    a_new, hp, Jhat, mbar = cell_partials(cfg, w, a_prev, x_t)
+    a_new, hp, Jhat, Bhat, mbar = _partials(cfg, w, a_prev, x_t, below)
     idx_new, count = CK.compact_rows(hp != 0.0, K)
     safe_new = idx_new.clamp(0, n - 1)
     live_new = idx_new >= 0
@@ -573,10 +674,14 @@ def flat_compact_step(cfg: EGRUConfig, w: Tree, layout: FlatLayout,
     R = w["v"]["R"] if cfg.kind == "rnn" else None
     Jgg = CK.gather_j_tiles(None if R is not None else Jhat,
                             idx_new, idx_prev, R=R)
-    mbar_rows = flat_mbar_rows_cols(cfg, layout, cl, mbar, safe_new,
-                                    layer=layer)
-    if col_mask is not None:
-        mbar_rows = mbar_rows * col_mask
+    if cl is not None:
+        mbar_rows = flat_mbar_rows_cols(cfg, layout, cl, mbar, safe_new,
+                                        layer=layer)
+    else:
+        mbar_rows = flat_mbar_rows(cfg, layout, mbar, safe_new, col_mask,
+                                   offset=offset, total_pad=total_pad)
+    if below is not None:
+        mbar_rows = mbar_rows + _cross_term(cfg, w, Bhat, idx_new, below)
     hp_rows = hp.gather(1, safe_new.long()) * live_new
     Mc, overflow = CK.compact_update(Jgg, vals, mbar_rows, hp_rows,
                                      idx_new, count, K)
@@ -586,15 +691,19 @@ def flat_compact_step(cfg: EGRUConfig, w: Tree, layout: FlatLayout,
 def fused_step_operands(cfg: EGRUConfig, w: Tree, layout: FlatLayout,
                         a_prev: torch.Tensor, vals: torch.Tensor,
                         idx_prev: torch.Tensor, x_t: torch.Tensor, *,
-                        cl: ColLayout, layer: int = 0):
+                        cl: ColLayout, layer: int = 0,
+                        below: tuple | None = None):
     """Everything of one fused step up to the kernel launch.
 
     Returns (a_new, hp, operands, overflow) where `operands` is the
     argument tuple of `compact_fused.fused_update`: (J-hat [B,n,n] f32,
     vals, mbar_rows [B,K,Pc_pad] f32, hp_rows [B,K] f32, idx_new,
-    idx_prev, count_new, count_prev), indices and counts int32."""
+    idx_prev, count_new, count_prev), indices and counts int32.  With
+    `below` (a stacked layer l >= 1) the cross term B^(l) M^(l-1)_t is
+    folded into mbar_rows in f32 before the launch, as the JAX package's
+    kernel path does; the kernel is the same."""
     n, K = layout.n, idx_prev.shape[1]
-    a_new, hp, Jhat, mbar = cell_partials(cfg, w, a_prev, x_t)
+    a_new, hp, Jhat, Bhat, mbar = _partials(cfg, w, a_prev, x_t, below)
     idx_new, count = CK.compact_rows(hp != 0.0, K)
     safe_new = idx_new.clamp(0, n - 1)
     hp_rows = hp.gather(1, safe_new.long()) * (idx_new >= 0)
@@ -604,6 +713,8 @@ def fused_step_operands(cfg: EGRUConfig, w: Tree, layout: FlatLayout,
     # the kernel gathers its tiles from the dense J-hat (rnn: R^T broadcast)
     mbar_rows = flat_mbar_rows_cols(cfg, layout, cl, mbar, safe_new,
                                     layer=layer)
+    if below is not None:
+        mbar_rows = mbar_rows + _cross_term(cfg, w, Bhat, idx_new, below)
     operands = (Jhat.float().contiguous(), vals, mbar_rows.contiguous(),
                 hp_rows.contiguous(), idx_new, idx_prev.int().contiguous(),
                 count_new, count_prev)
@@ -613,15 +724,17 @@ def fused_step_operands(cfg: EGRUConfig, w: Tree, layout: FlatLayout,
 def flat_compact_fused_step(cfg: EGRUConfig, w: Tree, layout: FlatLayout,
                             a_prev: torch.Tensor, vals: torch.Tensor,
                             idx_prev: torch.Tensor, x_t: torch.Tensor, *,
-                            cl: ColLayout, layer: int = 0):
+                            cl: ColLayout, layer: int = 0,
+                            below: tuple | None = None):
     """`flat_compact_step`, fused (backend "compact_fused"): the J-tile
     gather, the [K x K'] x [K' x Pc] contraction, the M-bar add and the hp
     diagonal scale run as ONE kernel launch with capacity ragged PER
     EXAMPLE (`kernels.compact_fused.fused_update`: the CUDA kernel on the
     card, its plain PyTorch version on the CPU).  Same contract and returns
-    as `flat_compact_step`."""
+    as the dual-compact `flat_compact_step` (`cl` required)."""
     a_new, hp, ops, overflow = fused_step_operands(
-        cfg, w, layout, a_prev, vals, idx_prev, x_t, cl=cl, layer=layer)
+        cfg, w, layout, a_prev, vals, idx_prev, x_t, cl=cl, layer=layer,
+        below=below)
     new_vals = CF.fused_update(*ops)
     idx_new, count_new = ops[4], ops[6]
     return a_new, hp, new_vals, idx_new, count_new, overflow

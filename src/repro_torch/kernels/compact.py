@@ -56,14 +56,23 @@ def compact_rows(dense_rows_mask: torch.Tensor, K: int):
     return idx.int(), count.int()
 
 
+def compact_init(B: int, K: int, P: int, dtype: torch.dtype = torch.float32,
+                 *, device: torch.device | str) -> CompactInfluence:
+    return CompactInfluence(
+        torch.zeros((B, K, P), dtype=dtype, device=device),
+        torch.full((B, K), DEAD, dtype=torch.int32, device=device),
+        torch.zeros((B,), dtype=torch.int32, device=device))
+
+
 def gather_tiles(A: torch.Tensor | None, idx_row: torch.Tensor,
                  idx_col: torch.Tensor, *, AT: torch.Tensor | None = None):
     """Gathered [B, K, K_col] tiles of a (possibly rectangular) Jacobian:
     rows at `idx_row`, columns at `idx_col` (dead column slots contribute
     zero columns; dead rows are gated by hp downstream).  Pass the dense
-    per-example ``A`` [B, n_row, n_col], or ``AT`` [n_col, n_row] — a
-    weight matrix whose TRANSPOSE is the Jacobian (R for the vanilla RNN's
-    J-hat) — so tiles are looked up directly."""
+    per-example ``A`` [B, n_row, n_col] (data-dependent Jacobians: the
+    EGRU J-hat, the cross-layer B-hat), or ``AT`` [n_col, n_row] — a weight
+    matrix whose TRANSPOSE is the Jacobian (R for the vanilla RNN's J-hat,
+    W for its B-hat) — so tiles are looked up directly."""
     if AT is not None:
         n_col, n_row = AT.shape
     else:
@@ -107,6 +116,22 @@ def compact_update(Jgg: torch.Tensor, vals_prev: torch.Tensor,
     return CompactInfluence(vals, idx_new, count.clamp(max=K)), overflow
 
 
+def compact_influence_step(hp: torch.Tensor, Jhat: torch.Tensor,
+                           Mc: CompactInfluence, Mbar: torch.Tensor, K: int):
+    """One RTRL influence update in compact form (the row-compact-only
+    path).  hp [B,n]; Jhat [B,n,n]; Mbar [B,n,P]; returns (Mc', overflow
+    [B]).  The work scales as K * K * P instead of n * n * P."""
+    B, n, P = Mbar.shape
+    idx_new, count_new = compact_rows(hp != 0.0, K)             # rows of M_t
+    bidx = torch.arange(B, device=hp.device)[:, None]
+    safe_new = idx_new.clamp(0, n - 1).long()
+    live = idx_new >= 0
+    Jgg = gather_j_tiles(Jhat, idx_new, Mc.idx)
+    Mbar_g = Mbar[bidx, safe_new]                               # [B, K, P]
+    hp_g = hp[bidx, safe_new] * live                            # [B, K]
+    return compact_update(Jgg, Mc.vals, Mbar_g, hp_g, idx_new, count_new, K)
+
+
 def compact_grads(vals: torch.Tensor, idx: torch.Tensor, cbar: torch.Tensor):
     """Fused gradient extraction  dL/dw = c-bar^T M  on the compact form.
 
@@ -120,3 +145,15 @@ def compact_grads(vals: torch.Tensor, idx: torch.Tensor, cbar: torch.Tensor):
     live = idx >= 0
     cb = cbar.gather(1, safe) * live                            # [B, K]
     return torch.bmm(cb[:, None, :], vals.float())[:, 0].sum(dim=0)
+
+
+def compact_to_dense(Mc: CompactInfluence, n: int) -> torch.Tensor:
+    """Scatter back to [B, n, P] (for verification).  Dead slots land in a
+    scratch row that is cropped; live rows are unique per example, so this
+    is a plain index assignment."""
+    check_idx(Mc.idx, n)
+    B, K, P = Mc.vals.shape
+    out = Mc.vals.new_zeros((B, n + 1, P))
+    idx = torch.where(Mc.idx < 0, n, Mc.idx).long()
+    out[torch.arange(B, device=idx.device)[:, None], idx] = Mc.vals
+    return out[:, :n]

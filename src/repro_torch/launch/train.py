@@ -4,13 +4,17 @@
         [--online] [--rtrl-backend {dense,pallas,compact,compact_fused}] \\
         --sparsity 0.8 [--col-compact {auto,on,off}] \\
         [--update-every 8] [--steps 20] [--seed 0] [--capacity 1.0] \\
-        [--influence-dtype float32] [--smoke] [--device cpu] \\
+        [--influence-dtype float32] [--layers 1] [--smoke] [--device cpu] \\
         [--ckpt-every 10] [--ckpt-dir DIR] [--fail-at K] [--metrics FILE]
 
-Counterpart of `repro.launch.train` (`train_egru`): a one-layer EGRU (n=16,
-n_in=2, batch 32) trained by exact sparse RTRL on the spiral task with a
-masked adamw update, through the checkpoint/restart supervisor
-(`runtime.trainer.run_with_restart`).
+Counterpart of `repro.launch.train` (`train_egru`): an EGRU (n=16 a layer,
+n_in=2, batch 32; `--layers L` stacks L layers, `configs.egru_spiral.
+stacked(L)`) trained by exact sparse RTRL on the spiral task with a masked
+adamw update, through the checkpoint/restart supervisor
+(`runtime.trainer.run_with_restart`).  One layer runs the single-layer
+engine; L >= 2 the block lower-triangular stacked engine
+(`core.stacked_rtrl`), one K1 (`compact_fused`) or K2 (`pallas`) launch a
+layer a stream step.
 
   * `--online`: the spiral stream, an update every `--update-every` stream
     steps, mid-sequence (`runtime.online.OnlineTrainer`); `--steps` counts
@@ -40,7 +44,7 @@ drawn from torch.Generator(2*seed) and masks from torch.Generator(2*seed +
 `jax.random` draws.  The online stream is the JAX launcher's step-keyed
 numpy stream, element for element.
 
-Flags of later slices raise: --layers > 1, --guard, --rewire, --metrics-dir.
+Flags of later slices raise: --guard, --rewire, --metrics-dir.
 """
 from __future__ import annotations
 
@@ -110,8 +114,6 @@ def _reject_later_slices(args) -> None:
     later = []
     if args.arch not in ARCHS:
         later.append(f"--arch {args.arch} (the port has egru-spiral only)")
-    if args.layers != 1:
-        later.append("--layers > 1 (stacked engine, ROADMAP Queue 1 item 7)")
     if args.guard:
         later.append("--guard (ROADMAP Queue 1 item 9)")
     if args.rewire != "off":
@@ -163,10 +165,15 @@ def _build_common(args) -> dict:
         opt = masked(opt, {"layers": masks, "out": None})
     if masks is not None and backend != "dense":
         slayout = ST.stacked_layout(cfg)
-        live = int(ST.stacked_col_mask(slayout, masks, device="cpu").sum())
-        print(f"influence columns: {live}/{slayout.P_total} live "
-              f"(omega~={ST.stacked_omega_tilde(masks):.3f}); col-compact "
-              f"carry {'ON' if col_compact else 'OFF'}")
+        colm = ST.stacked_col_mask(slayout, masks, device="cpu")
+        per_layer = ""
+        if cfg.n_layers > 1:
+            per_layer = " (" + " + ".join(
+                str(int(colm[slayout.layer_slice(l)].sum()))
+                for l in range(cfg.n_layers)) + " by layer)"
+        print(f"influence columns: {int(colm.sum())}/{slayout.P_total} live"
+              f"{per_layer} (omega~={ST.stacked_omega_tilde(masks):.3f}); "
+              f"col-compact carry {'ON' if col_compact else 'OFF'}")
     return {"cfg": cfg, "masks": masks, "make_params": make_params,
             "params": make_params(), "opt": opt, "col_compact": col_compact,
             "device": device}
@@ -348,8 +355,9 @@ def parse_args(argv=None):
     ap.add_argument("--metrics", default=None,
                     help="append the logged metric records to this file as "
                          "JSON lines")
+    ap.add_argument("--layers", type=int, default=1,
+                    help="stacked depth L (16 units a layer)")
     # flags of later slices: accepted so that they fail with a clear error
-    ap.add_argument("--layers", type=int, default=1)
     ap.add_argument("--guard", action="store_true")
     ap.add_argument("--rewire", default="off")
     ap.add_argument("--metrics-dir", default=None)

@@ -10,7 +10,9 @@ state carries over).  The trainer checkpoints the full learner carry
 optimizer state and the stream position, so a restarted worker resumes
 mid-stream to the same gradients, bit for bit on one device.
 
-Not ported yet: rewire (ROADMAP Queue 1 item 8), the stream guard and its
+The carry of a stacked learner holds per-layer tuples (`a`, `vals`, `idx`,
+`M`), checkpointed under the JAX package's leaf names (`carry__vals__0`,
+...).  Not ported yet: rewire (ROADMAP Queue 1 item 8), the stream guard and its
 fault plan (item 9), telemetry and the packed window metrics (item 11).
 """
 from __future__ import annotations
@@ -162,16 +164,27 @@ class OnlineTrainer:
     def row_stats(self) -> dict | None:
         """Per-example active-row stats of a compact influence carry, or
         None off the compact backends: K_b = live rows of example b;
-        'ragged_utilization' = Sigma_b K_b / (B * K_max).  Also reports the
-        carry dtype."""
+        'ragged_utilization' = Sigma_b K_b / (B * K_max), pooled over the
+        layers of a stacked carry as in the JAX package, whose per-layer
+        stats follow under 'layers'.  Also reports the carry dtype."""
         idx, vals = self.carry.get("idx"), self.carry.get("vals")
         if idx is None:
             return None
-        kb = (idx >= 0).sum(dim=1).cpu().numpy()
-        return {"k_min": int(kb.min()), "k_mean": round(float(kb.mean()), 2),
-                "k_max": int(kb.max()),
-                "ragged_utilization": round(float(kb.sum()) / idx.numel(), 4),
-                "influence_dtype": dtype_name(vals)}
+        stacked = isinstance(idx, tuple)
+        idxs = idx if stacked else (idx,)
+        kbs = [(i >= 0).sum(dim=1).cpu().numpy() for i in idxs]
+
+        def stats(kb, cap):
+            return {"k_min": int(kb.min()),
+                    "k_mean": round(float(kb.mean()), 2),
+                    "k_max": int(kb.max()),
+                    "ragged_utilization": round(float(kb.sum()) / cap, 4)}
+
+        out = stats(np.concatenate(kbs), sum(i.numel() for i in idxs))
+        out["influence_dtype"] = dtype_name(vals[0] if stacked else vals)
+        if stacked:
+            out["layers"] = [stats(kb, i.numel()) for kb, i in zip(kbs, idxs)]
+        return out
 
     # -- loop ---------------------------------------------------------------
 

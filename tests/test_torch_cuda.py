@@ -628,3 +628,104 @@ def test_offline_crash_resume_on_cuda(cuda, backend, tmp_path):
     for a, b in zip(tree_leaves(gb), tree_leaves(gc)):
         scale = max(float(b.abs().max()), 1e-3)
         assert float((a - b).abs().max()) <= F32_REL * scale
+
+
+def _stacked_layer1_operands(backend, steps=5):
+    """Layer 1's kernel operands at a live step of `--layers 2` on the
+    card: the launcher's run stepped a few times, then layer 0 and layer 1
+    of the next step, the cross term folded into layer 1's M-bar.  K1:
+    the fused_update tuple; K2: the unpadded (hp, J-hat, M, M-bar, jmask,
+    col_mask), col_mask the layer's compact-axis liveness."""
+    from repro_torch.core import sparse_rtrl as SP
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.runtime import online as ON
+    run = TRAIN.build_online(TRAIN.parse_args(
+        ["--arch", "egru-spiral", "--online", "--layers", "2",
+         "--rtrl-backend", backend, "--sparsity", "0.8"]))
+    learner, cfg = run["learner"], run["cfg"]
+    xs, ys = zip(*(run["stream"](t) for t in range(steps + 1)))
+    xs = torch.from_numpy(np.stack(xs)).to(run["device"])
+    ys = torch.from_numpy(np.stack(ys)).to(run["device"])
+    carry = learner.init(run["params"], run["masks"], (xs[0], ys[0]), 8.0)
+    carry, _, _, _ = ON.stream_grads(learner, carry, xs[:steps], ys[:steps])
+    ws, sl = carry["params"]["layers"], learner.slayout
+    inp, below = xs[steps], None
+    for l in range(2):
+        lcfg = cfg.layer_cfg(l)
+        if backend == "compact_fused":
+            inp, _, ops, _ = SP.fused_step_operands(
+                lcfg, ws[l], sl.layers[l], carry["a"][l], carry["vals"][l],
+                carry["idx"][l], inp, cl=learner._cl, layer=l, below=below)
+            below = (CF.fused_reference(*ops), ops[4])
+        else:
+            inp, _, ops = SP.pallas_step_operands(
+                lcfg, ws[l], sl.layers[l], carry["a"][l], carry["M"][l], inp,
+                cl=learner._cl, col_mask=learner._klives[l],
+                jmask=SP.flat_jmask(lcfg, run["masks"][l]), layer=l,
+                M_below=below)
+            below = ops[0][:, :, None] * (torch.bmm(ops[1], ops[2]) + ops[3])
+    return list(ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_stacked_layer1_operands(cuda, dtype):
+    """K1 at layer 1 of `--layers 2`: the M-bar rows carry the cross term;
+    the compact axis is the shared stacked one (Pc_pad 640)."""
+    ops = _stacked_layer1_operands("compact_fused")
+    assert ops[1].shape[-1] % 128 == 0 and ops[1].shape[-1] >= 512
+    _check_fused([ops[0], ops[1].to(dtype), *ops[2:]], dtype)
+
+
+@pytest.mark.cuda
+def test_influence_kernel_at_stacked_layer1_operands(cuda):
+    """K2 at layer 1 of `--layers 2`, against its plain version, dead blocks
+    exactly 0 and the executed-block counter equal to
+    realized_block_savings times the block count."""
+    hp, J, M, Mbar, jmask, col_mask = _stacked_layer1_operands("pallas")
+    ops = OPS.influence_operands(hp, J, M, Mbar, jmask, col_mask)
+    masks = dict(row_mask=ops[4], prev_mask=ops[5], col_mask=ops[6],
+                 jmask=ops[7])
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    out = IN.influence_update(*ops[:4], **masks, block_count=count)
+    ref = IN.influence_reference(*ops[:4], **masks)
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((out - ref).abs().max()) <= F32_REL * scale
+    total = ops[2].shape[0] * ops[4].shape[1] * ops[5].shape[1] * \
+        ops[6].shape[0]
+    expect = OPS.realized_block_savings(hp, M, jmask, col_mask) * total
+    assert int(count) == round(expect)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["compact_fused", "pallas"])
+def test_stacked_first_window_on_cuda_matches_cpu(cuda, backend):
+    """`--layers 2`: one launch a layer a stream step (16 over 8 steps),
+    and the first window's loss and gradients within F32_REL of the CPU's
+    plain versions."""
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.runtime import online as ON
+    from repro_torch.tree import tree_leaves
+
+    def window(device):
+        argv = ["--arch", "egru-spiral", "--online", "--layers", "2",
+                "--rtrl-backend", backend, "--sparsity", "0.8", "--device",
+                device]
+        run = TRAIN.build_online(TRAIN.parse_args(argv))
+        xs, ys = zip(*(run["stream"](t) for t in range(8)))
+        xs = torch.from_numpy(np.stack(xs)).to(run["device"])
+        ys = torch.from_numpy(np.stack(ys)).to(run["device"])
+        carry = run["learner"].init(run["params"], run["masks"],
+                                    (xs[0], ys[0]), t_total=8.0)
+        _, loss, grads, _ = ON.stream_grads(run["learner"], carry, xs, ys)
+        return float(loss), tree_leaves(grads)
+
+    slot = 0 if backend == "compact_fused" else 1
+    before = _launches()
+    lg, gg = window("cuda")
+    assert _launches()[slot] - before[slot] == 16
+    lc, gc = window("cpu")
+    assert lg == pytest.approx(lc, rel=F32_REL)
+    for a, b in zip(gg, gc):
+        scale = max(float(b.abs().max()), 1e-3)
+        assert float((a.cpu() - b).abs().max()) <= F32_REL * scale

@@ -152,7 +152,7 @@ def test_scan_learner_is_the_stream_path_bitwise():
 
 def test_unported_engines_and_backends_raise():
     cfg = C.EGRUConfig()
-    for engine in ("scaled", "diag_exact", "eprop", "snap", "bptt"):
+    for engine in ("scaled", "diag_exact", "eprop", "snap"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_learner(LearnerSpec(engine=engine, cfg=cfg))
     for backend in ("dense", "pallas"):     # ported: a bf16 carry is not
@@ -160,9 +160,6 @@ def test_unported_engines_and_backends_raise():
             make_learner(LearnerSpec(engine="sparse", cfg=cfg,
                                      backend=backend,
                                      influence_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_learner(LearnerSpec(engine="stacked", cfg=cfg, layers=2,
-                                 backend="compact"))
     with pytest.raises(NotImplementedError, match="item 8"):
         make_learner(LearnerSpec(engine="sparse", cfg=cfg,
                                  backend="compact", rewirable=True))
@@ -308,10 +305,8 @@ def test_launcher_raises_without_cuda_unless_cpu_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--layers", "2"], ["--guard"], ["--rewire", "rigl"],
-    ["--metrics-dir", "m"],
+    ["--guard"], ["--rewire", "rigl"], ["--metrics-dir", "m"],
     ["--rewire", "set", "--rtrl-backend", "dense"],
-    ["--layers", "3", "--rtrl-backend", "pallas"],
     ["--arch", "yi-6b"]])
 def test_launcher_rejects_later_slices(extra):
     with pytest.raises(SystemExit, match="not ported yet"):

@@ -14,7 +14,8 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 EXPECTED = {
     "configs", "configs.base", "configs.egru_spiral", "configs.rwkv6_3b",
     "cells", "cells.egru", "checkpoint", "checkpoint.ckpt", "core.bptt",
-    "core.cells", "core.learner", "core.sparse_rtrl", "core.stacked_rtrl",
+    "core.cells", "core.costs", "core.learner", "core.rtrl",
+    "core.sparse_rtrl", "core.stacked_rtrl",
     "data.spiral", "device",
     "kernels._build", "kernels.compact", "kernels.compact_fused",
     "kernels.event_matmul", "kernels.influence", "kernels.ops", "kernels.ref",

@@ -231,13 +231,13 @@ def test_compact_and_fused_step_from_identical_carry(kind, sparsity):
 
 
 def test_full_width_mode_equals_column_compact():
-    """col_mask on the all-columns map (the JAX full-width carry) gives the
-    same influence, column for column, as the column-compact carry."""
+    """The full-width carry (no column map; M-bar rows on the flat axis,
+    dead columns zeroed by col_mask, as in the JAX package) gives the same
+    influence, column for column, as the column-compact carry."""
     jcfg, cfg, params, masks = _setup("gru", 0.7, seed=2)
     layout = SP.flat_layout(cfg)
     pm = _port_masks(masks)
     cl = SP.col_layout(layout, pm, device="cpu")
-    full = SP.col_layout(layout, None, device="cpu")
     colm = SP.flat_col_mask(layout, pm, device="cpu")
     tw = C.rec_param_tree(params_from_numpy(params, "cpu"))
     x = torch.from_numpy(np.random.default_rng(3).normal(
@@ -245,13 +245,12 @@ def test_full_width_mode_equals_column_compact():
     a = torch.zeros(4, 16)
     K = SP.capacity_K(16, 1.0)
     idx = torch.full((4, K), -1, dtype=torch.int32)
-    vc, vf = torch.zeros(4, K, cl.Pc_pad), torch.zeros(4, K, full.Pc_pad)
+    vc, vf = torch.zeros(4, K, cl.Pc_pad), torch.zeros(4, K, layout.P_pad)
     for _ in range(3):
         a2, _, vc, idx2, _, _ = SP.flat_compact_step(cfg, tw, layout, a, vc,
                                                      idx, x, cl=cl)
         _, _, vf, _, _, _ = SP.flat_compact_step(cfg, tw, layout, a, vf,
-                                                 idx, x, cl=full,
-                                                 col_mask=colm)
+                                                 idx, x, col_mask=colm)
         a, idx = a2, idx2
     np.testing.assert_allclose(_np(SP.cols_to_flat(cl, vc)), _np(vf), **TOL)
 
