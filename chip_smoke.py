@@ -125,9 +125,39 @@ checkout, it exits non-zero and prints no result.  Phases:
      compact_fused and pallas windows (device ops a stream step, idle
      share, K1 and K2 µs a launch) and `costs.stacked_influence_update_flops`
      at the first window's measured beta;
-  9. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
-     K1's and K2's with a "stacked" entry for phase 8's path, then the
-     result line {"ok": true, "device": {...}}.
+  9. dynamic sparsity and the stream guard, every run with the counts set
+     to 0 just before and read just after: (d1) `--rtrl-backend pallas
+     --rewire rigl --rewire-every 2 --rewire-frac 0.3` (20 updates): K2 160
+     launches, 10 events, every W/R tensor's live count and Pc (244) kept
+     at every event, finite losses; at the first step after each event the
+     learner's K2 block masks equal those of the new masks and K2's
+     executed-block counter equals realized_block_savings of the new masks
+     times the blocks; from the carry right after event 0 one window within
+     1e-5 of the dense restart oracle (`sparsity.migrate.restart_oracle`)
+     on the card; the same with `--rewire set` and with `--col-compact off`
+     (P_pad 1024); (d2) the same at `--layers 2` (K2 320); (d3) `--rewire
+     rigl --rewire-every 3 --ckpt-every 5 --fail-at 7`, crashed and
+     uncrashed: restarts 1 / 0, K2 176 / 160, 6 events each, final
+     checkpoints (masks and layout included) bitwise; (d4) `--rtrl-backend
+     compact_fused --rewire rigl` exits before any launch; (g1) `--guard`
+     with compact_fused: K1 160, every window's loss and the final params
+     bitwise the unguarded run's; (g2) `--guard --inject-corrupt-at 6`: one
+     fault, one rollback, K1 168, losses and final params bitwise (g1)'s;
+     (g3) `--guard --inject-nan-at 40 --inject-nan-len 8`: the ladder
+     replay -> clip -> skip_update -> quarantine on window 5, K1 184,
+     finite after it; (g4) `--guard --rewire rigl --rewire-every 2
+     --inject-corrupt-at 5` with pallas: the masks at all 10 events and the
+     final params bitwise the clean run's (K2 168 / 160); (c) the costs:
+     median windows guarded and unguarded in turn, the device ops a stream
+     step the guard adds (traces), rewire_ms split into scoring, host
+     selection, migration and the block-mask rebuild, the µs of a snapshot
+     push, carry_live_bytes before and after the events, and K2 (at event
+     0's operands) and K1 (on (g2)'s replayed carry) against their plain
+     versions and timed;
+ 10. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
+     K1's and K2's with a "stacked" entry for phase 8's path, K1's with a
+     "guard" and K2's with a "rewire" entry for phase 9's, then the result
+     line {"ok": true, "device": {...}}.
 
 Tolerances: a float32 kernel result is within 1e-5 of the largest
 magnitude of the plain version's (the sums associate differently); a bf16
@@ -443,10 +473,10 @@ def k2_bound(torch, ops):
     return max(t_bytes, t_ops) * 1e3, by, nbytes, flops
 
 
-def compare_k2(torch, IN, OPS, unpadded, label):
+def compare_k2(torch, IN, OPS, unpadded, label, quiet=False):
     """Kernel vs plain version on the card, dead blocks exactly zero, and
     the executed-block counter against realized_block_savings.  Returns
-    (max abs error, padded operands)."""
+    (max abs error, padded operands); `quiet` logs nothing."""
     ops = OPS.influence_operands(*unpadded)
     masks = k2_masks(ops)
     count = torch.zeros(1, dtype=torch.int64, device=ops[2].device)
@@ -471,10 +501,11 @@ def compare_k2(torch, IN, OPS, unpadded, label):
     check(abs(expect - round(expect)) < 1e-6 and int(count) == round(expect),
           f"K2 {label}: executed blocks {int(count)} vs "
           f"realized_block_savings x blocks {expect}")
-    log(f"K2 {label}: B={B} n_p={ops[2].shape[1]} P_p={ops[2].shape[2]}, "
-        f"max_abs_err {err:.3e} (scale {scale:.3e}), dead blocks exactly 0: "
-        f"{int((~live).sum())} elements, executed blocks {int(count)} of "
-        f"{total} = realized_block_savings {expect / total:.6f}")
+    if not quiet:
+        log(f"K2 {label}: B={B} n_p={ops[2].shape[1]} P_p={ops[2].shape[2]}, "
+            f"max_abs_err {err:.3e} (scale {scale:.3e}), dead blocks exactly "
+            f"0: {int((~live).sum())} elements, executed blocks {int(count)} "
+            f"of {total} = realized_block_savings {expect / total:.6f}")
     return err, ops
 
 
@@ -677,14 +708,19 @@ def trace_main_path(torch, TRAIN, ON, backend, kernel, *extra, warm=2,
     window times come from the untraced run).  Reports device kernels per
     stream step, the device's busy and idle share of the traced wall time,
     the port kernel's device time per launch and the kernels that take the
-    most time."""
+    most time.  With `--guard` in `extra` the trainer runs the stream
+    guard.  Returns {"ops_per_step", "busy_us", "wall_us"} (None where the
+    profiler recorded no device event)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    run = TRAIN.build_online(TRAIN.parse_args(main_argv(backend, *extra)))
+    from repro_torch.runtime.guard import GuardConfig
+    args = TRAIN.parse_args(main_argv(backend, *extra))
+    run = TRAIN.build_online(args)
     tr = ON.OnlineTrainer(
         ON.OnlineTrainerConfig(total_steps=warm * k, update_every=k),
         run["learner"], run["opt"], run["params"], run["masks"],
-        run["stream"], device=run["device"])
+        run["stream"], device=run["device"],
+        guard=GuardConfig() if args.guard else None)
     tr.run()
     tr.cfg.total_steps = (warm + traced) * k
     torch.cuda.synchronize()
@@ -698,7 +734,7 @@ def trace_main_path(torch, TRAIN, ON, backend, kernel, *extra, warm=2,
     if not dev:
         log("trace: the profiler recorded no device events: device busy "
             "share not measured")
-        return
+        return None
     busy, end = 0.0, -math.inf
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
         busy += max(0.0, b - max(a, end))
@@ -719,6 +755,8 @@ def trace_main_path(torch, TRAIN, ON, backend, kernel, *extra, warm=2,
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     for n, (tot, cnt) in top:
         log(f"  {tot / steps:8.2f} us/step  x{cnt / steps:5.1f}/step  {n[:90]}")
+    return {"ops_per_step": len(dev) / steps, "busy_us": busy,
+            "wall_us": wall_us}
 
 # ---------------------------------------------------------------------------
 # phase 5: checkpoint, restart and the offline path
@@ -1195,6 +1233,453 @@ def stacked_phase(torch, TRAIN, ON, CKP, BP, RT, ST, SP, CF, CK, IN, OPS,
         "bound_ms": t2["bound_ms"], "bound_by": t2["bound_by"],
         "library_ms": t2["library_ms"]}
     return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 9: dynamic sparsity and the stream guard
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def observe_trainers(ON):
+    """Record every OnlineTrainer that runs (under "trainers") and, at each
+    rewire event, the trainer, its update and stream step and the carry
+    right after the event, with every W/R tensor's live count before and
+    after it (under "events").  Host work only; no kernel launches."""
+    seen = {"trainers": [], "events": []}
+    run0, rewire0 = ON.OnlineTrainer.run, ON.OnlineTrainer._maybe_rewire
+
+    def live_counts(carry):
+        masks = carry["rw"]["masks"]
+        masks = masks if isinstance(masks, tuple) else (masks,)
+        return [int(mk[g][t].sum()) for mk in masks
+                for g in ("u", "r", "z") for t in ("W", "R")]
+
+    def run(self):
+        seen["trainers"].append(self)
+        return run0(self)
+
+    def maybe_rewire(self):
+        before = live_counts(self.carry) if self.rewire_schedule else None
+        rec = rewire0(self)
+        if rec:
+            seen["events"].append({
+                "trainer": self, "update": self.update, "step": self.step,
+                "carry": self.carry, "before": before,
+                "after": live_counts(self.carry), **rec})
+        return rec
+
+    ON.OnlineTrainer.run, ON.OnlineTrainer._maybe_rewire = run, maybe_rewire
+    try:
+        yield seen
+    finally:
+        ON.OnlineTrainer.run, ON.OnlineTrainer._maybe_rewire = run0, rewire0
+
+
+def observed_run(TRAIN, ON, argv):
+    """A launcher run with every kernel's count set to 0 just before and
+    read just after, its trainers and rewire events observed."""
+    with observe_trainers(ON) as seen:
+        out, counts = run_counted(TRAIN, argv)
+    return out, counts, seen
+
+
+def rewire_argv(backend="pallas", *extra):
+    return main_argv(backend, "--ckpt-every", "0", "--rewire", "rigl",
+                     "--rewire-every", "2", "--rewire-frac", "0.3", *extra)
+
+
+def k2_event_operands(torch, SP, ST, learner, carry, x):
+    """K2's unpadded operands of every layer at the first stream step after
+    an event: (hp, J-hat, M, M-bar, jmask, col_mask) with the J pattern of
+    the carry's (new) masks and the carry axis's column liveness.  Also
+    checks that the learner's constant block masks, re-derived at the
+    event, equal those of the new masks."""
+    from repro_torch.core import cells as Cc
+    from repro_torch.kernels import ops as OPS
+    inner = getattr(learner, "inner", None)
+    out = []
+    if inner is not None:
+        inner._sync(carry)
+        jm = SP.flat_jmask(inner.cfg, carry["rw"]["masks"])
+        _, _, ops = SP.pallas_step_operands(
+            inner.cfg, Cc.rec_param_tree(carry["params"]), inner.layout,
+            carry["a"], carry["M"], x, cl=inner._cl, col_mask=inner._colm,
+            jmask=jm)
+        want = OPS.constant_block_masks(inner.cfg.n_hidden,
+                                        carry["M"].shape[-1], jm,
+                                        inner._colm, device=x.device)
+        check(all(torch.equal(a, b) for a, b in zip(inner._kmasks, want)),
+              "K2 block masks not re-derived from the event's masks")
+        return [list(ops)]
+    learner._sync(carry)
+    ws, sl, below, inp = carry["params"]["layers"], learner.slayout, None, x
+    for l in range(learner.cfg.n_layers):
+        lcfg, jm = learner.lcfgs[l], carry["rw"]["jms"][l]
+        check(torch.equal(jm, SP.flat_jmask(lcfg, carry["rw"]["masks"][l])),
+              f"layer {l}: the carry's J pattern is not the masks'")
+        inp, _, ops = SP.pallas_step_operands(
+            lcfg, ws[l], sl.layers[l], carry["a"][l], carry["M"][l], inp,
+            cl=learner._cl, col_mask=learner._klives[l], jmask=jm, layer=l,
+            offset=sl.offsets[l], total_pad=sl.P_pad, M_below=below)
+        want = OPS.constant_block_masks(lcfg.n_hidden,
+                                        carry["M"][l].shape[-1], jm,
+                                        learner._klives[l], device=x.device)
+        check(all(torch.equal(a, b) for a, b in
+                  zip(learner._kmasks[l], want)),
+              f"K2 layer {l} block masks not re-derived from the event's "
+              "masks")
+        below = ops[0][:, :, None] * (torch.bmm(ops[1], ops[2]) + ops[3])
+        out.append(list(ops))
+    return out
+
+
+def check_rewire_run(torch, TRAIN, ON, SP, ST, IN, OPS, MG, argv, label,
+                     layers=1):
+    """(d1)/(d2): one rewired pallas run on the card.  K2 160 a layer, 10
+    events, every W/R tensor's live count and Pc unchanged at every event,
+    finite losses; at the first step after each event K2's executed-block
+    counter equal to realized_block_savings of the new masks times the
+    blocks; from the carry right after event 0 one window against the dense
+    restart oracle.  Returns (out, counts, seen, worst K2 error, event-0
+    operands of the last layer)."""
+    import numpy as np
+    out, counts, seen = observed_run(TRAIN, ON, argv)
+    check_counts(counts, {"influence": 160 * layers}, label)
+    events = seen["events"]
+    check(out["rewire_events"] == len(events) == 10,
+          f"{label}: {out['rewire_events']} rewire events, expected 10")
+    check(all(e["before"] == e["after"] for e in events),
+          f"{label}: a tensor's live count changed at an event")
+    losses = [w["loss"] for w in out["windows"]]
+    check(all(math.isfinite(v) for v in losses),
+          f"{label}: non-finite loss {losses}")
+    learner = events[0]["trainer"].learner
+    cl = getattr(learner, "inner", learner)._cl
+    stream, dev = events[0]["trainer"].stream, events[0]["trainer"].device
+    worst, first_ops = 0.0, None
+    for i, e in enumerate(events):
+        x = torch.from_numpy(np.ascontiguousarray(
+            stream(e["step"])[0])).to(dev)
+        for l, ops in enumerate(k2_event_operands(torch, SP, ST, learner,
+                                                  e["carry"], x)):
+            err, padded = compare_k2(torch, IN, OPS, ops,
+                                     f"{label} event {i} layer {l}",
+                                     quiet=True)
+            worst = max(worst, err)
+            if i == 0:
+                first_ops = padded
+    pc = None if cl is None else cl.Pc
+    if layers == 1 and cl is not None:
+        check(pc == 244, f"{label}: Pc {pc}, expected 244")
+    # the window after event 0 against the dense restart oracle
+    e0 = events[0]
+    xs, ys = zip(*(stream(e0["step"] + t) for t in range(8)))
+    xs = torch.from_numpy(np.stack(xs)).to(dev)
+    ys = torch.from_numpy(np.stack(ys)).to(dev)
+    oracle, oc = MG.restart_oracle(learner, e0["carry"])
+    _, loss, grads, _ = ON.stream_grads(learner, e0["carry"], xs, ys)
+    _, oloss, ograds, _ = ON.stream_grads(oracle, oc, xs, ys)
+    check(abs(float(loss) - float(oloss)) <= F32_REL * abs(float(oloss)),
+          f"{label}: window after event 0 loss {float(loss)} vs the restart "
+          f"oracle's {float(oloss)}")
+    compare_grads(grads, ograds, f"{label} vs the dense restart oracle",
+                  "window after event 0")
+    ms = [e["rewire_ms"] for e in events]
+    log(f"{label}: launches {counts}, {len(events)} events at updates "
+        f"{[e['update'] for e in events]}, live counts kept "
+        f"{events[0]['after']}, Pc {pc}, K2 after every event equal to its "
+        f"plain version (worst {worst:.3e}) with executed blocks = "
+        f"realized_block_savings x blocks of the new masks, rewire_ms median "
+        f"{statistics.median(ms):.2f} (min {min(ms):.2f}, max {max(ms):.2f}), "
+        f"carry_live_bytes after the events "
+        f"{[e['carry_live_bytes'] for e in events][:3]}..., median window "
+        f"{out['summary']['median_window_ms']:.3f} ms")
+    return out, counts, seen, worst, first_ops
+
+
+def rewire_breakdown(torch, DS, SP, learner, carry, reps=5):
+    """The ms of one single-layer RigL event on the card in its four parts,
+    each ended by a device sync, the median of `reps`: the dense scoring
+    gradient, the host selection (its copies to the host included), the
+    migration (new layout, plan, gathers, old-then-new param masking) and
+    the learner's re-derivation of its block masks."""
+    from repro_torch.core import cells as Cc
+    inner = learner.inner
+    inner._sync(carry)
+    parts = {"scoring": [], "host selection": [], "migration": [],
+             "block-mask rebuild": []}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads = inner._rigl_scores(carry)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        old = carry["rw"]["masks"]
+        new = DS.rewire_masks(old, Cc.rec_param_tree(carry["params"]), grads,
+                              frac=0.3, key=(0, 0), method="rigl")
+        t2 = time.perf_counter()
+        params = SP.apply_masks(SP.apply_masks(carry["params"], old), new)
+        new_cl = SP.col_layout(inner.layout, new, device=carry["M"].device)
+        plan = DS.migration_plan(inner._cl, new_cl)
+        M = DS.migrate_influence(inner._cl, new_cl, carry["M"], plan)
+        gw = DS.migrate_influence(inner._cl, new_cl, carry["gw"], plan)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        rw = dict(carry["rw"], masks=new, jmask=SP.flat_jmask(inner.cfg, new),
+                  cl={f: getattr(new_cl, f) for f in
+                      ("src", "layer", "gate", "q", "j", "live")})
+        inner._bind(rw)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        inner._bind(carry["rw"])
+        del params, M, gw
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[key].append(dt * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def guard_phase_runs(torch, TRAIN, ON, argv_extra, label, want_k1):
+    """One guarded compact_fused run (observed, counted)."""
+    out, counts, seen = observed_run(
+        TRAIN, ON, main_argv("compact_fused", "--ckpt-every", "0", "--guard",
+                             *argv_extra))
+    check_counts(counts, {"compact_fused": want_k1}, label)
+    check(out["final_step"] == 160, f"{label}: {out['final_step']} steps")
+    return out, counts, seen["trainers"][-1]
+
+
+def final_params(tr):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tr.learner.params_of(tr.carry))
+
+
+def bitwise(torch, a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def dynamic_phase(torch, TRAIN, ON, CKP, SP, ST, CF, CK, IN, OPS):
+    """(d1)-(d4) dynamic sparsity and (g1)-(g4) the stream guard on the
+    card, then (c) their costs.  Returns the "rewire" entry of K2's record
+    and the "guard" entry of K1's, for the kernels line."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch import sparsity as DS
+    from repro_torch.runtime import guard as G
+    from repro_torch.sparsity import migrate as MG
+    launches = {}
+    # (d1) rewire, one layer: rigl, set, and rigl at full width
+    d1 = {}
+    for name, extra in (("rigl", ()), ("set", ()),
+                        ("rigl full width", ("--col-compact", "off"))):
+        argv = rewire_argv("pallas", *extra)
+        if name == "set":
+            argv[argv.index("rigl")] = "set"
+        d1[name] = check_rewire_run(torch, TRAIN, ON, SP, ST, IN, OPS, MG,
+                                    argv, f"(d1) rewire {name}")
+        launches[f"d1 {name}"] = d1[name][1]["influence"]
+    full = d1["rigl full width"][4]
+    check(full[2].shape[-1] == 1024, f"(d1) full width P_pad "
+                                     f"{full[2].shape[-1]}, expected 1024")
+    # (d2) rewire, stacked
+    d2 = check_rewire_run(torch, TRAIN, ON, SP, ST, IN, OPS, MG,
+                          rewire_argv("pallas", "--layers", "2"),
+                          "(d2) rewire --layers 2", layers=2)
+    launches["d2 --layers 2"] = d2[1]["influence"]
+    # (d3) crash and resume across events
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_rewire_"))
+    try:
+        argv = main_argv("pallas", "--ckpt-every", "5", "--rewire", "rigl",
+                         "--rewire-every", "3")
+        a, b, tree = crash_and_resume(torch, TRAIN, CKP, argv, "influence",
+                                      root, "(d3) rewire rigl pallas")
+        check(a["rewire_events"] == b["rewire_events"] == 6,
+              f"(d3) rewire events {a['rewire_events']} / "
+              f"{b['rewire_events']}")
+        launches["d3 crashed"], launches["d3 uncrashed"] = 176, 160
+        log(f"(d3) rewire_events {a['rewire_events']} / {b['rewire_events']};"
+            f" the final checkpoints' masks, layout and J pattern among the "
+            f"bitwise leaves")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # (d4) the refusal, before any launch
+    reset_counts()
+    try:
+        TRAIN.main(main_argv("compact_fused", "--ckpt-every", "0",
+                             "--rewire", "rigl"))
+    except SystemExit as e:
+        msg = str(e)
+    else:
+        raise SmokeFailure("(d4) --rewire with compact_fused ran")
+    check("not supported with the compact_fused backend" in msg,
+          f"(d4) refusal message: {msg}")
+    check_counts(read_counts(), {}, "(d4) refusal")
+    log(f"(d4) refused before any launch: {msg}")
+    # (g1) guard, healthy, against the unguarded run of the same argv
+    plain, counts_p, seen_p = observed_run(
+        TRAIN, ON, main_argv("compact_fused", "--ckpt-every", "0"))
+    check_counts(counts_p, {"compact_fused": 160}, "(g1) unguarded")
+    g1, c1, t1 = guard_phase_runs(torch, TRAIN, ON, (), "(g1) guard healthy",
+                                  160)
+    l_plain = [w["loss"] for w in plain["windows"]]
+    l_g1 = [w["loss"] for w in g1["windows"]]
+    check(l_g1 == l_plain, "(g1) guarded window losses differ from the "
+                           "unguarded run's")
+    check(bitwise(torch, final_params(t1), final_params(seen_p["trainers"][-1])),
+          "(g1) guarded final params differ from the unguarded run's")
+    check(g1["guard"]["faults"] == 0, f"(g1) faults {g1['guard']}")
+    log(f"(g1) guard healthy: launches {c1}, 20 window losses and the final "
+        f"params bitwise the unguarded run's, faults 0")
+    # (g2) guard, corrupted carry
+    g2, c2, t2 = guard_phase_runs(torch, TRAIN, ON,
+                                  ("--inject-corrupt-at", "6"),
+                                  "(g2) guard corrupted carry", 168)
+    rep = g2["guard"]
+    check((rep["faults"], rep["rollbacks"]) == (1, 1)
+          and rep["recoveries"] == [{"step": 48, "action": "replay",
+                                     "attempts": 1}],
+          f"(g2) guard report {rep}")
+    check([w["loss"] for w in g2["windows"]] == l_g1,
+          "(g2) window losses differ from (g1)'s")
+    check(bitwise(torch, final_params(t2), final_params(t1)),
+          "(g2) final params differ from (g1)'s")
+    log(f"(g2) corrupt carry after update 6: launches {c2}, faults 1, "
+        f"rollbacks 1, recovery {rep['recoveries']}, window losses and final "
+        f"params bitwise (g1)'s")
+    # (g3) guard, NaN inputs at stream steps 40-47 (window 5)
+    g3, c3, t3 = guard_phase_runs(torch, TRAIN, ON,
+                                  ("--inject-nan-at", "40", "--inject-nan-len",
+                                   "8"), "(g3) guard NaN inputs", 184)
+    rep = g3["guard"]
+    ladder = [f["attempt"] for f in rep["fault_log"]]
+    check(ladder == [1, 2, 3, 4] and all(f["step"] == 40
+                                         for f in rep["fault_log"])
+          and rep["recoveries"] == [{"step": 40, "action": "quarantine",
+                                     "attempts": 4}]
+          and rep["quarantined"] == [{"start": 40, "len": 8, "update": 5}],
+          f"(g3) guard report {rep}")
+    after = [w["loss"] for w in g3["windows"] if w["update"] > 6]
+    check(len(after) == 14 and all(math.isfinite(v) for v in after),
+          f"(g3) losses after the quarantine {after}")
+    check(all(bool(torch.isfinite(p).all()) for p in final_params(t3)),
+          "(g3) non-finite final params")
+    log(f"(g3) NaN inputs at steps 40-47: launches {c3}, ladder replay -> "
+        f"clip -> skip_update -> quarantine ({[f['reason'] for f in rep['fault_log']]}), "
+        f"quarantined {rep['quarantined']}, 14 finite losses after it")
+    # (g4) guard with rewire, pallas
+    g4_argv = main_argv("pallas", "--ckpt-every", "0", "--guard", "--rewire",
+                        "rigl", "--rewire-every", "2")
+    clean, cc, sc = observed_run(TRAIN, ON, g4_argv)
+    g4, c4, s4 = observed_run(TRAIN, ON, [*g4_argv, "--inject-corrupt-at",
+                                          "5"])
+    check_counts(cc, {"influence": 160}, "(g4) clean")
+    check_counts(c4, {"influence": 168}, "(g4) corrupted")
+    ev_c = [e["carry"]["rw"]["masks"] for e in sc["events"]]
+    ev_4 = [e["carry"]["rw"]["masks"] for e in s4["events"]]
+    from repro_torch.tree import tree_leaves
+    check(len(ev_c) == len(ev_4) == 10 and all(
+        bitwise(torch, tree_leaves(a), tree_leaves(b))
+        for a, b in zip(ev_c, ev_4)), "(g4) masks differ at an event")
+    check(bitwise(torch, final_params(s4["trainers"][-1]),
+                  final_params(sc["trainers"][-1])),
+          "(g4) final params differ from the clean run's")
+    check(g4["guard"]["rollbacks"] == 1, f"(g4) guard {g4['guard']}")
+    log(f"(g4) guard + rewire, corrupt after update 5: launches {c4} (clean "
+        f"{cc}), masks at all 10 events and the final params bitwise the "
+        f"clean run's, rollbacks 1")
+    # (c) costs
+    alt = {"unguarded": [], "guarded": []}
+    for _ in range(3):
+        for name, extra in (("unguarded", ()), ("guarded", ("--guard",))):
+            out = TRAIN.main(main_argv("compact_fused", "--ckpt-every", "0",
+                                       *extra))
+            alt[name].append(out["summary"]["median_window_ms"])
+    log(f"(c) median window compact_fused, 3 runs in turn: unguarded "
+        f"{[round(v, 3) for v in alt['unguarded']]} ms, guarded "
+        f"{[round(v, 3) for v in alt['guarded']]} ms (medians "
+        f"{statistics.median(alt['unguarded']):.3f} / "
+        f"{statistics.median(alt['guarded']):.3f})")
+    tr_plain = trace_main_path(torch, TRAIN, ON, "compact_fused",
+                               "fused_update_kernel")
+    tr_guard = trace_main_path(torch, TRAIN, ON, "compact_fused",
+                               "fused_update_kernel", "--guard")
+    if tr_plain and tr_guard:
+        log(f"(c) device ops a stream step: unguarded "
+            f"{tr_plain['ops_per_step']:.1f}, guarded "
+            f"{tr_guard['ops_per_step']:.1f} (the guard adds "
+            f"{tr_guard['ops_per_step'] - tr_plain['ops_per_step']:.1f}); "
+            f"device busy {tr_plain['busy_us'] / 16:.1f} / "
+            f"{tr_guard['busy_us'] / 16:.1f} us a step")
+    rigl = d1["rigl"]
+    ev0 = rigl[2]["events"][0]
+    parts = rewire_breakdown(torch, DS, SP, ev0["trainer"].learner,
+                             ev0["carry"])
+    ms = [e["rewire_ms"] for e in rigl[2]["events"]]
+    log(f"(c) rewire_ms of (d1) rigl: median {statistics.median(ms):.2f} ms "
+        f"over 10 events; one event split (median of 5): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()))
+    guard = G.StreamGuard(G.GuardConfig())
+    pushes = []
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        guard.push(t1)
+        torch.cuda.synchronize()
+        pushes.append((time.perf_counter() - t0) * 1e6)
+    snap_bytes = sum(x.numel() * x.element_size()
+                     for x in tree_leaves(guard.ring[-1].tree)
+                     if isinstance(x, torch.Tensor))
+    log(f"(c) snapshot push (clone of the checkpoint tree, {snap_bytes} "
+        f"bytes on the card): median {statistics.median(pushes):.1f} us "
+        f"(min {min(pushes):.1f}) with the sync")
+    run0 = TRAIN.build_online(TRAIN.parse_args(rewire_argv("pallas")))
+    fresh = TRAIN.online_trainers(TRAIN.parse_args(rewire_argv("pallas")),
+                                  run0)(0)
+    live0 = fresh.carry_nbytes()
+    live = [e["carry_live_bytes"] for e in rigl[2]["events"]]
+    log(f"(c) carry_live_bytes (d1) rigl: before the events {live0['live']} "
+        f"(alloc {live0['alloc']}), after each event {live}")
+    # the kernels line's entries: K2 after an event, K1 on a replayed carry
+    t_k2 = time_k2(torch, IN, rigl[4], 500, 100, host=False)
+    snap = t2.guard._ready(t2.guard.ring[-1])
+    carry = snap.tree["carry"]
+    lcfg = t2.learner.inner.cfg
+    layout = SP.flat_layout(lcfg)
+    x = torch.from_numpy(np.ascontiguousarray(
+        t2.stream(snap.step)[0])).to(t2.device)
+    _, _, k1_ops, _ = SP.fused_step_operands(
+        lcfg, {k: v for k, v in carry["params"].items() if k != "out"},
+        layout, carry["a"], carry["vals"], carry["idx"], x,
+        cl=t2.learner.inner._cl)
+    err_k1 = compare_k1(torch, CF, list(k1_ops),
+                        "(g2) after the rollback and replay")
+    t_k1 = time_k1(torch, CF, CK, list(k1_ops), 500, 100)
+    for name, t in (("K2 after event 0", t_k2), ("K1 on the replayed carry",
+                                                  t_k1)):
+        log(f"{name} time: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}"
+            f" ms, baddbmm {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.6f} ms ({t['bound_by']}); in turn kernel "
+            f"{t['alt_ms']:.4f} ms, baddbmm {t['alt_library_ms']:.4f} ms")
+    worst_k2 = max(d1[n][3] for n in d1)
+    worst_k2 = max(worst_k2, d2[3])
+    rewire_entry = {
+        "path": "--rewire rigl/set --rewire-every 2, pallas, col-compact and "
+                "full width, --layers 1 and 2; crash and resume across "
+                "events (K2 at the first step after each event)",
+        "launches": launches, "max_abs_err": worst_k2,
+        "ms": t_k2["ms"], "plain_ms": t_k2["plain_ms"],
+        "bound_ms": t_k2["bound_ms"], "bound_by": t_k2["bound_by"],
+        "library_ms": t_k2["library_ms"]}
+    guard_entry = {
+        "path": "--guard compact_fused: healthy, corrupted carry (one "
+                "window replayed), NaN inputs (ladder to quarantine)",
+        "launches": {"g1 healthy": c1["compact_fused"],
+                     "g2 corrupt": c2["compact_fused"],
+                     "g3 nan": c3["compact_fused"]},
+        "max_abs_err": err_k1, "ms": t_k1["ms"], "plain_ms": t_k1["plain_ms"],
+        "bound_ms": t_k1["bound_ms"], "bound_by": t_k1["bound_by"],
+        "library_ms": t_k1["library_ms"]}
+    return rewire_entry, guard_entry
 
 
 # ---------------------------------------------------------------------------
@@ -1931,7 +2416,11 @@ def main():
     stacked = stacked_phase(torch, TRAIN, ON, CKP, BP, RT, ST, SP, CF, CK, IN,
                             OPS, CO)
 
-    # -- phase 9: the kernels line and the result ---------------------------
+    # -- phase 9: dynamic sparsity and the stream guard ---------------------
+    rewire_entry, guard_entry = dynamic_phase(torch, TRAIN, ON, CKP, SP, ST,
+                                              CF, CK, IN, OPS)
+
+    # -- phase 10: the kernels line and the result --------------------------
     t1, t2 = times["(a) f32"], k2_times["(a) column-compact"]
     kernels = [{"name": "compact_fused", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/compact_fused.cu",
@@ -1951,6 +2440,8 @@ def main():
                 "library_ms": t2["library_ms"]}]
     for entry in kernels:
         entry["stacked"] = stacked[entry["name"]]
+    kernels[0]["guard"] = guard_entry
+    kernels[1]["rewire"] = rewire_entry
     kernels += [k3_entry, k4_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,11 @@ per-gate reference), "pallas" (block-sparse update on the dense flat carry,
 the CUDA kernel of `kernels.influence`), "compact" and "compact_fused" —
 with or without the column-compact carry (f32, or bf16 for the compact
 ones); engine "stacked" at any depth (one layer delegates to "sparse", as
-the JAX package does); and engine "bptt", the streaming BPTT oracle.  Every
-other engine raises NotImplementedError naming the ROADMAP item that
+the JAX package does); and engine "bptt", the streaming BPTT oracle.  The
+sparse and stacked learners are rewirable (``LearnerSpec(rewirable=True)``,
+every backend but compact_fused): ``learner.rewire(carry, event_key)``
+prunes and regrows the masks between windows with exact carry migration.
+Every other engine raises NotImplementedError naming the ROADMAP item that
 brings it.
 """
 from __future__ import annotations
@@ -72,15 +75,22 @@ class _LearnerBase:
     and gradient accumulators 'gw'/'gout'."""
     spec: LearnerSpec
 
-    def rewire(self, carry: Tree, *args, **kw) -> Tree:
+    def rewire(self, carry: Tree, event_key: tuple, *, frac: float = 0.1,
+               method: str = "rigl", block: int = 1, scores=None) -> Tree:
+        """Prune-and-regrow mask rewire event (`repro_torch.sparsity`).
+        Defined for the sparse/stacked learners constructed with
+        ``LearnerSpec(rewirable=True)``; everywhere else there is no mask
+        state to evolve, so this is an error, not a silent no-op."""
         raise NotImplementedError(
-            "dynamic sparsity (rewire) is not ported yet: ROADMAP Queue 1 "
-            "item 8")
+            f"{type(self).__name__} has no dynamic-sparsity support: rewire "
+            "is defined for the sparse/stacked exact-RTRL learners "
+            "constructed with LearnerSpec(rewirable=True)")
 
     def opt_mask_of(self, carry: Tree) -> Tree:
+        """The CURRENT mask tree in the optimizer's parameter structure
+        (what `optim.optimizers.set_opt_mask` consumes after a rewire)."""
         raise NotImplementedError(
-            "dynamic sparsity (mask state in the carry) is not ported yet: "
-            "ROADMAP Queue 1 item 8")
+            f"{type(self).__name__} carries no mask state")
 
     def reset_grads(self, carry: Tree, params: Tree | None = None) -> Tree:
         carry = dict(carry)
@@ -114,6 +124,50 @@ class _LearnerBase:
                     "carries are bound to the init-time structure — create "
                     "a fresh learner via make_learner(spec) instead")
 
+    # -- mask-derived state -------------------------------------------------
+    #
+    # The column layout, column masks, J patterns and K2's block masks are
+    # derived from the masks.  Without rewire they are fixed at init.  A
+    # rewirable carry holds its masks (and the layout's arrays) in
+    # carry["rw"]; `_sync` re-derives that state whenever the learner is
+    # handed a carry whose rw it has not derived it from (after an event,
+    # a checkpoint restore or a guard rollback).  The test is one identity
+    # comparison a step: rw is never changed in place, only replaced.
+
+    def _sync(self, carry: Tree) -> None:
+        rw = carry.get("rw")
+        if rw is not None and rw is not self._bound:
+            self._bind(rw)
+
+    @staticmethod
+    def _check_rewirable(carry: Tree) -> None:
+        if "rw" not in carry:
+            raise NotImplementedError(
+                "rewire needs LearnerSpec(rewirable=True) (mask state must "
+                "live in the carry)")
+
+    @staticmethod
+    def _attach_rw(carry, rw, x0, y0):
+        if rw is not None:
+            carry["rw"] = rw
+            # the last (x, y) seen: the rewire event's RigL scoring input
+            carry["last"] = {"x": torch.zeros_like(x0, dtype=torch.float32),
+                             "y": torch.zeros_like(y0, dtype=torch.int32)}
+        return carry
+
+    @staticmethod
+    def _dense_scores(loss_of, params: Tree) -> Tree:
+        """Gradient of loss_of(params) by autograd, detached, in params'
+        structure (zeros for an unused leaf): RigL's dense scoring pass."""
+        from repro_torch.tree import tree_flatten_with_path, tree_map_with_path
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        paths, leaves = zip(*tree_flatten_with_path(p))
+        with torch.enable_grad():
+            gs = torch.autograd.grad(loss_of(p), leaves, allow_unused=True)
+        by_path = {path: torch.zeros_like(x) if g is None else g
+                   for path, x, g in zip(paths, leaves, gs)}
+        return tree_map_with_path(lambda path, _: by_path[path], p)
+
     @staticmethod
     def _base_carry(params: Tree, t_total: float, device) -> dict:
         f32 = dict(dtype=torch.float32, device=device)
@@ -140,19 +194,37 @@ class _LearnerBase:
 # Exact single-layer sparse RTRL (dense / pallas / compact x col-compact)
 # ---------------------------------------------------------------------------
 
+_CL_FIELDS = ("src", "layer", "gate", "q", "j", "live")
+
+
+def _cl_arrays(cl) -> dict:
+    """The ColLayout's array fields as a carry-able dict; the ints (Pc,
+    Pc_pad, P_pad) stay on the learner, since count-preserving rewire never
+    changes them."""
+    return {f: getattr(cl, f) for f in _CL_FIELDS}
+
+
+_FUSED_REWIRE = ("backend='compact_fused' compiles a static gate-segment "
+                 "table from the ColLayout, so runtime mask rewiring is not "
+                 "supported — use backend='compact' with rewirable=True")
+
+
 class SparseLearner(_LearnerBase):
     """`repro.core.sparse_rtrl` as a streaming learner — all four backends,
     the flat ones optionally (by default whenever masks are given)
-    column-compact.  Exact."""
+    column-compact.  Exact.
+
+    With ``spec.rewirable`` the masks and the state derived from them
+    (column layout or mask, J pattern) live in ``carry["rw"]``, so that
+    `rewire` can evolve them with every buffer shape unchanged
+    (count-preserving prune-and-regrow keeps Pc)."""
 
     def __init__(self, spec: LearnerSpec):
         if spec.backend not in SP.BACKENDS:
             raise ValueError(
                 f"backend must be one of {SP.BACKENDS}, got {spec.backend!r}")
-        if spec.rewirable:
-            raise NotImplementedError(
-                "rewirable learners are not ported yet: ROADMAP Queue 1 "
-                "item 8")
+        if spec.backend == "compact_fused" and spec.rewirable:
+            raise ValueError(_FUSED_REWIRE)
         if (SP.influence_carry_dtype(spec.influence_dtype) != torch.float32
                 and spec.backend in ("dense", "pallas")):
             raise ValueError("influence_dtype='bfloat16' needs a compact "
@@ -164,7 +236,7 @@ class SparseLearner(_LearnerBase):
 
     def init(self, params, masks, batch, t_total: float = 1.0):
         cfg = self.cfg
-        x0, _ = batch
+        x0, y0 = batch
         B = x0.shape[0]
         device = params["out"]["W"].device
         col_compact = self.spec.col_compact
@@ -175,6 +247,8 @@ class SparseLearner(_LearnerBase):
             col_compact = True
         elif col_compact is None:
             col_compact = masks is not None and self.backend != "dense"
+        if self.spec.rewirable and masks is None:
+            raise ValueError("rewirable=True requires parameter masks")
         self._freeze_static(masks=masks, col_compact=col_compact)
         self.masks = masks
         carry = self._base_carry(params, t_total, device)
@@ -183,51 +257,75 @@ class SparseLearner(_LearnerBase):
             lambda x: torch.zeros_like(x, dtype=torch.float32), params["out"])
         carry["beta_prev"] = torch.ones((), dtype=torch.float32,
                                         device=device)
+        # the mask-derived state, under carry["rw"]'s keys
+        state = {"masks": masks}
+        self._cl = None
         if self.backend == "dense":
             carry["M"] = SP.init_influence(cfg, B, device=device)
             carry["gw"] = tree_map(
                 lambda x: torch.zeros_like(x, dtype=torch.float32),
                 cells.rec_param_tree(params))
-            return carry
-        layout = SP.flat_layout(cfg, self.spec.influence_dtype)
-        self.layout = layout
-        # [P_pad] liveness; padding columns are dead even without masks
-        colm = SP.flat_col_mask(layout, masks, device=device)
-        if self.backend == "pallas":
-            # full width: the flat axis itself, dead columns zeroed by colm
-            self._cl = SP.col_layout(layout, masks, device=device) \
-                if col_compact else None
-            # the column liveness of the carry's axis
-            self._colm = self._cl.live if col_compact else colm
-            self._jm = SP.flat_jmask(cfg, masks)
+        else:
+            layout = SP.flat_layout(cfg, self.spec.influence_dtype)
+            self.layout = layout
+            if col_compact:
+                self._cl = SP.col_layout(layout, masks, device=device)
+                state["cl"] = _cl_arrays(self._cl)
+            else:
+                # [P_pad] liveness; padding columns are dead even without
+                # masks
+                state["colm"] = SP.flat_col_mask(layout, masks, device=device)
+            if self.backend == "pallas":
+                state["jmask"] = SP.flat_jmask(cfg, masks)
+            if self.backend == "compact_fused":
+                from repro_torch.kernels import compact_fused as CF
+                # checks the fused layout contract: gate columns contiguous
+                self._segs = CF.fused_segments(layout, self._cl)
             P_carry = self._cl.Pc_pad if col_compact else layout.P_pad
-            # the kernel's column and J block masks are fixed for the run
-            self._kmasks = kops.constant_block_masks(
-                cfg.n_hidden, P_carry, self._jm, self._colm, device=device)
             carry["gw"] = torch.zeros((P_carry,), dtype=torch.float32,
                                       device=device)
-            carry["M"] = torch.zeros((B, cfg.n_hidden, P_carry),
-                                     dtype=torch.float32, device=device)
-            return carry
-        # compact backends: [B, K, Pc_pad] column-compact, else [B, K,
-        # P_pad] with the dead columns masked out of M-bar by colm
-        self._cl = SP.col_layout(layout, masks, device=device) \
-            if col_compact else None
-        self._colm = None if col_compact else colm
-        if self.backend == "compact_fused":
-            from repro_torch.kernels import compact_fused as CF
-            # checks the fused layout contract: gate columns contiguous
-            self._segs = CF.fused_segments(layout, self._cl)
-        Pc = self._cl.Pc_pad if col_compact else layout.P_pad
-        K = SP.capacity_K(cfg.n_hidden, self.spec.capacity)
-        carry["gw"] = torch.zeros((Pc,), dtype=torch.float32, device=device)
-        carry["vals"] = torch.zeros((B, K, Pc), dtype=layout.carry_dtype,
-                                    device=device)
-        carry["idx"] = torch.full((B, K), CK.DEAD, dtype=torch.int32,
-                                  device=device)
-        return carry
+            f32 = dict(dtype=torch.float32, device=device)
+            if self.backend == "pallas":
+                # full width: the flat axis itself, dead columns zeroed
+                carry["M"] = torch.zeros((B, cfg.n_hidden, P_carry), **f32)
+            else:
+                # compact backends: [B, K, Pc_pad] column-compact, else
+                # [B, K, P_pad] with the dead columns masked out of M-bar
+                K = SP.capacity_K(cfg.n_hidden, self.spec.capacity)
+                carry["vals"] = torch.zeros((B, K, P_carry),
+                                            dtype=layout.carry_dtype,
+                                            device=device)
+                carry["idx"] = torch.full((B, K), CK.DEAD, dtype=torch.int32,
+                                          device=device)
+        self._bind(state)
+        return self._attach_rw(carry, state if self.spec.rewirable else None,
+                               x0, y0)
+
+    def _bind(self, rw: dict) -> None:
+        """Derive the learner's mask state from rw (the carry's "rw", or
+        init's own): the masks of the dense update, the ColLayout, the
+        carry axis's column liveness, the J pattern and K2's two constant
+        block masks."""
+        self._bound = rw
+        self._mk = rw["masks"]
+        if self.backend == "dense":
+            return
+        if self._cl is not None:
+            self._cl = dataclasses.replace(self._cl, **rw["cl"])
+        if self.backend == "pallas":
+            # the column liveness of the carry's axis
+            self._colm = self._cl.live if self._cl is not None \
+                else rw["colm"]
+            self._jm = rw["jmask"]
+            # the kernel's column and J block masks, fixed between events
+            self._kmasks = kops.constant_block_masks(
+                self.cfg.n_hidden, self._colm.shape[0], self._jm, self._colm,
+                device=self._colm.device)
+        else:
+            self._colm = None if self._cl is not None else rw["colm"]
 
     def step(self, carry, x_t, y_t):
+        self._sync(carry)
         cfg, params = self.cfg, carry["params"]
         w = cells.rec_param_tree(params)
         new = dict(carry)
@@ -235,7 +333,7 @@ class SparseLearner(_LearnerBase):
         if self.backend == "dense":
             a_new, hp, Jhat, mbar = self.cell.partials(w, carry["a"], x_t)
             M_new = SP.influence_update(cfg, carry["M"], hp, Jhat, mbar,
-                                        self.masks)
+                                        self._mk)
             lt, logits, gout_t, cbar = self._inst_loss_and_grads(
                 params["out"], a_new, y_t, carry["t_total"])
             gw_t = SP.influence_grads(cfg, M_new, cbar)
@@ -276,6 +374,8 @@ class SparseLearner(_LearnerBase):
         new["a"] = a_new
         new["gout"] = tree_map(torch.add, carry["gout"], gout_t)
         new["loss"] = carry["loss"] + lt
+        if "rw" in carry:
+            new["last"] = {"x": x_t.float(), "y": y_t.int()}
         stats = {"alpha": (a_new == 0.0).float().mean(),
                  "beta": (hp == 0.0).float().mean(),
                  "beta_prev": carry["beta_prev"],
@@ -295,9 +395,84 @@ class SparseLearner(_LearnerBase):
         return SP.unflatten_flat_grads(self.cfg, self.layout, gw)
 
     def grads(self, carry):
+        self._sync(carry)
         grads = self._finish_gw(carry["gw"])
         grads["out"] = carry["gout"]
         return grads
+
+    # -- dynamic sparsity ---------------------------------------------------
+
+    def _rigl_scores(self, carry):
+        """Dense one-step gradient (straight-through surrogate) from the
+        carry's activity and last (x, y): RigL's dense scoring pass, run
+        only at rewire events."""
+        cfg, last = self.cfg, carry["last"]
+
+        def loss_of(params):
+            a_new = cells.step_straight_through(
+                cfg, cells.rec_param_tree(params), carry["a"], last["x"])
+            return cells.xent(cells.readout(params, a_new), last["y"])
+
+        return cells.rec_param_tree(self._dense_scores(loss_of,
+                                                       carry["params"]))
+
+    @torch.no_grad()
+    def rewire(self, carry, event_key, *, frac: float = 0.1,
+               method: str = "rigl", block: int = 1, scores=None):
+        """One prune-and-regrow event with EXACT carry migration, between
+        windows: fire it at an update boundary (after `reset_grads`), where
+        the pruned columns' accumulator entries were just consumed.  Every
+        carry shape is kept; the masks, the column maps and the state the
+        learner derives from them change.  `scores` ({gate: {W, R}}) hands
+        SET its scores instead of drawing them from `event_key`."""
+        from repro_torch import sparsity as DS
+        self._check_rewirable(carry)
+        self._sync(carry)
+        cfg = self.cfg
+        carry = dict(carry)
+        rw = dict(carry["rw"])
+        old_masks = rw["masks"]
+        params = carry["params"]
+        grads = self._rigl_scores(carry) if method == "rigl" else None
+        new_masks = DS.rewire_masks(old_masks, cells.rec_param_tree(params),
+                                    grads, frac=frac, key=event_key,
+                                    method=method, block=block, scores=scores)
+        rw["masks"] = new_masks
+        # old-then-new masking: pruned weights -> 0, grown weights exactly 0
+        carry["params"] = SP.apply_masks(SP.apply_masks(params, old_masks),
+                                         new_masks)
+        if self.backend == "dense":
+            carry["M"] = DS.migrate_dense(cfg, carry["M"], new_masks)
+            carry["gw"] = SP.apply_masks(
+                carry["gw"], {k: v for k, v in new_masks.items()
+                              if k != "out"})
+        else:
+            buf = "M" if self.backend == "pallas" else "vals"
+            device = carry[buf].device
+            if self._cl is not None:
+                new_cl = SP.col_layout(self.layout, new_masks, device=device)
+                plan = DS.migration_plan(self._cl, new_cl)
+                for k in (buf, "gw"):
+                    carry[k] = DS.migrate_influence(self._cl, new_cl,
+                                                    carry[k], plan)
+                rw["cl"] = _cl_arrays(new_cl)
+            else:
+                # full-width carry: the new column mask kills the pruned
+                # columns (grown ones are already exactly zero)
+                colm = SP.flat_col_mask(self.layout, new_masks, device=device)
+                for k in (buf, "gw"):
+                    carry[k] = DS.migrate_flat(colm, carry[k])
+                rw["colm"] = colm
+            if self.backend == "pallas":
+                rw["jmask"] = SP.flat_jmask(cfg, new_masks)
+        carry["rw"] = rw
+        self._bind(rw)
+        return carry
+
+    def opt_mask_of(self, carry):
+        masks = dict(carry["rw"]["masks"])
+        masks.setdefault("out", None)
+        return masks
 
 
 # ---------------------------------------------------------------------------
@@ -355,12 +530,28 @@ class _SingleLayerStackedLearner(_LearnerBase):
             params = sparams
         return self.inner.reset_grads(carry, params)
 
+    def rewire(self, carry, event_key, *, frac: float = 0.1,
+               method: str = "rigl", block: int = 1, scores=None):
+        # layer 0 of a stacked rewire folds 0 into the event key
+        # (rewire_stacked_masks' convention): keep the delegation aligned
+        from repro_torch.sparsity.schedule import fold_in
+        return self.inner.rewire(
+            carry, fold_in(event_key, 0), frac=frac, method=method,
+            block=block, scores=None if scores is None else scores[0])
+
+    def opt_mask_of(self, carry):
+        masks = self.inner.opt_mask_of(carry)
+        return {"layers": [{k: v for k, v in masks.items() if k != "out"}],
+                "out": None}
+
 
 class StackedLearner(_LearnerBase):
     """`repro.core.stacked_rtrl` as a streaming learner: the block
     lower-triangular influence carried per layer, every backend.  Exact.
     One layer delegates to the single-layer engine (unless
-    `spec.delegate_single_layer` is False)."""
+    `spec.delegate_single_layer` is False).  Rewirable as SparseLearner,
+    with one mask tree a layer and one migration plan for every layer's
+    buffer (they share the stacked column axis)."""
 
     def __new__(cls, spec: LearnerSpec):
         scfg = cls._stacked_cfg(spec)
@@ -378,10 +569,8 @@ class StackedLearner(_LearnerBase):
         if spec.backend not in SP.BACKENDS:
             raise ValueError(
                 f"backend must be one of {SP.BACKENDS}, got {spec.backend!r}")
-        if spec.rewirable:
-            raise NotImplementedError(
-                "rewirable learners are not ported yet: ROADMAP Queue 1 "
-                "item 8")
+        if spec.backend == "compact_fused" and spec.rewirable:
+            raise ValueError(_FUSED_REWIRE)
         if (SP.influence_carry_dtype(spec.influence_dtype) != torch.float32
                 and spec.backend in ("dense", "pallas")):
             raise ValueError("influence_dtype='bfloat16' needs a compact "
@@ -393,7 +582,7 @@ class StackedLearner(_LearnerBase):
 
     def init(self, params, masks, batch, t_total: float = 1.0):
         cfg = self.cfg
-        x0, _ = batch
+        x0, y0 = batch
         B = x0.shape[0]
         L = cfg.n_layers
         device = params["out"]["W"].device
@@ -405,16 +594,24 @@ class StackedLearner(_LearnerBase):
             col_compact = True
         elif col_compact is None:
             col_compact = masks is not None and self.backend != "dense"
+        if self.spec.rewirable and masks is None:
+            raise ValueError("rewirable=True requires parameter masks")
         self._freeze_static(masks=masks, col_compact=col_compact)
         slayout = ST.stacked_layout(cfg)
         self.slayout = slayout
-        self.colms = ST.layer_col_masks(
-            slayout, ST.stacked_col_mask(slayout, masks, device=device))
+        # the mask-derived state, under carry["rw"]'s keys
+        state = {"masks": None if masks is None else tuple(masks)}
         self._cl = ST.stacked_col_layout(slayout, masks, device=device) \
             if col_compact else None
-        # the column liveness each layer's update sees (j > l killed)
-        self._klives = self.colms if self._cl is None \
-            else ST.layer_col_lives(slayout, self._cl)
+        if self._cl is not None:
+            state["cl"] = _cl_arrays(self._cl)
+        else:
+            state["colms"] = ST.layer_col_masks(
+                slayout, ST.stacked_col_mask(slayout, masks, device=device))
+        if self.backend == "pallas":
+            state["jms"] = tuple(
+                SP.flat_jmask(self.lcfgs[l], None if masks is None
+                              else masks[l]) for l in range(L))
         if self.backend == "compact_fused":
             from repro_torch.kernels import compact_fused as CF
             # checks the fused layout contract: gate columns contiguous
@@ -422,15 +619,6 @@ class StackedLearner(_LearnerBase):
                 CF.fused_segments(slayout.layers[l], self._cl, layer=l)
                 for l in range(L))
         P_carry = self._cl.Pc_pad if self._cl is not None else slayout.P_pad
-        if self.backend == "pallas":
-            # every layer's column and J block masks are fixed for the run
-            self._kmasks = tuple(
-                kops.constant_block_masks(
-                    cfg.layer_sizes[l], P_carry,
-                    SP.flat_jmask(self.lcfgs[l],
-                                  None if masks is None else masks[l]),
-                    self._klives[l], device=device)
-                for l in range(L))
         carry = self._base_carry(params, t_total, device)
         carry["a"] = cells.init_stacked_state(cfg, B, device=device)
         carry["gw"] = torch.zeros((P_carry,), dtype=torch.float32,
@@ -453,7 +641,29 @@ class StackedLearner(_LearnerBase):
             carry["idx"] = tuple(
                 torch.full((B, K), CK.DEAD, dtype=torch.int32, device=device)
                 for K in Ks)
-        return carry
+        self._bind(state)
+        return self._attach_rw(carry, state if self.spec.rewirable else None,
+                               x0, y0)
+
+    def _bind(self, rw: dict) -> None:
+        """Derive the learner's mask state from rw: the ColLayout, the
+        full-width per-layer column masks (`colms`), the column liveness
+        each layer's update sees (`_klives`, j > l killed) and, for pallas,
+        every layer's two constant K2 block masks."""
+        self._bound = rw
+        if self._cl is not None:
+            self._cl = dataclasses.replace(self._cl, **rw["cl"])
+            self.colms = None
+            self._klives = ST.layer_col_lives(self.slayout, self._cl)
+        else:
+            self.colms = self._klives = rw["colms"]
+        if self.backend == "pallas":
+            P_carry = self._klives[0].shape[0]
+            self._kmasks = tuple(
+                kops.constant_block_masks(
+                    self.cfg.layer_sizes[l], P_carry, rw["jms"][l],
+                    self._klives[l], device=self._klives[l].device)
+                for l in range(self.cfg.n_layers))
 
     def _flat_layer_step(self, l, ws, M_prev, a_prev, inp, M_below):
         """Layer l of the dense/pallas step: (a_new, hp, M_new), the cross
@@ -470,6 +680,7 @@ class StackedLearner(_LearnerBase):
         return a_new, hp, hp[:, :, None] * (torch.bmm(Jhat, M_prev) + Mb)
 
     def step(self, carry, x_t, y_t):
+        self._sync(carry)
         cfg, params = self.cfg, carry["params"]
         ws = params["layers"]
         new = dict(carry)
@@ -507,6 +718,8 @@ class StackedLearner(_LearnerBase):
         new["gw"] = carry["gw"] + gw_t
         new["gout"] = tree_map(torch.add, carry["gout"], gout_t)
         new["loss"] = carry["loss"] + lt
+        if "rw" in carry:
+            new["last"] = {"x": x_t.float(), "y": y_t.int()}
         alpha_l = torch.stack([(a == 0.0).float().mean() for a in a_news])
         beta_l = torch.stack([(h == 0.0).float().mean() for h in hps])
         stats = {"alpha": alpha_l.mean(), "beta": beta_l.mean(),
@@ -526,9 +739,73 @@ class StackedLearner(_LearnerBase):
         return ST.unflatten_stacked_grads(self.cfg, self.slayout, gw)
 
     def grads(self, carry):
+        self._sync(carry)
         grads = self._finish_gw(carry["gw"])
         grads["out"] = carry["gout"]
         return grads
+
+    # -- dynamic sparsity ---------------------------------------------------
+
+    def _rigl_scores(self, carry):
+        cfg, last = self.cfg, carry["last"]
+
+        def loss_of(params):
+            a_new = cells.stacked_step_straight_through(
+                cfg, params["layers"], carry["a"], last["x"])
+            return cells.xent(cells.readout(params, a_new[-1]), last["y"])
+
+        return self._dense_scores(loss_of, carry["params"])["layers"]
+
+    @torch.no_grad()
+    def rewire(self, carry, event_key, *, frac: float = 0.1,
+               method: str = "rigl", block: int = 1, scores=None):
+        """Stacked prune-and-regrow event: per-layer criteria (layer l folds
+        l into the key) on the shared concatenated column axis; ONE
+        migration plan remaps every layer's buffer.  See
+        SparseLearner.rewire for the exactness contract."""
+        from repro_torch import sparsity as DS
+        self._check_rewirable(carry)
+        self._sync(carry)
+        carry = dict(carry)
+        rw = dict(carry["rw"])
+        old_masks = list(rw["masks"])
+        params = dict(carry["params"])
+        grads = self._rigl_scores(carry) if method == "rigl" else None
+        new_masks = DS.rewire_stacked_masks(
+            old_masks, params["layers"], grads, frac=frac, key=event_key,
+            method=method, block=block, scores=scores)
+        params["layers"] = [
+            SP.apply_masks(SP.apply_masks(p, om), nm)
+            for p, om, nm in zip(params["layers"], old_masks, new_masks)]
+        carry["params"] = params
+        rw["masks"] = tuple(new_masks)
+        buf = "M" if self.backend in ("dense", "pallas") else "vals"
+        device = carry["gw"].device
+        if self._cl is not None:
+            new_cl = ST.stacked_col_layout(self.slayout, new_masks,
+                                           device=device)
+            plan = DS.migration_plan(self._cl, new_cl)
+            carry[buf] = tuple(DS.migrate_influence(self._cl, new_cl, M, plan)
+                               for M in carry[buf])
+            carry["gw"] = DS.migrate_influence(self._cl, new_cl, carry["gw"],
+                                               plan)
+            rw["cl"] = _cl_arrays(new_cl)
+        else:
+            colm = ST.stacked_col_mask(self.slayout, new_masks, device=device)
+            colms = ST.layer_col_masks(self.slayout, colm)
+            carry[buf] = tuple(DS.migrate_flat(cm, M)
+                               for cm, M in zip(colms, carry[buf]))
+            carry["gw"] = DS.migrate_flat(colm, carry["gw"])
+            rw["colms"] = colms
+        if self.backend == "pallas":
+            rw["jms"] = tuple(SP.flat_jmask(self.lcfgs[l], new_masks[l])
+                              for l in range(self.cfg.n_layers))
+        carry["rw"] = rw
+        self._bind(rw)
+        return carry
+
+    def opt_mask_of(self, carry):
+        return {"layers": list(carry["rw"]["masks"]), "out": None}
 
 
 # ---------------------------------------------------------------------------

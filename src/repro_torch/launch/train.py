@@ -5,7 +5,10 @@
         --sparsity 0.8 [--col-compact {auto,on,off}] \\
         [--update-every 8] [--steps 20] [--seed 0] [--capacity 1.0] \\
         [--influence-dtype float32] [--layers 1] [--smoke] [--device cpu] \\
-        [--ckpt-every 10] [--ckpt-dir DIR] [--fail-at K] [--metrics FILE]
+        [--ckpt-every 10] [--ckpt-dir DIR] [--fail-at K] [--metrics FILE] \\
+        [--rewire {off,set,rigl} --rewire-every N --rewire-frac F] \\
+        [--guard --guard-ring R --guard-policy P] \\
+        [--inject-nan-at S --inject-nan-len N --inject-corrupt-at U]
 
 Counterpart of `repro.launch.train` (`train_egru`): an EGRU (n=16 a layer,
 n_in=2, batch 32; `--layers L` stacks L layers, `configs.egru_spiral.
@@ -20,6 +23,20 @@ layer a stream step.
     steps, mid-sequence (`runtime.online.OnlineTrainer`); `--steps` counts
     optimizer updates and `--smoke` caps them at 12.  Checkpoints hold the
     learner carry, so a restart resumes mid-stream.
+  * `--online --rewire {set,rigl}`: dynamic sparsity — every
+    `--rewire-every` updates each recurrent W/R tensor prunes and regrows
+    a cosine-decayed fraction (from `--rewire-frac`) of its live weights,
+    with exact carry migration (`sparsity`; the optimizer mask lives in
+    its state, `optim.optimizers.masked_dynamic`).  Refused offline, at
+    `--sparsity 0` and with `compact_fused`, as in the reference.  SET
+    draws its scores from `--seed` and the event index (a torch.Generator
+    per tensor), not from `jax.random`.
+  * `--online --guard`: the stream guard (`runtime.guard`): health checks
+    every window, a ring of `--guard-ring` snapshots, rollback and replay
+    under `--guard-policy`.  `--inject-nan-at S --inject-nan-len N` feeds
+    NaN inputs at stream steps [S, S+N) (on every attempt);
+    `--inject-corrupt-at U` poisons one influence element after update U
+    (on the first attempt only).
   * otherwise, offline: one whole 17-step sequence per optimizer step
     (`core.stacked_rtrl.stacked_rtrl_loss_and_grads`,
     `runtime.trainer.Trainer`); `--steps` counts steps.  The batch of step s
@@ -44,7 +61,7 @@ drawn from torch.Generator(2*seed) and masks from torch.Generator(2*seed +
 `jax.random` draws.  The online stream is the JAX launcher's step-keyed
 numpy stream, element for element.
 
-Flags of later slices raise: --guard, --rewire, --metrics-dir.
+Flags of later slices raise: --metrics-dir.
 """
 from __future__ import annotations
 
@@ -114,10 +131,6 @@ def _reject_later_slices(args) -> None:
     later = []
     if args.arch not in ARCHS:
         later.append(f"--arch {args.arch} (the port has egru-spiral only)")
-    if args.guard:
-        later.append("--guard (ROADMAP Queue 1 item 9)")
-    if args.rewire != "off":
-        later.append("--rewire (ROADMAP Queue 1 item 8)")
     if args.metrics_dir:
         later.append("--metrics-dir (ROADMAP Queue 1 item 11)")
     if later:
@@ -130,10 +143,22 @@ def _build_common(args) -> dict:
     Every refusal comes before anything is written."""
     from repro_torch.configs import egru_spiral
     from repro_torch.core import cells, stacked_rtrl as ST
-    from repro_torch.optim.optimizers import make_optimizer, masked
+    from repro_torch.optim.optimizers import (make_optimizer, masked,
+                                              masked_dynamic)
 
     _reject_later_slices(args)
     backend = args.rtrl_backend
+    rewiring = args.rewire != "off"
+    if rewiring and not args.online:
+        raise SystemExit("--rewire needs --online (events fire at online "
+                         "update boundaries)")
+    if rewiring and args.sparsity <= 0.0:
+        raise SystemExit("--rewire needs --sparsity > 0 (there is no mask "
+                         "to evolve at density 1)")
+    if rewiring and backend == "compact_fused":
+        raise SystemExit("--rewire is not supported with the compact_fused "
+                         "backend (its gate-segment table is compiled from "
+                         "the init-time masks) — use --rtrl-backend compact")
     # resolve the auto rule once and hand the engine the explicit bool, so
     # the report below cannot disagree with what the engine runs
     col_flag = {"auto": None, "on": True, "off": False}[args.col_compact]
@@ -162,7 +187,10 @@ def _build_common(args) -> dict:
 
     opt = make_optimizer("adamw", lr=cfg.lr)
     if masks is not None:
-        opt = masked(opt, {"layers": masks, "out": None})
+        # rewiring swaps masks at run time: the mask then lives in the
+        # optimizer state
+        opt = (masked_dynamic if rewiring else masked)(
+            opt, {"layers": masks, "out": None})
     if masks is not None and backend != "dense":
         slayout = ST.stacked_layout(cfg)
         colm = ST.stacked_col_mask(slayout, masks, device="cpu")
@@ -187,18 +215,31 @@ def build_online(args) -> dict:
     run["learner"] = make_learner(LearnerSpec(
         engine="stacked", cfg=run["cfg"], backend=args.rtrl_backend,
         capacity=args.capacity, col_compact=run["col_compact"],
-        influence_dtype=args.influence_dtype))
+        influence_dtype=args.influence_dtype,
+        rewirable=args.rewire != "off"))
     run["stream"] = make_stream(run["cfg"], args.seed)
     return run
 
 
 def online_trainers(args, run):
     """make_trainer(attempt) for `run_with_restart`: an OnlineTrainer on
-    the run's learner with fresh params, `--fail-at` armed on attempt 0
-    only."""
+    the run's learner with fresh params, the rewire schedule, the guard and
+    the fault plan of the flags; `--fail-at` and `--inject-corrupt-at`
+    armed on attempt 0 only (NaN inputs stay armed: a data fault lives in
+    the stream)."""
+    from repro_torch.runtime.guard import FaultPlan, GuardConfig
     from repro_torch.runtime.online import OnlineTrainer, OnlineTrainerConfig
+    from repro_torch.sparsity import RewireSchedule
     updates = min(args.steps, 12) if args.smoke else args.steps
     k = args.update_every
+    schedule = None
+    if args.rewire != "off":
+        schedule = RewireSchedule(
+            method=args.rewire, every_k=args.rewire_every,
+            frac=args.rewire_frac,
+            t_end=max(1, updates // args.rewire_every))
+    guard = GuardConfig(ring=args.guard_ring, policy=args.guard_policy) \
+        if args.guard else None
 
     def make_trainer(attempt=0):
         ocfg = OnlineTrainerConfig(
@@ -206,9 +247,18 @@ def online_trainers(args, run):
             ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
             fail_at_update=args.fail_at if attempt == 0 else -1,
             metrics_path=args.metrics, seed=args.seed)
+        plan = None
+        if args.inject_nan_at >= 0 or args.inject_corrupt_at >= 0:
+            plan = FaultPlan(nan_input_at=args.inject_nan_at,
+                             nan_input_len=args.inject_nan_len,
+                             corrupt_carry_at_update=(
+                                 args.inject_corrupt_at if attempt == 0
+                                 else -1))
         return OnlineTrainer(ocfg, run["learner"], run["opt"],
                              run["make_params"](), run["masks"],
-                             run["stream"], device=run["device"])
+                             run["stream"], device=run["device"],
+                             rewire_schedule=schedule, guard=guard,
+                             fault_plan=plan)
 
     return make_trainer
 
@@ -230,6 +280,15 @@ def train_egru_online(args) -> dict:
                "overflow": max((w.get("overflow", 0.0)
                                 for w in out["windows"]), default=0.0),
                "median_window_ms": _median_ms(out["windows"])}
+    if args.rewire != "off":
+        summary["rewire"] = args.rewire
+        summary["rewire_events"] = out["rewire_events"]
+    if "guard" in out:
+        g = out["guard"]
+        summary["guard"] = {"faults": g["faults"],
+                            "rollbacks": g["rollbacks"],
+                            "recovered": len(g["recoveries"]),
+                            "quarantined": len(g["quarantined"])}
     print(json.dumps(summary))
     out["summary"] = summary
     return out
@@ -357,9 +416,36 @@ def parse_args(argv=None):
                          "JSON lines")
     ap.add_argument("--layers", type=int, default=1,
                     help="stacked depth L (16 units a layer)")
-    # flags of later slices: accepted so that they fail with a clear error
-    ap.add_argument("--guard", action="store_true")
-    ap.add_argument("--rewire", default="off")
+    ap.add_argument("--rewire", choices=["off", "set", "rigl"],
+                    default="off",
+                    help="online dynamic sparsity: prune-and-regrow the "
+                         "masks at update boundaries with exact carry "
+                         "migration ('set' random regrowth, 'rigl' "
+                         "gradient-magnitude regrowth)")
+    ap.add_argument("--rewire-every", type=int, default=50,
+                    help="optimizer updates between rewire events")
+    ap.add_argument("--rewire-frac", type=float, default=0.3,
+                    help="initial rewired fraction of live weights per "
+                         "tensor (cosine-decayed to 0 over the run)")
+    ap.add_argument("--guard", action="store_true",
+                    help="online: the stream guard — health checks every "
+                         "update, rollback and replay from a snapshot ring "
+                         "under an escalating degradation policy")
+    ap.add_argument("--guard-ring", type=int, default=4,
+                    help="known-good snapshots retained for rollback")
+    ap.add_argument("--guard-policy", default="full",
+                    help="escalation ladder: a preset (full | strict | "
+                         "replay-only) or a comma-separated list from "
+                         "{replay, clip, skip_update, quarantine}")
+    ap.add_argument("--inject-nan-at", type=int, default=-1,
+                    help="fault injection (online): stream steps [S, S+len) "
+                         "read NaN inputs, on every attempt")
+    ap.add_argument("--inject-nan-len", type=int, default=1,
+                    help="length of the injected NaN input window")
+    ap.add_argument("--inject-corrupt-at", type=int, default=-1,
+                    help="fault injection (online): poison one influence "
+                         "element after this update commits")
+    # a flag of a later slice: accepted so that it fails with a clear error
     ap.add_argument("--metrics-dir", default=None)
     args = ap.parse_args(argv)
     if args.ckpt_dir is None:

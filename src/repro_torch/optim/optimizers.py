@@ -1,8 +1,8 @@
 """Optimizers as pure tree transforms on parameter dicts, in PyTorch.
 
-Counterpart of `repro.optim.optimizers` (adamw and the fixed-mask wrapper;
-lion, adafactor, sgdm and the dynamic mask are ROADMAP Queue 1 items 8 and
-14).  An :class:`Optimizer` is (init, update):
+Counterpart of `repro.optim.optimizers` (adamw, the fixed-mask wrapper
+and the dynamic one whose mask rewire events swap; lion, adafactor and sgdm
+are ROADMAP Queue 1 item 14).  An :class:`Optimizer` is (init, update):
 
     state            = opt.init(params)
     params', state'  = opt.update(grads, state, params, step)
@@ -90,6 +90,39 @@ def masked(opt: Optimizer, mask: Tree) -> Optimizer:
         return apply_mask_tree(mask, p_new), s_new
 
     return Optimizer(opt.init, update)
+
+
+def masked_dynamic(opt: Optimizer, mask0: Tree) -> Optimizer:
+    """`masked`, but the mask lives in the optimizer STATE instead of a
+    closure, so prune-and-regrow rewire events can swap it with
+    `set_opt_mask`.  State: ``{"inner": <wrapped state>, "mask": mask
+    tree}`` (the JAX package's layout, so checkpoints name its leaves
+    `opt__mask__layers__0__u__W`, ...)."""
+    def init(params):
+        return {"inner": opt.init(params), "mask": mask0}
+
+    def update(grads, state, params, step):
+        mk = state["mask"]
+        p_new, s_new = opt.update(apply_mask_tree(mk, grads),
+                                  state["inner"], params, step)
+        return apply_mask_tree(mk, p_new), {"inner": s_new, "mask": mk}
+
+    return Optimizer(init, update)
+
+
+def set_opt_mask(state: Tree, new_mask: Tree) -> Tree:
+    """Swap the mask of a `masked_dynamic` state after a rewire event and
+    zero the moments ('m'/'v') outside the new mask: pruned weights lose
+    their momentum, regrown weights start from zero moments, and pruned
+    optimizer state stays zero."""
+    if not (isinstance(state, dict) and "mask" in state):
+        raise ValueError("set_opt_mask expects a masked_dynamic state "
+                         "({'inner': ..., 'mask': ...})")
+    inner = dict(state["inner"])
+    for k in ("m", "v"):
+        if k in inner:
+            inner[k] = apply_mask_tree(new_mask, inner[k])
+    return {"inner": inner, "mask": new_mask}
 
 
 def make_optimizer(name: str, lr=None, **kw) -> Optimizer:

@@ -12,13 +12,17 @@ mid-stream to the same gradients, bit for bit on one device.
 
 The carry of a stacked learner holds per-layer tuples (`a`, `vals`, `idx`,
 `M`), checkpointed under the JAX package's leaf names (`carry__vals__0`,
-...).  Not ported yet: rewire (ROADMAP Queue 1 item 8), the stream guard and its
-fault plan (item 9), telemetry and the packed window metrics (item 11).
+...).  Rewire events (`rewire_schedule`, `repro_torch.sparsity`) fire at
+update boundaries; the stream guard (`guard`, `fault_plan`,
+`repro_torch.runtime.guard`) checks every window, rolls back and replays.
+Not ported yet: telemetry and the packed window metrics (ROADMAP Queue 1
+item 11).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import time
 from typing import Any, Callable
 
@@ -90,18 +94,38 @@ class OnlineTrainer:
     arrays, so a restarted worker replays its exact windows; each window is
     stacked on the host and copied to `device` once.
 
-    Learner state outside the carry (the column layout, the pallas
-    backend's block masks, the fused backend's gate segments) depends on
-    the masks only, never on the stream position: a restarted trainer built
-    on the same learner and masks rebuilds it as it was.
+    rewire_schedule (`repro_torch.sparsity.RewireSchedule`): prune-and-
+    regrow events at update boundaries through `learner.rewire` (the
+    learner must be built with ``LearnerSpec(rewirable=True)``, the
+    optimizer by `masked_dynamic`).  Event e's key is
+    `RewireSchedule.event_key(cfg.seed, e)`; the masks live in the carry
+    and the event counter in the checkpoint, so a restarted worker replays
+    the identical masks.
+
+    guard (`runtime.guard.GuardConfig`): health checks on every window, a
+    known-good snapshot ring, rollback and replay under an escalating
+    degradation policy.  fault_plan (`runtime.guard.FaultPlan`):
+    deterministic fault injection.
+
+    Learner state outside the carry depends on the masks only: the gate
+    segments of compact_fused (whose masks never change) and, on the other
+    backends, the column layout, column and J masks and K2's block masks.
+    A rewirable learner re-derives the latter from the carry's masks
+    whenever it is handed a carry it has not derived them from (after an
+    event, a resume or a rollback); a restarted trainer built on the same
+    learner and masks rebuilds the rest as it was.
     """
 
     def __init__(self, cfg: OnlineTrainerConfig, learner, opt, params: Tree,
                  masks: Tree | None, stream: Callable[[int], tuple], *,
-                 device: torch.device | str):
+                 device: torch.device | str, rewire_schedule=None,
+                 guard=None, fault_plan=None):
         self.cfg = cfg
         self.learner = learner
         self.opt = opt
+        self._fault_plan = fault_plan
+        if fault_plan is not None:
+            stream = fault_plan.wrap_stream(stream)
         self.stream = stream
         self.device = torch.device(device)
         x0, y0 = stream(0)
@@ -109,22 +133,47 @@ class OnlineTrainer:
         self.carry = learner.init(params, masks,
                                   (self._to(x0), self._to(y0)), t_total=tt)
         self.opt_state = opt.init(params)
+        if rewire_schedule is not None:
+            # fail at construction, not at the first event deep into a run
+            if "rw" not in self.carry:
+                raise ValueError(
+                    "rewire_schedule requires a rewirable learner — "
+                    "construct it with LearnerSpec(rewirable=True)")
+            if not (isinstance(self.opt_state, dict)
+                    and "mask" in self.opt_state):
+                # a closure-masked optimizer would keep stale moments at
+                # pruned positions and pin grown weights at 0
+                raise ValueError(
+                    "rewire_schedule requires a masked_dynamic optimizer "
+                    "(the mask must live in the optimizer state so rewire "
+                    "events can swap it) — see "
+                    "repro_torch.optim.optimizers.masked_dynamic")
         self.step = 0                     # stream position
         self.update = 0                   # optimizer updates applied
-        self.rewire_events = 0            # rewire is ROADMAP Queue 1 item 8
+        self.rewire_schedule = rewire_schedule
+        self.rewire_events = 0            # events fired (checkpointed)
         # the JAX package's RNG key data for `seed` ([0, seed]).  It is
         # checkpointed so that the leaf set is the JAX package's, and
         # carried unchanged: the JAX package folds it every update but
         # nothing in either package consumes it, so it is never folded here
         self.key = np.array([0, cfg.seed], dtype=np.uint32)
+        write_fault = (fault_plan.ckpt_write_fault
+                       if fault_plan is not None
+                       and fault_plan.fail_ckpt_writes > 0 else None)
         self.ckpt = (CheckpointManager(
             cfg.ckpt_dir or default_ckpt_dir("repro_torch_online_ckpt"),
-            keep=cfg.keep) if cfg.ckpt_every > 0 else None)
+            keep=cfg.keep,
+            retries=(guard.ckpt_retries if guard is not None else 0),
+            write_fault=write_fault) if cfg.ckpt_every > 0 else None)
         self.metrics: list[dict] = []     # every log_every-th window
         self.windows: list[dict] = []     # every window: metrics + wall ms
         self.stragglers = 0
         self._failed_once = False
         self._dt_ema: float | None = None
+        self.guard = None
+        if guard is not None:
+            from repro_torch.runtime.guard import StreamGuard
+            self.guard = StreamGuard(guard)
 
     def _to(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -160,6 +209,86 @@ class OnlineTrainer:
         self.rewire_events = int(tree["rewire_events"])
         self.key = tree["key"]
         return True
+
+    def _restore_snapshot(self, snap):
+        """Roll back to a StreamGuard ring snapshot, with tensors of its
+        own (the ring keeps its copy for a later rollback)."""
+        from repro_torch.runtime.guard import _own
+        tree = _own(snap.tree, device=self.device)
+        self.carry, self.opt_state = tree["carry"], tree["opt"]
+        self.step = snap.step
+        self.update = snap.update
+        self.rewire_events = snap.rewire_events
+        self.key = tree["key"]
+
+    # -- dynamic sparsity ---------------------------------------------------
+
+    def _maybe_rewire(self) -> dict:
+        """Fire a prune-and-regrow event if the schedule says so.  Returns
+        the metric entries of the log (empty when no event fired)."""
+        sch = self.rewire_schedule
+        if sch is None or not sch.fires(self.update):
+            return {}
+        from repro_torch.optim.optimizers import set_opt_mask
+        t0 = time.perf_counter()
+        ev = self.rewire_events
+        self.carry = self.learner.rewire(
+            self.carry, sch.event_key(self.cfg.seed, ev),
+            frac=sch.fraction(ev), method=sch.method, block=sch.block)
+        self.opt_state = set_opt_mask(self.opt_state,
+                                      self.learner.opt_mask_of(self.carry))
+        self.rewire_events = ev + 1
+        fp = self.carry_nbytes()
+        ms = round((time.perf_counter() - t0) * 1e3, 2)
+        return {"rewire_event": ev, "rewire_frac": round(sch.fraction(ev), 5),
+                "rewire_ms": ms, "carry_live_bytes": fp["live"]}
+
+    def carry_nbytes(self) -> dict:
+        """{'alloc', 'live', 'col_density'}: the carry's allocated bytes and
+        its LIVE footprint, each influence buffer priced at its live column
+        count (`costs.carry_footprint`), so that after rewire events it
+        reports the live width, not the allocation.  Stacked buffers are
+        priced per layer: layer l's buffer holds zeros in the columns of
+        layers j > l, so its live width is the <= l share of the shared
+        compact axis."""
+        from repro_torch.core.costs import carry_footprint
+        c = self.carry
+        total = carry_nbytes(c)
+        out = {"alloc": total, "live": total, "col_density": 1.0}
+        rw = c.get("rw")
+        if rw is None:
+            return out
+        if "cl" in rw:
+            live_v, layer_v = rw["cl"]["live"], rw["cl"]["layer"]
+            n_cols = live_v.shape[-1]
+            n_live = int(live_v.sum())
+            layer_live = lambda l: int((live_v * (layer_v <= l)).sum())
+        elif "colm" in rw:
+            n_cols, n_live = rw["colm"].shape[-1], int(rw["colm"].sum())
+            layer_live = lambda l: n_live
+        elif "colms" in rw:
+            colms = rw["colms"]
+            n_cols, n_live = colms[-1].shape[-1], int(colms[-1].sum())
+            layer_live = lambda l: int(colms[l].sum())
+        else:
+            return out
+        bufs = []                                    # (buffer, layer-or-None)
+        for k in ("vals", "M"):
+            src = c.get(k)
+            if src is None:
+                continue
+            bufs += ([(b, l) for l, b in enumerate(src)]
+                     if isinstance(src, tuple) else [(src, None)])
+        live_total = total
+        for b, l in bufs:
+            if isinstance(b, torch.Tensor) and b.shape[-1] == n_cols:
+                rows = b.numel() // n_cols
+                nl = n_live if l is None else layer_live(l)
+                fp = carry_footprint(1, rows, n_cols, nl)
+                live_total += fp["live_bytes"] - fp["alloc_bytes"]
+        out["live"] = live_total
+        out["col_density"] = n_live / n_cols
+        return out
 
     def row_stats(self) -> dict | None:
         """Per-example active-row stats of a compact influence carry, or
@@ -198,40 +327,97 @@ class OnlineTrainer:
             self.stragglers += 1
         self._dt_ema = 0.9 * self._dt_ema + 0.1 * dt
 
-    def run(self) -> dict:
-        cfg = self.cfg
-        while self.step < cfg.total_steps:
-            if self.update == cfg.fail_at_update and not self._failed_once:
-                self._failed_once = True
-                if self.ckpt is not None:
-                    # land the pending write first, so that the restart
-                    # resumes from it and replays the same windows on every
-                    # run; a real crash can lose that write, and
-                    # valid_steps covers that
-                    self.ckpt.wait()
-                raise InjectedFailure(
-                    f"injected failure at update {self.update} "
-                    f"(stream step {self.step})")
-            k = min(cfg.update_every, cfg.total_steps - self.step)
-            start = self.step
-            t0 = time.perf_counter()
-            xs, ys = self._gather(start, k)
+    def _execute_window(self, start: int, k: int):
+        """Execute one update window under the guard's pending degradation,
+        if any.  Returns (ok, host metrics, guard record); ok=False means
+        the window faulted and the trainer was rolled back — the loop then
+        re-executes it (a deterministic replay) one rung up the ladder.
+        Every path reads the window's scalars back once."""
+        from repro_torch.runtime import guard as G
+        g = self.guard
+        action = None if g is None else g.pending_action(start)
+        if action == "quarantine":
+            # persistent data fault: drop the window's inputs; carry,
+            # params and optimizer are untouched, the stream skips past it
+            g.note_quarantine(start, k, self.update)
+            return True, {}, {"guard_action": action}
+        xs, ys = self._gather(start, k)
+        if g is None:
             self.carry, self.opt_state, m = online_update_chunk(
                 self.learner, self.opt, self.carry, self.opt_state, xs, ys,
                 self.update)
-            # THE window readback: blocks until the device finished the window
-            m = scalar_metrics(m)
+            # THE window readback: blocks until the device finished it
+            return True, scalar_metrics(m), {}
+        if action == "skip_update":
+            carry, m = G.advance_chunk(self.learner, self.carry, xs, ys)
+            opt_state = self.opt_state
+        else:
+            # 'clip' degrades; clip=+inf is exactly factor 1.0, so the
+            # healthy path stays bit-identical to the unguarded chunk
+            clip = g.cfg.clip_norm if action == "clip" else math.inf
+            carry, opt_state, m = G.guarded_update_chunk(
+                self.learner, self.opt, self.carry, self.opt_state, xs, ys,
+                self.update, clip)
+        m.pop("verdict")
+        m = scalar_metrics(m)
+        fault = g.check(m, self.update)
+        if fault is not None:
+            g.on_fault(self, fault)
+            return False, None, None
+        self.carry, self.opt_state = carry, opt_state
+        m.pop("health")
+        return True, m, ({"guard_action": action} if action else {})
+
+    def _maybe_crash(self):
+        """The injected failures: `fail_at_update` and the fault plan's
+        crash.  Each lands the pending checkpoint write first, so that the
+        restart resumes from it and replays the same windows on every run;
+        a real crash can lose that write, and valid_steps covers that."""
+        try:
+            if self.update == self.cfg.fail_at_update \
+                    and not self._failed_once:
+                self._failed_once = True
+                raise InjectedFailure(
+                    f"injected failure at update {self.update} "
+                    f"(stream step {self.step})")
+            if self._fault_plan is not None:
+                self._fault_plan.maybe_crash(self.update)
+        except InjectedFailure:
+            if self.ckpt is not None:
+                self.ckpt.wait()
+            raise
+
+    def run(self) -> dict:
+        cfg = self.cfg
+        if self.guard is not None and not self.guard.ring:
+            self.guard.push(self)         # initial known-good restore point
+        while self.step < cfg.total_steps:
+            self._maybe_crash()
+            k = min(cfg.update_every, cfg.total_steps - self.step)
+            start = self.step
+            t0 = time.perf_counter()
+            ok, m, guard_rec = self._execute_window(start, k)
+            if not ok:
+                continue                  # rolled back; the window replays
             dt = time.perf_counter() - t0
             self._watch_straggler(dt)
             self.step = start + k
             self.update += 1
-            self.windows.append({"update": self.update, "ms": dt * 1e3, **m})
+            self.windows.append({"update": self.update, "ms": dt * 1e3, **m,
+                                 **guard_rec})
+            rewire_rec = self._maybe_rewire()
+            if self.guard is not None:
+                # commit AFTER rewire, so that snapshots carry the
+                # post-event masks and the matching event counter
+                self.guard.commit(self, start)
+            if self._fault_plan is not None:
+                self._fault_plan.maybe_corrupt(self)
             if self.ckpt is not None and self.update % cfg.ckpt_every == 0:
                 self.save()
-            if (self.update % cfg.log_every == 0
+            if (rewire_rec or guard_rec or self.update % cfg.log_every == 0
                     or self.step >= cfg.total_steps):
                 rec = {"update": self.update, "step": self.step,
-                       "dt_s": round(dt, 4), **m}
+                       "dt_s": round(dt, 4), **rewire_rec, **guard_rec, **m}
                 self.metrics.append(rec)
                 if cfg.metrics_path:
                     with open(cfg.metrics_path, "a") as f:
@@ -239,15 +425,16 @@ class OnlineTrainer:
         self.save()
         if self.ckpt is not None:
             self.ckpt.wait()
-        nbytes = carry_nbytes(self.carry)
+        fp = self.carry_nbytes()
         out = {"final_step": self.step, "updates": self.update,
                "metrics": self.metrics, "rewire_events": self.rewire_events,
-               # every influence column is live until rewire exists
-               "carry_bytes": nbytes, "carry_live_bytes": nbytes,
+               "carry_bytes": fp["alloc"], "carry_live_bytes": fp["live"],
                "stragglers": self.stragglers, "windows": self.windows}
         rs = self.row_stats()
         if rs is not None:
             out["row_stats"] = rs
+        if self.guard is not None:
+            out["guard"] = self.guard.report()
         return out
 
 

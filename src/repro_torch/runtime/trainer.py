@@ -58,12 +58,16 @@ class TrainerConfig:
 
 def scalar_metrics(m: dict) -> dict:
     """Metrics -> host floats, a non-scalar one mean-reduced: the step's
-    readback, which waits for the device."""
-    out = {}
+    readback, which waits for the device.  The tensors are stacked and read
+    back at once: one device sync, whatever the number of metrics."""
+    out = dict.fromkeys(m)
+    tensors = {k: (v if v.numel() == 1 else v.float().mean()).reshape(())
+               for k, v in m.items() if isinstance(v, torch.Tensor)}
+    if tensors:
+        vals = torch.stack([v.float() for v in tensors.values()]).tolist()
+        out.update(zip(tensors, vals))
     for k, v in m.items():
-        if isinstance(v, torch.Tensor):
-            out[k] = float(v if v.numel() == 1 else v.float().mean())
-        else:
+        if not isinstance(v, torch.Tensor):
             out[k] = float(np.mean(v))
     return out
 

@@ -729,3 +729,109 @@ def test_stacked_first_window_on_cuda_matches_cpu(cuda, backend):
     for a, b in zip(gg, gc):
         scale = max(float(b.abs().max()), 1e-3)
         assert float((a.cpu() - b).abs().max()) <= F32_REL * scale
+
+
+def _rewired_pallas_run(device, *extra):
+    """The launcher's rewired pallas run (`--rewire rigl`) on `device`: its
+    carry and optimizer state after one window and event 0, and the next
+    window's inputs."""
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.optim.optimizers import set_opt_mask
+    from repro_torch.runtime import online as ON
+    from repro_torch.sparsity import RewireSchedule
+    run = TRAIN.build_online(TRAIN.parse_args(
+        ["--arch", "egru-spiral", "--online", "--rtrl-backend", "pallas",
+         "--sparsity", "0.8", "--rewire", "rigl", "--device", device,
+         *extra]))
+    learner, opt = run["learner"], run["opt"]
+    xs, ys = zip(*(run["stream"](t) for t in range(16)))
+    xs = torch.from_numpy(np.stack(xs)).to(run["device"])
+    ys = torch.from_numpy(np.stack(ys)).to(run["device"])
+    carry = learner.init(run["params"], run["masks"], (xs[0], ys[0]), 8.0)
+    carry, opt_state, _ = ON.online_update_chunk(
+        learner, opt, carry, opt.init(run["params"]), xs[:8], ys[:8], 0)
+    carry = learner.rewire(carry, RewireSchedule.event_key(0, 0), frac=0.3)
+    opt_state = set_opt_mask(opt_state, learner.opt_mask_of(carry))
+    return run, carry, opt_state, xs[8:], ys[8:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col", ["on", "off"])
+def test_influence_kernel_after_rewire_event(cuda, col):
+    """K2 at the first step after a RigL event: the learner's rebuilt
+    constant block masks equal those of the new masks, the kernel agrees
+    with its plain version, and its executed-block counter equals
+    realized_block_savings of the new masks times the block count."""
+    from repro_torch.core import cells as Cc, sparse_rtrl as SP
+    run, carry, _, xs, _ = _rewired_pallas_run("cuda", "--col-compact", col)
+    inner = run["learner"].inner
+    assert inner._bound is carry["rw"]
+    hp, J, M, Mbar, jmask, colm = SP.pallas_step_operands(
+        inner.cfg, Cc.rec_param_tree(carry["params"]), inner.layout,
+        carry["a"], carry["M"], xs[0], cl=inner._cl, col_mask=inner._colm,
+        jmask=inner._jm)[2]
+    assert torch.equal(jmask, SP.flat_jmask(inner.cfg, carry["rw"]["masks"]))
+    ops = OPS.influence_operands(hp, J, M, Mbar, block_masks=inner._kmasks)
+    fresh = OPS.influence_operands(hp, J, M, Mbar, jmask, colm)
+    for a, b in zip(ops, fresh):
+        assert torch.equal(a, b)
+    masks = dict(row_mask=ops[4], prev_mask=ops[5], col_mask=ops[6],
+                 jmask=ops[7])
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    out = IN.influence_update(*ops[:4], **masks, block_count=count)
+    ref = IN.influence_reference(*ops[:4], **masks)
+    assert float((out - ref).abs().max()) <= F32_REL * max(
+        float(ref.abs().max()), 1.0)
+    total = ops[2].shape[0] * ops[4].shape[1] * ops[5].shape[1] * \
+        ops[6].shape[0]
+    assert int(count) == round(OPS.realized_block_savings(hp, M, jmask, colm)
+                               * total)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers", ["1", "2"])
+def test_rewired_pallas_window_matches_restart_oracle(cuda, layers):
+    """A window after event 0 on the card, K2 launched once a layer a step:
+    loss and gradients within F32_REL of the dense restart oracle's."""
+    from repro_torch.runtime import online as ON
+    from repro_torch.sparsity.migrate import restart_oracle
+    from repro_torch.tree import tree_leaves
+    run, carry, _, xs, ys = _rewired_pallas_run("cuda", "--layers", layers)
+    oracle, oc = restart_oracle(run["learner"], carry)
+    before = _launches()
+    _, loss, grads, _ = ON.stream_grads(run["learner"], carry, xs, ys)
+    assert _launches()[1] - before[1] == 8 * int(layers)
+    _, oloss, ograds, _ = ON.stream_grads(oracle, oc, xs, ys)
+    assert float(loss) == pytest.approx(float(oloss), rel=F32_REL)
+    for a, b in zip(tree_leaves(grads), tree_leaves(ograds)):
+        scale = max(float(b.abs().max()), 1e-3)
+        assert float((a - b).abs().max()) <= F32_REL * scale
+
+
+@pytest.mark.cuda
+def test_guarded_compact_fused_window_bitwise_on_cuda(cuda):
+    """The guarded chunk with clip = inf on the card: K1 launched 8 times,
+    health 0, and the carry, optimizer state and loss bitwise the
+    unguarded chunk's."""
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.runtime import guard as G, online as ON
+    from repro_torch.tree import tree_leaves
+    run = TRAIN.build_online(TRAIN.parse_args(
+        ["--arch", "egru-spiral", "--online", "--rtrl-backend",
+         "compact_fused", "--sparsity", "0.8"]))
+    learner, opt = run["learner"], run["opt"]
+    xs, ys = zip(*(run["stream"](t) for t in range(8)))
+    xs = torch.from_numpy(np.stack(xs)).to(cuda)
+    ys = torch.from_numpy(np.stack(ys)).to(cuda)
+    carry = learner.init(run["params"], run["masks"], (xs[0], ys[0]), 8.0)
+    state = opt.init(run["params"])
+    c_a, o_a, m_a = ON.online_update_chunk(learner, opt, carry, state, xs,
+                                           ys, 0)
+    before = _launches()
+    c_b, o_b, m_b = G.guarded_update_chunk(learner, opt, carry, state, xs,
+                                           ys, 0, float("inf"))
+    assert _launches()[0] - before[0] == 8
+    assert int(m_b["health"]) == 0
+    assert torch.equal(m_a["loss"], m_b["loss"])
+    for a, b in zip(tree_leaves((c_a, o_a)), tree_leaves((c_b, o_b))):
+        assert torch.equal(a, b)

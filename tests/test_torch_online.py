@@ -160,9 +160,11 @@ def test_unported_engines_and_backends_raise():
             make_learner(LearnerSpec(engine="sparse", cfg=cfg,
                                      backend=backend,
                                      influence_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # rewire is ported on every backend but the fused one (the reference's
+    # refusal: its gate segments are built from the init-time layout)
+    with pytest.raises(ValueError, match="rewirable=True"):
         make_learner(LearnerSpec(engine="sparse", cfg=cfg,
-                                 backend="compact", rewirable=True))
+                                 backend="compact_fused", rewirable=True))
     with pytest.raises(ValueError):
         make_learner(LearnerSpec(engine="nope", cfg=cfg))
     fused = make_learner(LearnerSpec(engine="sparse", cfg=cfg,
@@ -305,8 +307,12 @@ def test_launcher_raises_without_cuda_unless_cpu_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--guard"], ["--rewire", "rigl"], ["--metrics-dir", "m"],
-    ["--rewire", "set", "--rtrl-backend", "dense"],
+    # --guard and --rewire are ported: beside a later slice's flag they
+    # still meet its refusal first
+    ["--guard", "--metrics-dir", "m"],
+    ["--rewire", "rigl", "--sparsity", "0.8", "--metrics-dir", "m"],
+    ["--metrics-dir", "m"],
+    ["--rewire", "set", "--rtrl-backend", "dense", "--arch", "yi-6b"],
     ["--arch", "yi-6b"]])
 def test_launcher_rejects_later_slices(extra):
     with pytest.raises(SystemExit, match="not ported yet"):

@@ -21,8 +21,8 @@ EXPECTED = {
     "kernels.event_matmul", "kernels.influence", "kernels.ops", "kernels.ref",
     "kernels.wkv", "launch.serve", "launch.train", "models", "models.layers",
     "models.module", "models.rwkv", "models.transformer", "optim.optimizers",
-    "runtime.online", "runtime.serving", "runtime.trainer", "tree",
-    "weights",
+    "runtime.guard", "runtime.online", "runtime.serving", "runtime.trainer",
+    "sparsity", "sparsity.migrate", "sparsity.schedule", "tree", "weights",
 }
 
 

@@ -455,9 +455,9 @@ def test_stacked_learner_refusals():
             make_learner(LearnerSpec(engine="stacked", cfg=cfg,
                                      backend=backend,
                                      influence_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="rewirable=True"):
         make_learner(LearnerSpec(engine="stacked", cfg=cfg,
-                                 backend="compact", rewirable=True))
+                                 backend="compact_fused", rewirable=True))
     with pytest.raises(ValueError, match="backend"):
         make_learner(LearnerSpec(engine="stacked", cfg=cfg, backend="nope"))
     fused = make_learner(LearnerSpec(engine="stacked", cfg=cfg,
