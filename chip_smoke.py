@@ -87,7 +87,9 @@ checkout, it exits non-zero and prints no result.  Phases:
      before and read after — `models.rwkv.prefill` of 4 prompts x 2048
      tokens (K4 launches = 32, finite logits), 16 greedy `decode_step`s from
      its cache, and `repro_torch.launch.serve.main(["--arch", "rwkv6-3b",
-     "--requests", "6", "--max-new", "12"])` (every request completes);
+     "--requests", "6", "--max-new", "12", "--metrics-dir", D4])` (every
+     request completes; (t4): D4 clean under the validator, its manifest's
+     tokens the summary's);
      then prefill tokens/s, decode ms a step, profiler traces of a prefill
      and a decode step; every layer's bf16 time-mix output with the kernel
      and with the plain WKV on the same layer input, within 5 % of its
@@ -154,10 +156,33 @@ checkout, it exits non-zero and prints no result.  Phases:
      push, carry_live_bytes before and after the events, and K2 (at event
      0's operands) and K1 (on (g2)'s replayed carry) against their plain
      versions and timed;
- 10. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
+ 10. the telemetry plane (`repro_torch.obs`), every run with the counts
+     set to 0 just before and read just after, its metrics directories
+     under a temporary root that is removed at the end: (t1) the main path
+     with compact_fused and `--metrics-dir D --trace` against the same run
+     without: K1 160 in both, every window's loss and the final params
+     bitwise, `repro_torch.obs.validate` clean, 20 `window` events with
+     every packed field of the engine, 20 `window` spans in trace.json;
+     (t2) the same with pallas and `--rewire rigl --rewire-every 2`: K2
+     160, 10 `rewire` events, `live_col_frac` finite (and the event's
+     column density) after every event; (t3) `--guard --inject-corrupt-at
+     6 --metrics-dir`: one fault, one rollback, one recovery, the registry
+     counters equal to report(), K1 168, losses and final params bitwise
+     phase 9's (g2); (t4), in phase 7: `launch.serve --metrics-dir` clean
+     under the validator; (c) the costs: the median window with and
+     without telemetry, 12 runs each in turn, the device ops a stream step
+     the pack adds and the device-to-host copies a window (traces), the K1
+     launches in each `window` record_function span of the profiler trace,
+     the peak bytes, ms and device ops of the guard's health check and
+     clip norm, concatenating (as before the multi-tensor check) and
+     multi-tensor, on the main path's carry and on a dense n=256 carry
+     [4, 256, 20864] f32, and the guarded main path's device ops a stream
+     step and median window with each form;
+ 11. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
      K1's and K2's with a "stacked" entry for phase 8's path, K1's with a
-     "guard" and K2's with a "rewire" entry for phase 9's, then the result
-     line {"ok": true, "device": {...}}.
+     "guard" and K2's with a "rewire" entry for phase 9's, both with a
+     "telemetry" entry for phase 10's, then the result line {"ok": true,
+     "device": {...}}.
 
 Tolerances: a float32 kernel result is within 1e-5 of the largest
 magnitude of the plain version's (the sums associate differently); a bf16
@@ -701,16 +726,27 @@ def compare_grads(a, b, label, what="first-window gradients"):
     log(f"{what} {label}: max rel err {worst:.3e}")
 
 
+# the telemetry plane's spans (repro_torch.obs, record_function names)
+SPAN_NAMES = ("window", "rewire", "rollback_replay", "ckpt_write")
+# phase 10 (c): runs of the main path each, bare and with --metrics-dir,
+# taken in turn with the order flipped every round
+TELEMETRY_ROUNDS = 12
+
+
 def trace_main_path(torch, TRAIN, ON, backend, kernel, *extra, warm=2,
-                    traced=2, k=8):
+                    traced=2, k=8, telemetry=None):
     """Where a main-path window's time goes: a torch.profiler trace of
     `traced` windows after `warm` untraced ones, in a run of its own (the
     window times come from the untraced run).  Reports device kernels per
     stream step, the device's busy and idle share of the traced wall time,
     the port kernel's device time per launch and the kernels that take the
     most time.  With `--guard` in `extra` the trainer runs the stream
-    guard.  Returns {"ops_per_step", "busy_us", "wall_us"} (None where the
-    profiler recorded no device event)."""
+    guard; `telemetry` (a repro_torch.obs.Telemetry) instruments it.
+    Returns {"ops_per_step", "busy_us", "wall_us", "dtoh" (device-to-host
+    copies in the traced run, its end included), "window_kernels" and
+    "window_dtoh" (the port kernel's launches and the device-to-host
+    copies inside each `window` record_function span; [] without spans)}
+    (None where the profiler recorded no device event)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.guard import GuardConfig
@@ -720,7 +756,7 @@ def trace_main_path(torch, TRAIN, ON, backend, kernel, *extra, warm=2,
         ON.OnlineTrainerConfig(total_steps=warm * k, update_every=k),
         run["learner"], run["opt"], run["params"], run["masks"],
         run["stream"], device=run["device"],
-        guard=GuardConfig() if args.guard else None)
+        guard=GuardConfig() if args.guard else None, telemetry=telemetry)
     tr.run()
     tr.cfg.total_steps = (warm + traced) * k
     torch.cuda.synchronize()
@@ -730,7 +766,10 @@ def trace_main_path(torch, TRAIN, ON, backend, kernel, *extra, warm=2,
         tr.run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # a record_function span also shows on the device timeline (as a user
+    # annotation): not an op
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and e.name not in SPAN_NAMES]
     if not dev:
         log("trace: the profiler recorded no device events: device busy "
             "share not measured")
@@ -755,8 +794,18 @@ def trace_main_path(torch, TRAIN, ON, backend, kernel, *extra, warm=2,
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     for n, (tot, cnt) in top:
         log(f"  {tot / steps:8.2f} us/step  x{cnt / steps:5.1f}/step  {n[:90]}")
+    spans = [e.time_range for e in prof.events()
+             if e.device_type != DeviceType.CUDA and e.name == "window"]
+
+    def in_spans(match):
+        starts = [e.time_range.start for e in dev if match in e.name]
+        return len(starts), [sum(1 for t in starts if w.start <= t <= w.end)
+                             for w in spans]
+
+    dtoh, window_dtoh = in_spans("DtoH")
     return {"ops_per_step": len(dev) / steps, "busy_us": busy,
-            "wall_us": wall_us}
+            "wall_us": wall_us, "dtoh": dtoh, "window_dtoh": window_dtoh,
+            "window_kernels": in_spans(kernel)[1]}
 
 # ---------------------------------------------------------------------------
 # phase 5: checkpoint, restart and the offline path
@@ -1460,7 +1509,8 @@ def bitwise(torch, a, b):
 def dynamic_phase(torch, TRAIN, ON, CKP, SP, ST, CF, CK, IN, OPS):
     """(d1)-(d4) dynamic sparsity and (g1)-(g4) the stream guard on the
     card, then (c) their costs.  Returns the "rewire" entry of K2's record
-    and the "guard" entry of K1's, for the kernels line."""
+    and the "guard" entry of K1's, for the kernels line, and (g2)'s result
+    and trainer (phase 10 holds its instrumented run against them)."""
     import shutil
     import tempfile
     import numpy as np
@@ -1679,7 +1729,459 @@ def dynamic_phase(torch, TRAIN, ON, CKP, SP, ST, CF, CK, IN, OPS):
         "max_abs_err": err_k1, "ms": t_k1["ms"], "plain_ms": t_k1["plain_ms"],
         "bound_ms": t_k1["bound_ms"], "bound_by": t_k1["bound_by"],
         "library_ms": t_k1["library_ms"]}
-    return rewire_entry, guard_entry
+    return rewire_entry, guard_entry, (g2, t2)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the telemetry plane
+# ---------------------------------------------------------------------------
+
+# the packed fields a window event carries on each path (the rest pack NaN
+# there and are dropped): K1's compact carry has K_b and overflow, K2's
+# rewirable carry the live column fraction
+K1_FIELDS = ("loss", "grad_norm", "act_sparsity", "bwd_sparsity", "overflow",
+             "kb_min", "kb_mean", "kb_max", "clip_factor", "health")
+K2_REWIRE_FIELDS = ("loss", "grad_norm", "act_sparsity", "bwd_sparsity",
+                    "live_col_frac", "clip_factor", "health")
+
+
+def validated_dir(d, label):
+    """`python -m repro_torch.obs.validate d` (its main, in process) must
+    pass; returns the manifest."""
+    from repro_torch.obs import validate as VAL
+    check(VAL.main([str(d)]) == 0,
+          f"{label}: {d} fails the validator: {VAL.validate_dir(d)}")
+    return json.loads((Path(d) / "manifest.json").read_text())
+
+
+def window_events(d):
+    from repro_torch.obs import read_events
+    evs = read_events(Path(d) / "events.jsonl")
+    return evs, [e for e in evs if e["kind"] == "window"]
+
+
+def check_window_fields(wins, fields, label):
+    for w in wins:
+        have = {f for f in fields if isinstance(w.get(f), (int, float))}
+        check(have == set(fields), f"{label}: window {w.get('update')} "
+                                   f"lacks {sorted(set(fields) - have)}")
+        check(all(math.isfinite(w[f]) for f in fields),
+              f"{label}: non-finite field in window {w}")
+
+
+def concat_health_and_norm(torch):
+    """The guard's health check and clip norm in the concatenating form
+    they had before the multi-tensor check (every floating leaf flattened
+    and concatenated, one tensor a dtype), kept here only to measure the
+    multi-tensor form against."""
+    from repro_torch.runtime import guard as G
+    from repro_torch.tree import tree_leaves
+
+    def flat_by_dtype(tree):
+        groups = {}
+        for x in tree_leaves(tree):
+            if isinstance(x, torch.Tensor) and x.is_floating_point():
+                groups.setdefault(x.dtype, []).append(x.reshape(-1))
+        return [torch.cat(xs) for xs in groups.values()]
+
+    def nonfinite(tree):
+        flags = [~torch.isfinite(x).all() for x in flat_by_dtype(tree)]
+        if not flags:
+            return torch.tensor(False)
+        return flags[0] if len(flags) == 1 else torch.stack(flags).any()
+
+    def health_bits(loss, grads, carry):
+        loss = torch.as_tensor(loss)
+        bits = (~torch.isfinite(loss)).int() * G.HEALTH_LOSS
+        bits = bits + nonfinite(grads).to(loss.device).int() * G.HEALTH_GRADS
+        return bits + nonfinite(carry).to(loss.device).int() * G.HEALTH_CARRY
+
+    def norm(tree):
+        return torch.cat([x.float() for x in flat_by_dtype(tree)]) \
+            .square().sum().sqrt()
+
+    return health_bits, norm
+
+
+@contextlib.contextmanager
+def concat_guard_checks(torch):
+    """The guard runs the concatenating health check and clip norm inside
+    the block."""
+    from repro_torch.runtime import guard as G
+    saved = G.health_bits, G.global_norm
+    G.health_bits, G.global_norm = concat_health_and_norm(torch)
+    try:
+        yield
+    finally:
+        G.health_bits, G.global_norm = saved
+
+
+def device_ops(torch, fn, calls=5):
+    """Device ops (kernels, copies, fills) per call of fn, torch.profiler
+    over `calls` calls; None where the profiler records no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n / calls if n else None
+
+
+def peak_and_ms(torch, fn, iters=20):
+    """Bytes the call allocates at its peak beyond what was allocated
+    before it (torch.cuda.max_memory_allocated), and its mean ms."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return peak, time_ms(torch, fn, iters)
+
+
+def guard_check_costs(torch, carry):
+    """(c): the peak bytes, ms and device ops of one health check (of the
+    tree as a carry) and one norm, concatenating ("before") and
+    multi-tensor ("after"), on the main path's carry and on a dense
+    n = 256 carry [4, 256, 20864] f32."""
+    from repro_torch.obs.metricpack import global_norm
+    from repro_torch.runtime import guard as G
+    from repro_torch.tree import tree_leaves
+    old_health, old_norm = concat_health_and_norm(torch)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dense = {"M": torch.randn(4, 256, 20864, device="cuda", generator=g),
+             "a": torch.randn(4, 256, device="cuda", generator=g)}
+    loss = torch.zeros((), device="cuda")
+    out = {}
+    for label, tree in (("main path carry", carry),
+                        ("dense n=256 carry", dense)):
+        floats = [x for x in tree_leaves(tree)
+                  if isinstance(x, torch.Tensor) and x.is_floating_point()]
+        nbytes = sum(x.numel() * x.element_size() for x in floats)
+        row = {"tree_bytes": nbytes}
+        for name, fn in (
+                ("check before", lambda: old_health(loss, {}, tree)),
+                ("check after", lambda: G.health_bits(loss, {}, tree)),
+                ("norm before", lambda: old_norm(floats)),
+                ("norm after", lambda: global_norm(floats))):
+            row[name] = [*peak_and_ms(torch, fn), device_ops(torch, fn)]
+        check(int(old_health(loss, {}, tree))
+              == int(G.health_bits(loss, {}, tree)),
+              f"(c) {label}: the verdicts differ")
+        log(f"(c) guard checks, {label} ({nbytes} bytes of floating "
+            "leaves): " + ", ".join(
+                f"{k} {v[0]} B peak {v[1]:.4f} ms {v[2]} device ops"
+                for k, v in row.items() if k != "tree_bytes"))
+        out[label] = row
+    del dense
+    torch.cuda.empty_cache()
+    return out
+
+
+def guarded_window_costs(torch, TRAIN, ON, base, rounds=6):
+    """(c): the guarded main path with the concatenating checks ("before")
+    and the multi-tensor ones ("after"): device ops a stream step from a
+    trace of each, and the median window of `rounds` runs each, in turn
+    with the order flipped every round."""
+    tr = {}
+    with concat_guard_checks(torch):
+        tr["before"] = trace_main_path(torch, TRAIN, ON, "compact_fused",
+                                       "fused_update_kernel", "--guard")
+    tr["after"] = trace_main_path(torch, TRAIN, ON, "compact_fused",
+                                  "fused_update_kernel", "--guard")
+    alt = {"before": [], "after": []}
+    for i in range(rounds):
+        for name in (("before", "after") if i % 2 == 0
+                     else ("after", "before")):
+            ctx = (concat_guard_checks(torch) if name == "before"
+                   else contextlib.nullcontext())
+            with ctx:
+                out = TRAIN.main([*base, "--guard"])
+            alt[name].append(out["summary"]["median_window_ms"])
+    got = {k: {"median_window_ms": alt[k],
+               "ops_per_step": tr[k] and tr[k]["ops_per_step"]}
+           for k in alt}
+    log(f"(c) guarded main path, concatenating checks (before) against "
+        f"multi-tensor (after): device ops a stream step "
+        f"{got['before']['ops_per_step']} / {got['after']['ops_per_step']}; "
+        f"median window of {rounds} runs each in turn "
+        f"{statistics.median(alt['before']):.3f} / "
+        f"{statistics.median(alt['after']):.3f} ms (runs before "
+        f"{[round(v, 3) for v in alt['before']]}, after "
+        f"{[round(v, 3) for v in alt['after']]})")
+    return got
+
+
+def pack_host_costs(torch, TRAIN, ON, root):
+    """(c): host µs of the window's metric paths on a real compact_fused
+    window on the card — the pack's device ops issued (`pack`), the bare
+    metrics' reductions, the readback of each (`unpack`, `scalar_metrics`,
+    each waiting for the device) and `record_window` with its event
+    write."""
+    from repro_torch.obs import MetricPack, Telemetry
+    from repro_torch.runtime.trainer import scalar_metrics
+    run = TRAIN.build_online(TRAIN.parse_args(main_argv("compact_fused")))
+    xs, ys = stream_window(torch, run, 8)
+    carry = run["learner"].init(run["params"], run["masks"], (xs[0], ys[0]),
+                                t_total=8.0)
+    carry, loss, grads, stats = ON.stream_grads(run["learner"], carry, xs, ys)
+    pack = MetricPack.default()
+    env = {"loss": loss, "grads": grads, "stats": stats, "carry": carry}
+
+    def bare_metrics():
+        m = {"loss": loss, "alpha": stats["alpha"].mean(),
+             "beta": stats["beta"].mean(),
+             "overflow": stats["overflow"].max()}
+        return m
+
+    vec, m = pack.pack(env), bare_metrics()
+    obs = Telemetry.create(root / "host")
+    pk = pack.unpack(vec)
+    got = {"pack": host_us(torch, lambda: pack.pack(env), iters=500),
+           "bare metrics": host_us(torch, bare_metrics, iters=500),
+           "unpack": host_us(torch, lambda: pack.unpack(vec), iters=500),
+           "scalar_metrics": host_us(torch, lambda: scalar_metrics(m),
+                                     iters=500),
+           "record_window": host_us(torch, lambda: obs.record_window(
+               1, 8, 1.0, packed=pk), iters=500)}
+    obs.finalize()
+    log("(c) host us a call (the device drained before each batch): " +
+        ", ".join(f"{k} {v:.1f}" for k, v in got.items()))
+    return got
+
+
+def pack_window_ab(torch, TRAIN, ON, root, Telemetry, windows=80):
+    """(c): the pack's cost inside the timed window, free of the host's
+    drift between runs: one instrumented compact_fused trainer whose
+    windows take the packed path and the bare one in turn (the order
+    flipped every pair; the pack only observes, so the run is the same
+    either way).  Returns the window ms of each path."""
+    import types
+    run = TRAIN.build_online(TRAIN.parse_args(main_argv("compact_fused")))
+    obs = Telemetry.create(root / "ab")
+    tr = ON.OnlineTrainer(
+        ON.OnlineTrainerConfig(total_steps=windows * 8, update_every=8),
+        run["learner"], run["opt"], run["params"], run["masks"],
+        run["stream"], device=run["device"], telemetry=obs)
+    pack, execute = tr._pack, tr._execute_window
+
+    def toggled(self, start, k):
+        pair, second = divmod(self.update, 2)
+        self._pack = pack if (pair + second) % 2 else None
+        return execute(start, k)
+
+    tr._execute_window = types.MethodType(toggled, tr)
+    tr.run()
+    obs.finalize()
+    ms = {"bare": [], "packed": []}
+    for w in tr.windows[2:]:                 # the first pair warms up
+        u = w["update"] - 1
+        ms["packed" if (u // 2 + u % 2) % 2 else "bare"].append(w["ms"])
+    diff = [p - b for b, p in zip(ms["bare"], ms["packed"])]
+    log(f"(c) packed and bare windows in turn in one instrumented run "
+        f"({len(diff)} pairs): median {statistics.median(ms['bare']):.3f} / "
+        f"{statistics.median(ms['packed']):.3f} ms; packed minus bare "
+        f"within each pair: median {statistics.median(diff):.3f} ms, "
+        f"quartiles {[round(v, 3) for v in statistics.quantiles(diff)]}, "
+        f"{sum(d > 0 for d in diff)} of {len(diff)} positive")
+    return ms
+
+
+def telemetry_phase(torch, TRAIN, ON, g2):
+    """(t1)-(t3): the main path with `--metrics-dir` (and `--trace`) against
+    the same runs without, with K1, K2, rewire events and the guard; (c)
+    the costs.  (t4), the serving path's directory, runs in phase 7.
+    Every run with the counts set to 0 just before and read just after;
+    the directories are made under a temporary root, removed at the end.
+    Returns the "telemetry" entries of K1's and K2's records."""
+    import shutil
+    import tempfile
+    from repro_torch.obs import Telemetry
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_obs_"))
+    try:
+        return _telemetry_checks(torch, TRAIN, ON, g2, root, Telemetry)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _telemetry_checks(torch, TRAIN, ON, g2, root, Telemetry):
+    launches = {"compact_fused": {}, "influence": {}}
+    # (t1) compact_fused with --metrics-dir --trace against the bare run
+    base = main_argv("compact_fused", "--ckpt-every", "0")
+    d1 = root / "t1"
+    bare, cb, sb = observed_run(TRAIN, ON, base)
+    inst, ci, si = observed_run(TRAIN, ON, [*base, "--metrics-dir", str(d1),
+                                            "--trace"])
+    check_counts(cb, {"compact_fused": 160}, "(t1) bare")
+    check_counts(ci, {"compact_fused": 160}, "(t1) --metrics-dir --trace")
+    t_bare, t_inst = sb["trainers"][-1], si["trainers"][-1]
+    check(t_inst._pack is not None and t_bare._pack is None,
+          "(t1) the pack is not on the instrumented path only")
+    losses = [w["loss"] for w in inst["windows"]]
+    check(losses == [w["loss"] for w in bare["windows"]],
+          "(t1) window losses differ from the bare run's")
+    check(bitwise(torch, final_params(t_inst), final_params(t_bare)),
+          "(t1) final params differ from the bare run's")
+    validated_dir(d1, "(t1)")
+    _, wins = window_events(d1)
+    check(len(wins) == 20, f"(t1) {len(wins)} window events")
+    check_window_fields(wins, K1_FIELDS, "(t1)")
+    check([w["loss"] for w in wins] == losses,
+          "(t1) the window events' losses are not the run's")
+    check(all("live_col_frac" not in w for w in wins),
+          "(t1) live_col_frac on a carry without rw")
+    spans = json.loads((d1 / "trace.json").read_text())["traceEvents"]
+    n_spans = [e["name"] for e in spans].count("window")
+    check(n_spans == 20, f"(t1) {n_spans} window spans in trace.json")
+    launches["compact_fused"].update({"t1 bare": cb["compact_fused"],
+                                      "t1 telemetry": ci["compact_fused"]})
+    log(f"(t1) compact_fused --metrics-dir --trace: launches {ci} (bare "
+        f"{cb}), 20 window losses and the final params bitwise the bare "
+        f"run's; validator clean; 20 window events with {list(K1_FIELDS)}; "
+        f"20 window spans; last window {json.dumps(wins[-1])}")
+
+    # (t2) pallas + rewire with --metrics-dir against the bare run
+    rbase = rewire_argv("pallas")
+    d2 = root / "t2"
+    rbare, rcb, rsb = observed_run(TRAIN, ON, rbase)
+    rinst, rci, rsi = observed_run(TRAIN, ON, [*rbase, "--metrics-dir",
+                                               str(d2), "--trace"])
+    check_counts(rcb, {"influence": 160}, "(t2) bare")
+    check_counts(rci, {"influence": 160}, "(t2) --metrics-dir")
+    check([w["loss"] for w in rinst["windows"]]
+          == [w["loss"] for w in rbare["windows"]],
+          "(t2) window losses differ from the bare run's")
+    check(bitwise(torch, final_params(rsi["trainers"][-1]),
+                  final_params(rsb["trainers"][-1])),
+          "(t2) final params differ from the bare run's")
+    validated_dir(d2, "(t2)")
+    evs, wins = window_events(d2)
+    rewires = [e for e in evs if e["kind"] == "rewire"]
+    check(len(rewires) == 10 == rinst["rewire_events"],
+          f"(t2) {len(rewires)} rewire events")
+    check_window_fields(wins, K2_REWIRE_FIELDS, "(t2)")
+    by_update = {w["update"]: w for w in wins}
+    after = []
+    for j, e in enumerate(evs):
+        if e["kind"] != "rewire":
+            continue
+        nxt = next((w for w in evs[j + 1:] if w["kind"] == "window"), None)
+        if nxt is None:                     # the event after the last window
+            continue
+        after.append(nxt["live_col_frac"])
+        check(math.isfinite(nxt["live_col_frac"])
+              and abs(nxt["live_col_frac"] - e["col_density"]) <= 1e-6,
+              f"(t2) live_col_frac {nxt['live_col_frac']} after event "
+              f"{e['event']} (col_density {e['col_density']})")
+    check(len(after) == 9 and len(by_update) == 20,
+          f"(t2) {len(after)} windows after an event")
+    launches["influence"].update({"t2 bare": rcb["influence"],
+                                  "t2 telemetry": rci["influence"]})
+    log(f"(t2) pallas --rewire rigl --rewire-every 2 --metrics-dir: launches "
+        f"{rci} (bare {rcb}), losses and final params bitwise; 10 rewire "
+        f"events; live_col_frac after each event {after} (= the event's "
+        f"col_density)")
+
+    # (t3) the guard with a corrupted carry, against phase 9's (g2)
+    g2_out, g2_tr = g2
+    d3 = root / "t3"
+    gout, gc, gs = observed_run(TRAIN, ON, main_argv(
+        "compact_fused", "--ckpt-every", "0", "--guard",
+        "--inject-corrupt-at", "6", "--metrics-dir", str(d3), "--trace"))
+    check_counts(gc, {"compact_fused": 168}, "(t3) guard corrupt")
+    check([w["loss"] for w in gout["windows"]]
+          == [w["loss"] for w in g2_out["windows"]],
+          "(t3) window losses differ from (g2)'s")
+    check(bitwise(torch, final_params(gs["trainers"][-1]),
+                  final_params(g2_tr)), "(t3) final params differ from (g2)'s")
+    man = validated_dir(d3, "(t3)")
+    evs, wins = window_events(d3)
+    kinds = [e["kind"] for e in evs]
+    check([kinds.count(k) for k in ("fault", "rollback", "recovery")]
+          == [1, 1, 1], f"(t3) event kinds {kinds}")
+    rep = gout["guard"]
+    met = man["metrics"]
+    check(met["guard_faults_total"] == rep["faults"] == 1
+          and met["guard_rollbacks_total"] == rep["rollbacks"] == 1
+          and met["guard_recoveries_total"] == len(rep["recoveries"]) == 1,
+          f"(t3) registry {met} against report {rep}")
+    spans = json.loads((d3 / "trace.json").read_text())["traceEvents"]
+    names = [e["name"] for e in spans]
+    check(names.count("rollback_replay") == 1 and names.count("window") == 21,
+          f"(t3) spans: {names.count('window')} window, "
+          f"{names.count('rollback_replay')} rollback_replay")
+    check_window_fields(wins, K1_FIELDS, "(t3)")
+    launches["compact_fused"]["t3 guard corrupt"] = gc["compact_fused"]
+    fault = next(e for e in evs if e["kind"] == "fault")
+    log(f"(t3) --guard --inject-corrupt-at 6 --metrics-dir: launches {gc}, "
+        f"events fault/rollback/recovery 1/1/1 ({fault['reason']} at step "
+        f"{fault['step']}), registry counters = report() (faults "
+        f"{rep['faults']}, rollbacks {rep['rollbacks']}, recoveries "
+        f"{len(rep['recoveries'])}), 21 window spans and one "
+        f"rollback_replay; losses and final params bitwise (g2)'s")
+
+    # (c) the costs
+    alt = {"bare": [], "telemetry": []}
+    for i in range(TELEMETRY_ROUNDS):     # in turn, the order flipped
+        for name in (("bare", "telemetry") if i % 2 == 0
+                     else ("telemetry", "bare")):
+            extra = (("--metrics-dir", str(root / f"c{i}")) if name ==
+                     "telemetry" else ())
+            out = TRAIN.main([*base, *extra])
+            alt[name].append(out["summary"]["median_window_ms"])
+    diff = [t - b for b, t in zip(alt["bare"], alt["telemetry"])]
+    log(f"(c) median window compact_fused, {TELEMETRY_ROUNDS} runs each in "
+        f"turn (ABBA): bare {[round(v, 3) for v in alt['bare']]} ms, "
+        f"--metrics-dir {[round(v, 3) for v in alt['telemetry']]} ms; "
+        f"medians {statistics.median(alt['bare']):.3f} / "
+        f"{statistics.median(alt['telemetry']):.3f} ms, quartiles "
+        f"{[round(v, 3) for v in statistics.quantiles(alt['bare'])]} / "
+        f"{[round(v, 3) for v in statistics.quantiles(alt['telemetry'])]}; "
+        f"telemetry minus bare within each round: median "
+        f"{statistics.median(diff):.3f} ms, range [{min(diff):.3f}, "
+        f"{max(diff):.3f}], {sum(d > 0 for d in diff)} of {len(diff)} "
+        f"positive")
+    pack_host_costs(torch, TRAIN, ON, root)
+    pack_window_ab(torch, TRAIN, ON, root, Telemetry)
+    tr_bare = trace_main_path(torch, TRAIN, ON, "compact_fused",
+                              "fused_update_kernel")
+    obs = Telemetry.create(root / "trace", trace=True)
+    tr_obs = trace_main_path(torch, TRAIN, ON, "compact_fused",
+                             "fused_update_kernel", telemetry=obs)
+    obs.finalize()
+    if tr_bare and tr_obs:
+        log(f"(c) device ops a stream step: bare {tr_bare['ops_per_step']:.2f}"
+            f", packed {tr_obs['ops_per_step']:.2f} (the pack adds "
+            f"{tr_obs['ops_per_step'] - tr_bare['ops_per_step']:.2f} a step, "
+            f"{8 * (tr_obs['ops_per_step'] - tr_bare['ops_per_step']):.1f} a "
+            f"window); device-to-host copies in the 2 traced windows and the "
+            f"run's end (row_stats): bare {tr_bare['dtoh']}, packed "
+            f"{tr_obs['dtoh']}, inside each window span {tr_obs['window_dtoh']}"
+            f"; device busy {tr_bare['busy_us'] / 16:.1f} / "
+            f"{tr_obs['busy_us'] / 16:.1f} us a step")
+        check(tr_obs["window_dtoh"] == [1, 1]
+              and tr_obs["dtoh"] == tr_bare["dtoh"],
+              f"(c) readbacks: {tr_obs['window_dtoh']} in the window spans, "
+              f"{tr_obs['dtoh']} in the packed run against "
+              f"{tr_bare['dtoh']} bare")
+        check(tr_obs["window_kernels"] == [8, 8] and
+              tr_bare["window_kernels"] == [],
+              f"(c) K1 launches in the window spans: "
+              f"{tr_obs['window_kernels']} (bare {tr_bare['window_kernels']})")
+        log(f"(c) the profiler's `window` record_function spans: "
+            f"{len(tr_obs['window_kernels'])}, K1 launches in each "
+            f"{tr_obs['window_kernels']}")
+    costs = guard_check_costs(torch, si["trainers"][-1].carry)
+    costs["guarded window"] = guarded_window_costs(torch, TRAIN, ON, base)
+    log("(c) guard checks json: " + json.dumps(costs))
+    path = ("--metrics-dir --trace: compact_fused (t1), pallas with --rewire "
+            "rigl --rewire-every 2 (t2), --guard --inject-corrupt-at 6 (t3)")
+    return {k: {"path": path, "launches": v} for k, v in launches.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -2092,6 +2594,8 @@ def rwkv_serving(torch, dev, WK):
     bf16 time mix and the full-depth f32-compute prefill against the plain
     WKV, and the f32 checks at full width and 2 layers.  Returns (K4's
     entry for the kernels line, the main path's counts)."""
+    import shutil
+    import tempfile
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as SERVE
     from repro_torch.models import rwkv as RW
@@ -2134,14 +2638,26 @@ def rwkv_serving(torch, dev, WK):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         check(bool(dlogits.isfinite().all()), "decode: non-finite logits")
-    served = SERVE.main(["--arch", "rwkv6-3b", "--requests", "6",
-                         "--max-new", "12"])
-    counts = read_counts()
-    check_counts(counts, {"wkv": cfg.n_layers}, "serving main path")
-    s = served["summary"]
-    check(s["requests"] == 6 and s["failed"] == 0 and served["failed_requests"]
-          == [] and all(len(o) == 12 for o in served["outputs"]),
-          f"Engine: {s}, failed {served['failed_requests']}")
+    mdir = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    try:
+        served = SERVE.main(["--arch", "rwkv6-3b", "--requests", "6",
+                             "--max-new", "12", "--metrics-dir", str(mdir)])
+        counts = read_counts()
+        check_counts(counts, {"wkv": cfg.n_layers}, "serving main path")
+        s = served["summary"]
+        check(s["requests"] == 6 and s["failed"] == 0
+              and served["failed_requests"] == []
+              and all(len(o) == 12 for o in served["outputs"]),
+              f"Engine: {s}, failed {served['failed_requests']}")
+        # (t4): the decode path's metrics directory
+        man = validated_dir(mdir, "(t4) launch.serve --metrics-dir")
+        check(man["final"]["tokens"] == s["tokens"]
+              and man["config"]["mode"] == "decode",
+              f"(t4) manifest {man['final']} {man['config'].get('mode')}")
+        log(f"(t4) launch.serve --metrics-dir: the validator clean, the "
+            f"manifest's tokens {man['final']['tokens']} = the summary's")
+    finally:
+        shutil.rmtree(mdir, ignore_errors=True)
     log(f"serving main path (prefill {B} x {T}, {n_dec} decode steps, Engine): "
         f"launches {counts}; first prefill {first_prefill_s * 1e3:.1f} ms")
     log(f"decode: {n_dec} greedy steps of batch {B} from the prefill cache, "
@@ -2417,10 +2933,13 @@ def main():
                             OPS, CO)
 
     # -- phase 9: dynamic sparsity and the stream guard ---------------------
-    rewire_entry, guard_entry = dynamic_phase(torch, TRAIN, ON, CKP, SP, ST,
-                                              CF, CK, IN, OPS)
+    rewire_entry, guard_entry, g2 = dynamic_phase(torch, TRAIN, ON, CKP, SP,
+                                                  ST, CF, CK, IN, OPS)
 
-    # -- phase 10: the kernels line and the result --------------------------
+    # -- phase 10: the telemetry plane --------------------------------------
+    telemetry = telemetry_phase(torch, TRAIN, ON, g2)
+
+    # -- phase 11: the kernels line and the result --------------------------
     t1, t2 = times["(a) f32"], k2_times["(a) column-compact"]
     kernels = [{"name": "compact_fused", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/compact_fused.cu",
@@ -2442,6 +2961,8 @@ def main():
         entry["stacked"] = stacked[entry["name"]]
     kernels[0]["guard"] = guard_entry
     kernels[1]["rewire"] = rewire_entry
+    kernels[0]["telemetry"] = telemetry["compact_fused"]
+    kernels[1]["telemetry"] = telemetry["influence"]
     kernels += [k3_entry, k4_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

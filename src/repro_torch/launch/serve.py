@@ -3,18 +3,21 @@ batching.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
         [--smoke] [--requests 6] [--slots 4] [--max-seq 64] [--max-new 12] \\
-        [--temperature 0.0] [--device cpu]
+        [--temperature 0.0] [--device cpu] [--metrics-dir DIR [--trace]]
 
 Counterpart of `repro.launch.serve` (its decode path), with the reference's
 flags and defaults.  The model is drawn from a seeded generator on the
 device (no weights are downloaded); `--smoke` takes the reduced
 same-family config.  Prompts of 4-8 random tokens come from
 numpy.random.default_rng(0), as in the reference.  It runs on CUDA unless
-`--device cpu` is given, and raises without a card.  Prints a JSON summary
-(requests, tokens, wall s, tok/s, slots, failed requests).
+`--device cpu` is given, and raises without a card.  Prints the summary
+block of `obs.finish_run`, then a JSON summary (requests, tokens, wall s,
+tok/s, slots, failed requests); `--metrics-dir DIR` writes the run's
+`events.jsonl`, `metrics.prom` and `manifest.json` there (`--trace` adds
+`trace.json`), as the reference's decode path does.
 
 Not ported yet, and raising: `--fleet` (ROADMAP Queue 1 item 10), every
-arch but rwkv6-3b (item 14), `--metrics-dir`/`--trace` (item 11).
+arch but rwkv6-3b (item 14).
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ import time
 
 import numpy as np
 import torch
+
+from repro_torch.obs import add_obs_args, finish_run, telemetry_from_args
 
 
 def parse_args(argv=None):
@@ -40,8 +45,7 @@ def parse_args(argv=None):
                          "(not ported yet)")
     ap.add_argument("--update-every", type=int, default=8)
     ap.add_argument("--session-windows", type=int, default=12)
-    ap.add_argument("--metrics-dir", default=None)
-    ap.add_argument("--trace", action="store_true")
+    add_obs_args(ap)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
@@ -58,9 +62,6 @@ def main(argv=None) -> dict:
     if args.fleet:
         raise NotImplementedError("--fleet (the online-RTRL stream fleet) is "
                                   "not ported yet: ROADMAP Queue 1 item 10")
-    if args.metrics_dir or args.trace:
-        raise NotImplementedError("--metrics-dir/--trace (telemetry) are not "
-                                  "ported yet: ROADMAP Queue 1 item 11")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
@@ -81,6 +82,8 @@ def main(argv=None) -> dict:
                "wall_s": round(dt, 3),
                "tok_per_s": round(n_tok / max(dt, 1e-9), 1),
                "slots": args.slots, "failed": len(eng.failed_requests)}
+    obs = telemetry_from_args(args, mode="decode")
+    finish_run(obs, f"serve {args.arch} (decode)", summary)
     print(json.dumps(summary))
     for i, o in enumerate(outs[:3]):
         print(f"  req{i}: {o}")

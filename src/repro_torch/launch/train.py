@@ -8,7 +8,8 @@
         [--ckpt-every 10] [--ckpt-dir DIR] [--fail-at K] [--metrics FILE] \\
         [--rewire {off,set,rigl} --rewire-every N --rewire-frac F] \\
         [--guard --guard-ring R --guard-policy P] \\
-        [--inject-nan-at S --inject-nan-len N --inject-corrupt-at U]
+        [--inject-nan-at S --inject-nan-len N --inject-corrupt-at U] \\
+        [--metrics-dir DIR [--trace]]
 
 Counterpart of `repro.launch.train` (`train_egru`): an EGRU (n=16 a layer,
 n_in=2, batch 32; `--layers L` stacks L layers, `configs.egru_spiral.
@@ -54,6 +55,19 @@ directory resumes at its end.  `--fail-at K` injects one crash at update
 (online) or step (offline) K, and the supervisor restarts from the last
 checkpoint.  `--metrics FILE` appends the logged records as JSON lines.
 
+`--metrics-dir DIR` turns the telemetry plane on (`repro_torch.obs`): the
+online trainer packs every window's scalars (loss, gradient norm,
+activity and backward sparsity, overflow, live column fraction, K_b,
+clip factor, health) into one tensor, read back once a window, and DIR
+receives `events.jsonl` (a `window` event per update, `rewire`, `fault`,
+`rollback`, `recovery`, `quarantine` and `ckpt_write` events),
+`metrics.prom` and `manifest.json`; `--trace` adds `trace.json` (Chrome
+trace of the window / rewire / rollback_replay / ckpt_write spans, each
+also a `torch.profiler.record_function`).  Check DIR with `python -m
+repro_torch.obs.validate DIR`.  A run with telemetry is bitwise the run
+without it.  Both paths end with the summary block of
+`obs.finish_run`, then the JSON summary line.
+
 The backend defaults to "dense", as in the reference.  It runs on CUDA
 unless `--device cpu` is given, and raises without a card.  Params are
 drawn from torch.Generator(2*seed) and masks from torch.Generator(2*seed +
@@ -61,7 +75,7 @@ drawn from torch.Generator(2*seed) and masks from torch.Generator(2*seed +
 `jax.random` draws.  The online stream is the JAX launcher's step-keyed
 numpy stream, element for element.
 
-Flags of later slices raise: --metrics-dir.
+Every arch but egru-spiral raises (ROADMAP Queue 1 items 12 and 14).
 """
 from __future__ import annotations
 
@@ -73,6 +87,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import add_obs_args, finish_run, telemetry_from_args
 
 ARCHS = ("egru-spiral", "egru_spiral")
 
@@ -131,8 +146,6 @@ def _reject_later_slices(args) -> None:
     later = []
     if args.arch not in ARCHS:
         later.append(f"--arch {args.arch} (the port has egru-spiral only)")
-    if args.metrics_dir:
-        later.append("--metrics-dir (ROADMAP Queue 1 item 11)")
     if later:
         raise SystemExit("not ported yet: " + "; ".join(later))
 
@@ -221,12 +234,12 @@ def build_online(args) -> dict:
     return run
 
 
-def online_trainers(args, run):
+def online_trainers(args, run, telemetry=None):
     """make_trainer(attempt) for `run_with_restart`: an OnlineTrainer on
-    the run's learner with fresh params, the rewire schedule, the guard and
-    the fault plan of the flags; `--fail-at` and `--inject-corrupt-at`
-    armed on attempt 0 only (NaN inputs stay armed: a data fault lives in
-    the stream)."""
+    the run's learner with fresh params, the rewire schedule, the guard,
+    the fault plan of the flags and `telemetry` (shared by every attempt);
+    `--fail-at` and `--inject-corrupt-at` armed on attempt 0 only (NaN
+    inputs stay armed: a data fault lives in the stream)."""
     from repro_torch.runtime.guard import FaultPlan, GuardConfig
     from repro_torch.runtime.online import OnlineTrainer, OnlineTrainerConfig
     from repro_torch.sparsity import RewireSchedule
@@ -258,7 +271,7 @@ def online_trainers(args, run):
                              run["make_params"](), run["masks"],
                              run["stream"], device=run["device"],
                              rewire_schedule=schedule, guard=guard,
-                             fault_plan=plan)
+                             fault_plan=plan, telemetry=telemetry)
 
     return make_trainer
 
@@ -268,7 +281,10 @@ def train_egru_online(args) -> dict:
     updates.  Returns the trainer's result plus the printed summary."""
     from repro_torch.runtime.trainer import run_with_restart
     run = build_online(args)
-    out = run_with_restart(online_trainers(args, run))
+    obs = telemetry_from_args(args, arch="egru-spiral", mode="online",
+                              backend=args.rtrl_backend,
+                              col_compact=run["col_compact"])
+    out = run_with_restart(online_trainers(args, run, obs))
     summary = {"arch": "egru-spiral", "mode": "online", "layers": args.layers,
                "backend": args.rtrl_backend, "device": str(run["device"]),
                "update_every": args.update_every, "updates": out["updates"],
@@ -289,6 +305,7 @@ def train_egru_online(args) -> dict:
                             "rollbacks": g["rollbacks"],
                             "recovered": len(g["recoveries"]),
                             "quarantined": len(g["quarantined"])}
+    finish_run(obs, "train egru-spiral (online RTRL)", summary)
     print(json.dumps(summary))
     out["summary"] = summary
     return out
@@ -366,6 +383,10 @@ def train_egru_offline(args) -> dict:
                "stragglers": out["stragglers"],
                **_loss_fields(out["metrics"]),
                "median_step_ms": _median_ms(out["steps"])}
+    obs = telemetry_from_args(args, arch="egru-spiral", mode="offline",
+                              backend=args.rtrl_backend,
+                              col_compact=run["col_compact"])
+    finish_run(obs, "train egru-spiral (offline RTRL)", summary)
     print(json.dumps(summary))
     out["summary"] = summary
     return out
@@ -445,8 +466,7 @@ def parse_args(argv=None):
     ap.add_argument("--inject-corrupt-at", type=int, default=-1,
                     help="fault injection (online): poison one influence "
                          "element after this update commits")
-    # a flag of a later slice: accepted so that it fails with a clear error
-    ap.add_argument("--metrics-dir", default=None)
+    add_obs_args(ap)
     args = ap.parse_args(argv)
     if args.ckpt_dir is None:
         args.ckpt_dir = default_ckpt_dir()

@@ -37,8 +37,13 @@ Snapshots own their tensors: `push` clones every tensor leaf, and a
 rollback hands the trainer clones of the snapshot's, so no later write —
 in place or not — can reach a snapshot (torch tensors are mutable, unlike
 the JAX package's arrays, which its ring holds by reference).
-`corrupt_carry` builds a new tensor as well.  The packed telemetry verdict
-of the JAX package (`pack=`) is ROADMAP Queue 1 item 11.
+`corrupt_carry` builds a new tensor as well.
+
+Telemetry (`repro_torch.obs`): with a `MetricPack` the guarded chunk folds
+its verdict into the window's packed vector, so one readback serves the
+guard and the exporters; the guard's counts live on the telemetry
+registry (`guard_*_total`) and every fault, rollback, recovery and
+quarantine is an event.
 """
 from __future__ import annotations
 
@@ -52,6 +57,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.obs import Telemetry
+from repro_torch.obs.metricpack import global_norm
 from repro_torch.runtime.online import stream_grads
 from repro_torch.runtime.trainer import InjectedFailure
 from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,
@@ -60,6 +67,7 @@ from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,
 Tree = Any
 
 # health bitmask (computed on the device, read back with the window)
+# (bit i is source i of health_bits: loss, grads, carry)
 HEALTH_LOSS = 1        # window loss is non-finite
 HEALTH_GRADS = 2       # some gradient leaf is non-finite
 HEALTH_CARRY = 4       # some carry leaf (influence/activity/params) is non-finite
@@ -134,32 +142,49 @@ class GuardConfig:
 # Health check + guarded update chunks
 # ---------------------------------------------------------------------------
 
-def _flat_by_dtype(tree) -> list:
-    """The floating leaves of `tree` flattened and concatenated, one tensor
-    a dtype: a few device ops for a whole tree instead of a few a leaf."""
-    groups: dict = {}
-    for x in tree_leaves(tree):
-        if isinstance(x, torch.Tensor) and x.is_floating_point():
-            groups.setdefault(x.dtype, []).append(x.reshape(-1))
-    return [torch.cat(xs) for xs in groups.values()]
+def _floating(tree) -> list:
+    """The non-empty floating leaves of `tree` (an empty leaf holds no
+    non-finite value; integer leaves never count)."""
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)
+            and x.is_floating_point() and x.numel()]
 
 
-def _nonfinite(tree) -> torch.Tensor:
-    """True (a bool tensor) iff any floating leaf of `tree` holds a
-    non-finite value; integer leaves never count."""
-    flags = [~torch.isfinite(x).all() for x in _flat_by_dtype(tree)]
-    if not flags:
-        return torch.tensor(False)
-    return flags[0] if len(flags) == 1 else torch.stack(flags).any()
+def _amax_each(tensors: list) -> list:
+    """max |x| of each tensor, a 0-d tensor each: one multi-tensor
+    reduction a dtype (`torch._foreach_norm` at order inf, the foreach
+    kernels where the device has them), each tensor read where it lies."""
+    out = [None] * len(tensors)
+    by_dtype: dict = {}
+    for i, x in enumerate(tensors):
+        by_dtype.setdefault(x.dtype, []).append(i)
+    for idx in by_dtype.values():
+        amax = torch._foreach_norm([tensors[i] for i in idx], math.inf)
+        for i, a in zip(idx, amax):
+            out[i] = a
+    return out
 
 
 def health_bits(loss, grads, carry) -> torch.Tensor:
-    """The int32 fault bitmask (0 = healthy), on the loss's device."""
+    """The int32 fault bitmask (0 = healthy), on the loss's device.
+
+    A max |x| is non-finite iff its tensor holds a NaN or an inf, so the
+    check is one multi-tensor max |x| over the loss and every floating leaf
+    of both trees, with no copy of either.  The three sources (loss, grads,
+    carry: bits 0, 1, 2) are padded to one length with repeats of their
+    smallest member, so their three verdicts come out of one [3, m]
+    reduction: about ten device ops, whatever the number of leaves."""
     loss = torch.as_tensor(loss)
-    dev = loss.device
-    bits = (~torch.isfinite(loss)).int() * HEALTH_LOSS
-    bits = bits + _nonfinite(grads).to(dev).int() * HEALTH_GRADS
-    return bits + _nonfinite(carry).to(dev).int() * HEALTH_CARRY
+    sources = [[loss], _floating(grads), _floating(carry)]
+    if not all(sources):                    # advance_chunk has no grads
+        zero = loss.new_zeros(())
+        sources = [s or [zero] for s in sources]
+    m = max(len(s) for s in sources)
+    flat = [x for s in sources
+            for x in s + [min(s, key=torch.numel)] * (m - len(s))]
+    amax = torch.stack(_amax_each(flat)).view(3, m).amax(dim=1)
+    bad = ~(amax < math.inf)                # NaN < inf is False as well
+    bit = torch.arange(3, dtype=torch.int32, device=loss.device)
+    return (bad.int() << bit).sum(dtype=torch.int32)
 
 
 def describe_health(bits: int) -> str:
@@ -168,20 +193,19 @@ def describe_health(bits: int) -> str:
     return "+".join(names) or "ok"
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    return torch.cat([x.float() for x in _flat_by_dtype(tree)]) \
-        .square().sum().sqrt()
-
-
 def guarded_update_chunk(learner, opt, carry: Tree, opt_state: Tree,
                          xs: torch.Tensor, ys: torch.Tensor, upd: int,
-                         clip: float):
+                         clip: float, pack=None):
     """`online_update_chunk` with the guard woven in: global-norm gradient
     clipping (clip = +inf gives the factor exactly 1.0, so an unfaulted
     guarded run is bit-identical to the unguarded chunk) and the health
     bitmask in ``metrics["health"]`` (and in the packed
-    ``metrics["verdict"]``)."""
+    ``metrics["verdict"]``).
+
+    With `pack` (a `repro_torch.obs.MetricPack`) the verdict folds into the
+    telemetry vector instead: metrics is ``{"packed": [F]}``, carrying
+    health / loss / overflow beside every other telemetry scalar, so one
+    readback serves the guard AND the exporters."""
     carry, loss, grads, stats = stream_grads(learner, carry, xs, ys)
     gn = global_norm(grads)
     factor = torch.minimum(torch.ones_like(gn), clip / (gn + 1e-12))
@@ -189,8 +213,13 @@ def guarded_update_chunk(learner, opt, carry: Tree, opt_state: Tree,
     params, opt_state = opt.update(grads, opt_state,
                                    learner.params_of(carry), upd)
     carry = learner.reset_grads(carry, params)
-    metrics = {"loss": loss, "grad_norm": gn,
-               "health": health_bits(loss, grads, carry)}
+    health = health_bits(loss, grads, carry)
+    if pack is not None:
+        packed = pack.pack({"loss": loss, "grads": grads, "stats": stats,
+                            "carry": carry, "grad_norm": gn,
+                            "clip_factor": factor, "health": health})
+        return carry, opt_state, {"packed": packed}
+    metrics = {"loss": loss, "grad_norm": gn, "health": health}
     for k in ("alpha", "beta"):
         if k in stats:
             metrics[k] = stats[k].mean()
@@ -258,8 +287,11 @@ class StreamGuard:
     """Detector state + snapshot ring + escalation bookkeeping.  One per
     OnlineTrainer run; host side."""
 
-    def __init__(self, cfg: GuardConfig):
+    def __init__(self, cfg: GuardConfig, telemetry=None):
         self.cfg = cfg
+        # the counts live on the telemetry registry (the null form keeps a
+        # registry too); the detail lists stay for report()['fault_log']
+        self.obs = telemetry if telemetry is not None else Telemetry.null()
         self.ring: collections.deque = collections.deque(maxlen=cfg.ring)
         self._mu: float | None = None      # loss EMA mean
         self._var = 0.0                    # loss EMA variance
@@ -267,10 +299,13 @@ class StreamGuard:
         self._ov_streak = 0
         self._fault_step: int | None = None   # window start being recovered
         self._attempts = 0
-        self.rollbacks = 0
         self.faults: list[dict] = []
         self.recoveries: list[dict] = []
         self.quarantined: list[dict] = []
+
+    @property
+    def rollbacks(self) -> int:
+        return int(self.obs.registry.counter("guard_rollbacks_total").value)
 
     # -- detection ----------------------------------------------------------
 
@@ -345,6 +380,9 @@ class StreamGuard:
         self.faults.append({"reason": reason, "step": trainer.step,
                             "update": trainer.update,
                             "attempt": self._attempts})
+        self.obs.registry.counter("guard_faults_total").inc()
+        self.obs.emit("fault", reason=reason, step=trainer.step,
+                      update=trainer.update, attempt=self._attempts)
         if self._attempts > len(self.cfg.policy):
             raise StreamFault(
                 f"guard policy {self.cfg.policy} exhausted at stream step "
@@ -355,18 +393,23 @@ class StreamGuard:
         if not self.ring:
             raise StreamFault("fault before any known-good snapshot "
                               f"existed: {self.faults[-1]['reason']}")
-        trainer._restore_snapshot(self._ready(self.ring[-1]))
-        self.rollbacks += 1
+        snap = self._ready(self.ring[-1])
+        with self.obs.span("rollback_replay", to_step=snap.step):
+            trainer._restore_snapshot(snap)
+        self.obs.registry.counter("guard_rollbacks_total").inc()
+        self.obs.emit("rollback", to_step=snap.step, to_update=snap.update)
 
     def commit(self, trainer, window_start: int):
         """A window executed healthily: close any recovery in flight for it
         and push a ring snapshot on the cadence (after rewire events fire,
         so snapshots carry the post-event masks and event counter)."""
         if self._fault_step == window_start:
-            self.recoveries.append({
-                "step": window_start,
-                "action": self.cfg.policy[self._attempts - 1],
-                "attempts": self._attempts})
+            rec = {"step": window_start,
+                   "action": self.cfg.policy[self._attempts - 1],
+                   "attempts": self._attempts}
+            self.recoveries.append(rec)
+            self.obs.registry.counter("guard_recoveries_total").inc()
+            self.obs.emit("recovery", **rec)
             self._fault_step, self._attempts = None, 0
         if (not self.ring
                 or trainer.update % max(1, self.cfg.snapshot_every) == 0):
@@ -401,10 +444,16 @@ class StreamGuard:
     def note_quarantine(self, start: int, length: int, update: int):
         self.quarantined.append({"start": start, "len": length,
                                  "update": update})
+        self.obs.registry.counter("guard_quarantined_total").inc()
+        self.obs.emit("quarantine", start=start, len=length, update=update)
 
     def report(self) -> dict:
-        """The JAX package's report keys."""
-        return {"faults": len(self.faults), "rollbacks": self.rollbacks,
+        """The JAX package's report keys; the counts come from the
+        telemetry registry, so report, Prometheus text and manifest
+        agree."""
+        reg = self.obs.registry
+        return {"faults": int(reg.counter("guard_faults_total").value),
+                "rollbacks": int(reg.counter("guard_rollbacks_total").value),
                 "recoveries": self.recoveries,
                 "quarantined": self.quarantined, "fault_log": self.faults}
 

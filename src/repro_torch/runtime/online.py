@@ -15,8 +15,10 @@ The carry of a stacked learner holds per-layer tuples (`a`, `vals`, `idx`,
 ...).  Rewire events (`rewire_schedule`, `repro_torch.sparsity`) fire at
 update boundaries; the stream guard (`guard`, `fault_plan`,
 `repro_torch.runtime.guard`) checks every window, rolls back and replays.
-Not ported yet: telemetry and the packed window metrics (ROADMAP Queue 1
-item 11).
+Telemetry (`telemetry`, `repro_torch.obs`): the registry holds every count
+the result dict reports; with active telemetry the update chunk packs the
+window's scalars into one `MetricPack` vector, read back once, and each
+window, rewire event and checkpoint write becomes an event and a span.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.ckpt import dtype_name
+from repro_torch.obs import MetricPack, Telemetry
 from repro_torch.runtime.trainer import (InjectedFailure, default_ckpt_dir,
                                          scalar_metrics)
 from repro_torch.tree import tree_leaves
@@ -52,14 +55,25 @@ def stream_grads(learner, carry: Tree, xs: torch.Tensor, ys: torch.Tensor):
 
 
 def online_update_chunk(learner, opt, carry: Tree, opt_state: Tree,
-                        xs: torch.Tensor, ys: torch.Tensor, upd: int):
+                        xs: torch.Tensor, ys: torch.Tensor, upd: int,
+                        pack: MetricPack | None = None):
     """One online update: step through the window, update params
     mid-stream, reset the accumulators.  Returns (carry, opt_state,
-    metrics) with loss / alpha / beta / overflow as device scalars."""
+    metrics) with loss / alpha / beta / overflow as device scalars.
+
+    With `pack` (a `repro_torch.obs.MetricPack`) the metrics are ONE packed
+    ``[F]`` float32 tensor under ``metrics["packed"]`` — every telemetry
+    scalar in a single device->host readback.  The pack fields only reduce
+    values the chunk already computed, so the instrumented chunk's carry /
+    opt_state are bit-identical to pack=None (tests/test_torch_obs.py)."""
     carry, loss, grads, stats = stream_grads(learner, carry, xs, ys)
     params, opt_state = opt.update(grads, opt_state,
                                    learner.params_of(carry), upd)
     carry = learner.reset_grads(carry, params)
+    if pack is not None:
+        packed = pack.pack({"loss": loss, "grads": grads, "stats": stats,
+                            "carry": carry})
+        return carry, opt_state, {"packed": packed}
     metrics = {"loss": loss}
     for k in ("alpha", "beta"):
         if k in stats:
@@ -107,6 +121,11 @@ class OnlineTrainer:
     degradation policy.  fault_plan (`runtime.guard.FaultPlan`):
     deterministic fault injection.
 
+    telemetry (`repro_torch.obs.Telemetry`, default the null form): the
+    registry every count of the result comes from; when active, the
+    packed window metrics, the `window` / `rewire` / `ckpt_write` spans
+    and the events of `--metrics-dir`.
+
     Learner state outside the carry depends on the masks only: the gate
     segments of compact_fused (whose masks never change) and, on the other
     backends, the column layout, column and J masks and K2's block masks.
@@ -119,10 +138,17 @@ class OnlineTrainer:
     def __init__(self, cfg: OnlineTrainerConfig, learner, opt, params: Tree,
                  masks: Tree | None, stream: Callable[[int], tuple], *,
                  device: torch.device | str, rewire_schedule=None,
-                 guard=None, fault_plan=None):
+                 guard=None, fault_plan=None, telemetry=None):
         self.cfg = cfg
         self.learner = learner
         self.opt = opt
+        # never None past this line: the null form keeps a live registry
+        # (every report sources from it) but writes no files; the pack runs
+        # in the chunk only when the exporters are on, so the default path
+        # stays the bare chunk
+        self.obs = telemetry if telemetry is not None else Telemetry.null()
+        self._pack = MetricPack.default() if self.obs.active else None
+        self._last_packed: dict | None = None
         self._fault_plan = fault_plan
         if fault_plan is not None:
             stream = fault_plan.wrap_stream(stream)
@@ -167,13 +193,12 @@ class OnlineTrainer:
             write_fault=write_fault) if cfg.ckpt_every > 0 else None)
         self.metrics: list[dict] = []     # every log_every-th window
         self.windows: list[dict] = []     # every window: metrics + wall ms
-        self.stragglers = 0
         self._failed_once = False
         self._dt_ema: float | None = None
         self.guard = None
         if guard is not None:
             from repro_torch.runtime.guard import StreamGuard
-            self.guard = StreamGuard(guard)
+            self.guard = StreamGuard(guard, telemetry=self.obs)
 
     def _to(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -190,10 +215,18 @@ class OnlineTrainer:
                 "rewire_events": np.int32(self.rewire_events),
                 "key": self.key}
 
+    @property
+    def stragglers(self) -> int:
+        """Straggler windows so far (registry-backed)."""
+        return int(self.obs.registry.counter("stragglers_total").value)
+
     def save(self):
         if self.ckpt is not None:
-            self.ckpt.save(self.update, self._ckpt_tree(),
-                           extra={"step": self.step})
+            with self.obs.span("ckpt_write", step=self.step):
+                self.ckpt.save(self.update, self._ckpt_tree(),
+                               extra={"step": self.step})
+            self.obs.registry.counter("ckpt_writes_total").inc()
+            self.obs.emit("ckpt_write", step=self.step, update=self.update)
 
     def try_resume(self) -> bool:
         if self.ckpt is None or self.ckpt.latest_step() < 0:
@@ -232,14 +265,22 @@ class OnlineTrainer:
         from repro_torch.optim.optimizers import set_opt_mask
         t0 = time.perf_counter()
         ev = self.rewire_events
-        self.carry = self.learner.rewire(
-            self.carry, sch.event_key(self.cfg.seed, ev),
-            frac=sch.fraction(ev), method=sch.method, block=sch.block)
-        self.opt_state = set_opt_mask(self.opt_state,
-                                      self.learner.opt_mask_of(self.carry))
+        with self.obs.span("rewire", event=ev):
+            self.carry = self.learner.rewire(
+                self.carry, sch.event_key(self.cfg.seed, ev),
+                frac=sch.fraction(ev), method=sch.method, block=sch.block)
+            self.opt_state = set_opt_mask(
+                self.opt_state, self.learner.opt_mask_of(self.carry))
         self.rewire_events = ev + 1
         fp = self.carry_nbytes()
         ms = round((time.perf_counter() - t0) * 1e3, 2)
+        reg = self.obs.registry
+        reg.gauge("rewire_events").set(self.rewire_events)
+        reg.gauge("carry_live_bytes").set(fp["live"])
+        reg.gauge("carry_col_density").set(fp["col_density"])
+        self.obs.emit("rewire", event=ev, frac=sch.fraction(ev), ms=ms,
+                      carry_live_bytes=fp["live"],
+                      col_density=fp["col_density"])
         return {"rewire_event": ev, "rewire_frac": round(sch.fraction(ev), 5),
                 "rewire_ms": ms, "carry_live_bytes": fp["live"]}
 
@@ -324,7 +365,7 @@ class OnlineTrainer:
             self._dt_ema = dt
             return
         if dt > self.cfg.straggler_factor * self._dt_ema:
-            self.stragglers += 1
+            self.obs.registry.counter("stragglers_total").inc()
         self._dt_ema = 0.9 * self._dt_ema + 0.1 * dt
 
     def _execute_window(self, start: int, k: int):
@@ -332,9 +373,12 @@ class OnlineTrainer:
         if any.  Returns (ok, host metrics, guard record); ok=False means
         the window faulted and the trainer was rolled back — the loop then
         re-executes it (a deterministic replay) one rung up the ladder.
-        Every path reads the window's scalars back once."""
+        Every path reads the window's scalars back once: the packed vector
+        when telemetry is on (it serves the guard too), else the metrics
+        stacked by `scalar_metrics`."""
         from repro_torch.runtime import guard as G
         g = self.guard
+        self._last_packed = None
         action = None if g is None else g.pending_action(start)
         if action == "quarantine":
             # persistent data fault: drop the window's inputs; carry,
@@ -345,10 +389,14 @@ class OnlineTrainer:
         if g is None:
             self.carry, self.opt_state, m = online_update_chunk(
                 self.learner, self.opt, self.carry, self.opt_state, xs, ys,
-                self.update)
+                self.update, pack=self._pack)
             # THE window readback: blocks until the device finished it
+            if self._pack is not None:
+                self._last_packed = self._pack.unpack(m["packed"])
+                return True, _legacy_metrics(self._last_packed), {}
             return True, scalar_metrics(m), {}
         if action == "skip_update":
+            # the degraded advance keeps its own packed verdict
             carry, m = G.advance_chunk(self.learner, self.carry, xs, ys)
             opt_state = self.opt_state
         else:
@@ -357,15 +405,27 @@ class OnlineTrainer:
             clip = g.cfg.clip_norm if action == "clip" else math.inf
             carry, opt_state, m = G.guarded_update_chunk(
                 self.learner, self.opt, self.carry, self.opt_state, xs, ys,
-                self.update, clip)
-        m.pop("verdict")
-        m = scalar_metrics(m)
+                self.update, clip, pack=self._pack)
+        if "packed" in m:
+            # one readback serves guard AND telemetry: the guard gets the
+            # unpacked verdict as host floats
+            pk = self._pack.unpack(m["packed"])
+            m = {"health": pk["health"], "loss": pk["loss"],
+                 "overflow": pk["overflow"]}
+        else:
+            pk = None
+            m.pop("verdict")
+            m = scalar_metrics(m)
         fault = g.check(m, self.update)
         if fault is not None:
             g.on_fault(self, fault)
             return False, None, None
         self.carry, self.opt_state = carry, opt_state
-        m.pop("health")
+        if pk is not None:
+            self._last_packed = pk
+            m = _legacy_metrics(pk)
+        else:
+            m.pop("health")
         return True, m, ({"guard_action": action} if action else {})
 
     def _maybe_crash(self):
@@ -396,7 +456,8 @@ class OnlineTrainer:
             k = min(cfg.update_every, cfg.total_steps - self.step)
             start = self.step
             t0 = time.perf_counter()
-            ok, m, guard_rec = self._execute_window(start, k)
+            with self.obs.span("window", update=self.update, step=start):
+                ok, m, guard_rec = self._execute_window(start, k)
             if not ok:
                 continue                  # rolled back; the window replays
             dt = time.perf_counter() - t0
@@ -405,6 +466,8 @@ class OnlineTrainer:
             self.update += 1
             self.windows.append({"update": self.update, "ms": dt * 1e3, **m,
                                  **guard_rec})
+            self.obs.record_window(self.update, self.step, dt * 1e3,
+                                   packed=self._last_packed, **guard_rec)
             rewire_rec = self._maybe_rewire()
             if self.guard is not None:
                 # commit AFTER rewire, so that snapshots carry the
@@ -425,10 +488,23 @@ class OnlineTrainer:
         self.save()
         if self.ckpt is not None:
             self.ckpt.wait()
+        # land the run-level numbers on the registry, then source the
+        # result dict FROM it: the result, the Prometheus text and the
+        # manifest cannot disagree
         fp = self.carry_nbytes()
-        out = {"final_step": self.step, "updates": self.update,
-               "metrics": self.metrics, "rewire_events": self.rewire_events,
-               "carry_bytes": fp["alloc"], "carry_live_bytes": fp["live"],
+        reg = self.obs.registry
+        reg.gauge("final_step").set(self.step)
+        reg.gauge("updates").set(self.update)
+        reg.gauge("rewire_events").set(self.rewire_events)
+        reg.gauge("carry_alloc_bytes").set(fp["alloc"])
+        reg.gauge("carry_live_bytes").set(fp["live"])
+        reg.gauge("carry_col_density").set(fp["col_density"])
+        out = {"final_step": int(reg.gauge("final_step").value),
+               "updates": int(reg.gauge("updates").value),
+               "metrics": self.metrics,
+               "rewire_events": int(reg.gauge("rewire_events").value),
+               "carry_bytes": int(reg.gauge("carry_alloc_bytes").value),
+               "carry_live_bytes": int(reg.gauge("carry_live_bytes").value),
                "stragglers": self.stragglers, "windows": self.windows}
         rs = self.row_stats()
         if rs is not None:
@@ -436,6 +512,20 @@ class OnlineTrainer:
         if self.guard is not None:
             out["guard"] = self.guard.report()
         return out
+
+
+def _legacy_metrics(pk: dict) -> dict:
+    """Unpacked MetricPack dict -> the chunk-metrics keys the log records
+    always carried (loss / alpha / beta / overflow).  NaN fields are the
+    pack's 'not applicable to this engine' marker — dropped, matching the
+    bare chunk's key presence."""
+    m = {"loss": pk["loss"]}
+    for src, dst in (("act_sparsity", "alpha"), ("bwd_sparsity", "beta"),
+                     ("overflow", "overflow")):
+        v = pk.get(src)
+        if v is not None and not math.isnan(v):
+            m[dst] = v
+    return m
 
 
 def carry_nbytes(carry: Tree) -> int:

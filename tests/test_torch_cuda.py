@@ -835,3 +835,104 @@ def test_guarded_compact_fused_window_bitwise_on_cuda(cuda):
     assert torch.equal(m_a["loss"], m_b["loss"])
     for a, b in zip(tree_leaves((c_a, o_a)), tree_leaves((c_b, o_b))):
         assert torch.equal(a, b)
+
+
+def _poisoned_trees(device):
+    """(tree, nonfinite?) pairs: a tree of f32, bf16, f16 and f64 leaves
+    and an int32 leaf, clean, with finite extremes, and with one NaN, inf
+    or -inf at the first or last element of one leaf."""
+    def tree():
+        g = torch.Generator().manual_seed(0)
+        return {"vals": torch.randn(4, 6, 1000, generator=g),
+                "M": (torch.randn(3, 5, generator=g).bfloat16(),
+                      torch.randn(7, generator=g).half()),
+                "a": torch.randn(2, 3, generator=g).double(),
+                "idx": torch.full((4, 6), 2 ** 31 - 1, dtype=torch.int32)}
+    out = [(tree(), False)]
+    big = tree()
+    big["vals"][0, 0, 0] = 3.0e38
+    big["M"][0][0, 0] = torch.finfo(torch.bfloat16).max
+    out.append((big, False))
+    for pick in (lambda t: t["vals"], lambda t: t["M"][0],
+                 lambda t: t["M"][1], lambda t: t["a"]):
+        for value in (float("nan"), float("inf"), -float("inf")):
+            for pos in (0, -1):
+                t = tree()
+                pick(t).view(-1)[pos] = value
+                out.append((t, True))
+    return [({k: (tuple(x.to(device) for x in v) if isinstance(v, tuple)
+                  else v.to(device)) for k, v in t.items()}, bad)
+            for t, bad in out]
+
+
+@pytest.mark.cuda
+def test_health_checks_on_the_card_equal_the_cpu(cuda):
+    """The guard's multi-tensor finite check on the card: the per-leaf
+    verdict on one poisoned element of any leaf and dtype, and none on
+    finite extremes; the norm equals the CPU's within f32 round-off."""
+    from repro_torch.obs.metricpack import global_norm
+    from repro_torch.runtime import guard as G
+    cases = _poisoned_trees(cuda)
+    cpu = _poisoned_trees("cpu")
+    for (tree, bad), (ctree, _) in zip(cases, cpu):
+        got = G.health_bits(torch.tensor(1.0, device=cuda), {}, tree)
+        assert got.device.type == "cuda"
+        assert int(got) == (G.HEALTH_CARRY if bad else 0)
+        assert int(G.health_bits(torch.tensor(1.0), {}, ctree)) == int(got)
+        if not bad:
+            g = {k: v for k, v in tree.items() if k != "idx"}
+            gc = {k: v for k, v in ctree.items() if k != "idx"}
+            a, b = float(global_norm(g)), float(global_norm(gc))
+            assert a == pytest.approx(b, rel=F32_REL)
+
+
+@pytest.mark.cuda
+def test_packed_window_on_the_card_issues_no_sync(cuda):
+    """The packed compact_fused chunk on the card: K1 launched 8 times, the
+    carry and optimizer state bitwise the bare chunk's, and the pack, the
+    finite checks and the norm run under torch's sync debug mode set to
+    error — no field reads a value back; `unpack` is the readback."""
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.obs import MetricPack
+    from repro_torch.runtime import guard as G, online as ON
+    from repro_torch.tree import tree_leaves
+    run = TRAIN.build_online(TRAIN.parse_args(
+        ["--arch", "egru-spiral", "--online", "--rtrl-backend",
+         "compact_fused", "--sparsity", "0.8"]))
+    learner, opt = run["learner"], run["opt"]
+    xs, ys = zip(*(run["stream"](t) for t in range(8)))
+    xs = torch.from_numpy(np.stack(xs)).to(cuda)
+    ys = torch.from_numpy(np.stack(ys)).to(cuda)
+    carry = learner.init(run["params"], run["masks"], (xs[0], ys[0]), 8.0)
+    state = opt.init(run["params"])
+    pack = MetricPack.default()
+    c_a, o_a, m_a = ON.online_update_chunk(learner, opt, carry, state, xs,
+                                           ys, 0)
+    c_g, o_g, m_g = G.guarded_update_chunk(learner, opt, carry, state, xs,
+                                           ys, 0, float("inf"), pack=pack)
+    before = _launches()
+    c_b, o_b, m_b = ON.online_update_chunk(learner, opt, carry, state, xs,
+                                           ys, 0, pack=pack)
+    assert _launches()[0] - before[0] == 8
+    for a, b, c in zip(tree_leaves((c_a, o_a)), tree_leaves((c_b, o_b)),
+                       tree_leaves((c_g, o_g))):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    _, loss, grads, stats = ON.stream_grads(learner, carry, xs, ys)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vec = pack.pack({"loss": loss, "grads": grads, "stats": stats,
+                         "carry": c_b})
+        bits = G.health_bits(loss, grads, c_b)
+        gn = G.global_norm(grads)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert vec.device.type == "cuda" and bits.device.type == "cuda"
+    assert gn.device.type == "cuda"
+    pk = pack.unpack(m_b["packed"])
+    finite = lambda d: {k: v for k, v in d.items() if v == v}
+    assert finite(pk) == finite(pack.unpack(vec))
+    assert np.float32(pk["loss"]) == m_a["loss"].item()
+    assert np.float32(pk["act_sparsity"]) == m_a["alpha"].item()
+    assert pk["kb_max"] <= 16 and pk["health"] == 0.0
+    assert pack.unpack(m_g["packed"])["clip_factor"] == 1.0

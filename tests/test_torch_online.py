@@ -307,17 +307,21 @@ def test_launcher_raises_without_cuda_unless_cpu_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    # --guard and --rewire are ported: beside a later slice's flag they
-    # still meet its refusal first
-    ["--guard", "--metrics-dir", "m"],
-    ["--rewire", "rigl", "--sparsity", "0.8", "--metrics-dir", "m"],
-    ["--metrics-dir", "m"],
+    # --guard, --rewire and --metrics-dir are ported: beside a later
+    # slice's arch they still meet its refusal first, and the refusal
+    # comes before the metrics directory is made
+    ["--guard", "--metrics-dir", "m", "--arch", "egru-lm"],
+    ["--rewire", "rigl", "--sparsity", "0.8", "--metrics-dir", "m",
+     "--arch", "rglru-lm"],
+    ["--metrics-dir", "m", "--trace", "--arch", "snn-lm"],
     ["--rewire", "set", "--rtrl-backend", "dense", "--arch", "yi-6b"],
     ["--arch", "yi-6b"]])
-def test_launcher_rejects_later_slices(extra):
+def test_launcher_rejects_later_slices(extra, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit, match="not ported yet"):
         TRAIN.main(["--arch", "egru-spiral", "--online", "--device", "cpu",
                     *extra])
+    assert list(tmp_path.iterdir()) == []
 
 
 def _first_window(argv):

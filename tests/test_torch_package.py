@@ -20,7 +20,9 @@ EXPECTED = {
     "kernels._build", "kernels.compact", "kernels.compact_fused",
     "kernels.event_matmul", "kernels.influence", "kernels.ops", "kernels.ref",
     "kernels.wkv", "launch.serve", "launch.train", "models", "models.layers",
-    "models.module", "models.rwkv", "models.transformer", "optim.optimizers",
+    "models.module", "models.rwkv", "models.transformer", "obs", "obs.cli",
+    "obs.events", "obs.metricpack", "obs.registry", "obs.summary",
+    "obs.telemetry", "obs.trace", "obs.validate", "optim.optimizers",
     "runtime.guard", "runtime.online", "runtime.serving", "runtime.trainer",
     "sparsity", "sparsity.migrate", "sparsity.schedule", "tree", "weights",
 }

@@ -80,12 +80,16 @@ def test_serve_launcher_smoke_on_cpu(capsys):
     (["--arch", "rwkv6-3b", "--fleet", "--device", "cpu"], "item 10"),
     (["--arch", "gemma2-2b", "--smoke", "--device", "cpu"], "item 14"),
     (["--smoke", "--device", "cpu"], "item 14"),         # the reference's default arch
-    (["--arch", "rwkv6-3b", "--smoke", "--device", "cpu", "--metrics-dir", "x"],
-     "item 11"),
+    # telemetry is ported: beside --fleet it still meets the fleet's refusal
+    (["--arch", "rwkv6-3b", "--fleet", "--smoke", "--device", "cpu",
+      "--metrics-dir", "x", "--trace"], "item 10"),
 ])
-def test_serve_launcher_rejects_what_is_not_ported(argv, match):
+def test_serve_launcher_rejects_what_is_not_ported(argv, match, tmp_path,
+                                                   monkeypatch):
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=match):
         SERVE.main(argv)
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_engine_default_device_raises_without_cuda(monkeypatch):
