@@ -173,16 +173,41 @@ checkout, it exits non-zero and prints no result.  Phases:
      without telemetry, 12 runs each in turn, the device ops a stream step
      the pack adds and the device-to-host copies a window (traces), the K1
      launches in each `window` record_function span of the profiler trace,
-     the peak bytes, ms and device ops of the guard's health check and
-     clip norm, concatenating (as before the multi-tensor check) and
-     multi-tensor, on the main path's carry and on a dense n=256 carry
-     [4, 256, 20864] f32, and the guarded main path's device ops a stream
-     step and median window with each form;
- 11. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
+     and the peak bytes, ms and device ops of the guard's health check and
+     clip norm on the main path's carry, held as a regression guard (no
+     copy of the tree; at most 16 and 8 device ops);
+ 11. the stream fleet (`repro_torch.runtime.fleet`), every run with the
+     counts set to 0 just before and read just after: (f1) `launch.serve
+     --fleet` at its defaults (n 96, batch 8 a session, sparsity 0.9,
+     backend compact; 6 sessions, 4 slots, 12 windows each): every session
+     completes, `fleet_windows` = the reference launcher's admission
+     arithmetic (24); (f2) a compact_fused StreamFleet at that
+     configuration, 4 slots, 12 windows with the live slots 4 -> 3 -> 4:
+     K1 96 launches (8 a window whatever the live count); K1 called as the
+     fleet calls it (vmapped, one launch, the slots folded into the
+     examples) on the operands of a real fleet step against its plain
+     version; three slots against the same sessions run alone through
+     OnlineTrainer after 1 and 8 windows: bitwise, or within 1e-6 and 1e-5
+     of each leaf's largest entry (printed: which held), and the first
+     stage of a step and update where a slot parts from its solo run;
+     (f3) the same with pallas and K2 (96 launches), its executed blocks on
+     the folded call equal to the slots' realized_block_savings x blocks;
+     (f4) bitwise on the card: a guest joining at window 2 and leaving at 5
+     moves no bit of its neighbours, evict and resume into another slot
+     ends where the never-evicted run ends, and a MetricPack fleet chunk's
+     carry and optimizer state are the bare chunk's; (f5) the costs at
+     the operating point of benchmarks/fleet_bench.py (n 16, n_in 8, one
+     example a session, sparsity 0.9, k 8; compact_fused): for S = 1, 8,
+     64 the fleet window against S solo windows stepped in turn with one
+     readback each (median of 5 rounds in turn), sessions/s, device ops
+     and idle share of a window from traces; S = 256 the fleet window
+     alone; (g) a 64-slot fleet's bytes and window peak against 64 x
+     session_carry_bytes;
+ 12. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
      K1's and K2's with a "stacked" entry for phase 8's path, K1's with a
      "guard" and K2's with a "rewire" entry for phase 9's, both with a
-     "telemetry" entry for phase 10's, then the result line {"ok": true,
-     "device": {...}}.
+     "telemetry" entry for phase 10's and a "fleet" entry for phase 11's,
+     then the result line {"ok": true, "device": {...}}.
 
 Tolerances: a float32 kernel result is within 1e-5 of the largest
 magnitude of the plain version's (the sums associate differently); a bf16
@@ -363,9 +388,12 @@ def with_carry_dtype(torch, ops, dtype):
     return ops
 
 
-def compare_k1(torch, CF, ops, label):
-    """Kernel vs plain version on the card; returns max abs error."""
-    out = CF.fused_update(*ops)
+def compare_k1(torch, CF, ops, label, out=None):
+    """Kernel vs plain version on the card (`out`: the kernel's output on
+    `ops`, launched by the caller; else launched here); returns max abs
+    error."""
+    if out is None:
+        out = CF.fused_update(*ops)
     torch.cuda.synchronize()                    # a fault surfaces here
     ref = CF.fused_reference(*ops)
     check(out.dtype == ops[1].dtype and out.shape == ops[1].shape,
@@ -1769,53 +1797,6 @@ def check_window_fields(wins, fields, label):
               f"{label}: non-finite field in window {w}")
 
 
-def concat_health_and_norm(torch):
-    """The guard's health check and clip norm in the concatenating form
-    they had before the multi-tensor check (every floating leaf flattened
-    and concatenated, one tensor a dtype), kept here only to measure the
-    multi-tensor form against."""
-    from repro_torch.runtime import guard as G
-    from repro_torch.tree import tree_leaves
-
-    def flat_by_dtype(tree):
-        groups = {}
-        for x in tree_leaves(tree):
-            if isinstance(x, torch.Tensor) and x.is_floating_point():
-                groups.setdefault(x.dtype, []).append(x.reshape(-1))
-        return [torch.cat(xs) for xs in groups.values()]
-
-    def nonfinite(tree):
-        flags = [~torch.isfinite(x).all() for x in flat_by_dtype(tree)]
-        if not flags:
-            return torch.tensor(False)
-        return flags[0] if len(flags) == 1 else torch.stack(flags).any()
-
-    def health_bits(loss, grads, carry):
-        loss = torch.as_tensor(loss)
-        bits = (~torch.isfinite(loss)).int() * G.HEALTH_LOSS
-        bits = bits + nonfinite(grads).to(loss.device).int() * G.HEALTH_GRADS
-        return bits + nonfinite(carry).to(loss.device).int() * G.HEALTH_CARRY
-
-    def norm(tree):
-        return torch.cat([x.float() for x in flat_by_dtype(tree)]) \
-            .square().sum().sqrt()
-
-    return health_bits, norm
-
-
-@contextlib.contextmanager
-def concat_guard_checks(torch):
-    """The guard runs the concatenating health check and clip norm inside
-    the block."""
-    from repro_torch.runtime import guard as G
-    saved = G.health_bits, G.global_norm
-    G.health_bits, G.global_norm = concat_health_and_norm(torch)
-    try:
-        yield
-    finally:
-        G.health_bits, G.global_norm = saved
-
-
 def device_ops(torch, fn, calls=5):
     """Device ops (kernels, copies, fills) per call of fn, torch.profiler
     over `calls` calls; None where the profiler records no device event."""
@@ -1846,75 +1827,33 @@ def peak_and_ms(torch, fn, iters=20):
 
 def guard_check_costs(torch, carry):
     """(c): the peak bytes, ms and device ops of one health check (of the
-    tree as a carry) and one norm, concatenating ("before") and
-    multi-tensor ("after"), on the main path's carry and on a dense
-    n = 256 carry [4, 256, 20864] f32."""
+    tree as a carry) and one clip norm on the main path's carry, held as a
+    regression guard: neither may copy the tree (peak under an eighth of
+    its floating bytes) or grow past 16 (check) and 8 (norm) device ops;
+    on an H100 they take 10.2 and 3.2 (PERF.md)."""
     from repro_torch.obs.metricpack import global_norm
     from repro_torch.runtime import guard as G
     from repro_torch.tree import tree_leaves
-    old_health, old_norm = concat_health_and_norm(torch)
-    g = torch.Generator(device="cuda").manual_seed(4)
-    dense = {"M": torch.randn(4, 256, 20864, device="cuda", generator=g),
-             "a": torch.randn(4, 256, device="cuda", generator=g)}
     loss = torch.zeros((), device="cuda")
-    out = {}
-    for label, tree in (("main path carry", carry),
-                        ("dense n=256 carry", dense)):
-        floats = [x for x in tree_leaves(tree)
-                  if isinstance(x, torch.Tensor) and x.is_floating_point()]
-        nbytes = sum(x.numel() * x.element_size() for x in floats)
-        row = {"tree_bytes": nbytes}
-        for name, fn in (
-                ("check before", lambda: old_health(loss, {}, tree)),
-                ("check after", lambda: G.health_bits(loss, {}, tree)),
-                ("norm before", lambda: old_norm(floats)),
-                ("norm after", lambda: global_norm(floats))):
-            row[name] = [*peak_and_ms(torch, fn), device_ops(torch, fn)]
-        check(int(old_health(loss, {}, tree))
-              == int(G.health_bits(loss, {}, tree)),
-              f"(c) {label}: the verdicts differ")
-        log(f"(c) guard checks, {label} ({nbytes} bytes of floating "
-            "leaves): " + ", ".join(
-                f"{k} {v[0]} B peak {v[1]:.4f} ms {v[2]} device ops"
-                for k, v in row.items() if k != "tree_bytes"))
-        out[label] = row
-    del dense
-    torch.cuda.empty_cache()
-    return out
-
-
-def guarded_window_costs(torch, TRAIN, ON, base, rounds=6):
-    """(c): the guarded main path with the concatenating checks ("before")
-    and the multi-tensor ones ("after"): device ops a stream step from a
-    trace of each, and the median window of `rounds` runs each, in turn
-    with the order flipped every round."""
-    tr = {}
-    with concat_guard_checks(torch):
-        tr["before"] = trace_main_path(torch, TRAIN, ON, "compact_fused",
-                                       "fused_update_kernel", "--guard")
-    tr["after"] = trace_main_path(torch, TRAIN, ON, "compact_fused",
-                                  "fused_update_kernel", "--guard")
-    alt = {"before": [], "after": []}
-    for i in range(rounds):
-        for name in (("before", "after") if i % 2 == 0
-                     else ("after", "before")):
-            ctx = (concat_guard_checks(torch) if name == "before"
-                   else contextlib.nullcontext())
-            with ctx:
-                out = TRAIN.main([*base, "--guard"])
-            alt[name].append(out["summary"]["median_window_ms"])
-    got = {k: {"median_window_ms": alt[k],
-               "ops_per_step": tr[k] and tr[k]["ops_per_step"]}
-           for k in alt}
-    log(f"(c) guarded main path, concatenating checks (before) against "
-        f"multi-tensor (after): device ops a stream step "
-        f"{got['before']['ops_per_step']} / {got['after']['ops_per_step']}; "
-        f"median window of {rounds} runs each in turn "
-        f"{statistics.median(alt['before']):.3f} / "
-        f"{statistics.median(alt['after']):.3f} ms (runs before "
-        f"{[round(v, 3) for v in alt['before']]}, after "
-        f"{[round(v, 3) for v in alt['after']]})")
-    return got
+    floats = [x for x in tree_leaves(carry)
+              if isinstance(x, torch.Tensor) and x.is_floating_point()]
+    nbytes = sum(x.numel() * x.element_size() for x in floats)
+    row = {"tree_bytes": nbytes}
+    for name, fn, max_ops in (
+            ("check", lambda: G.health_bits(loss, {}, carry), 16),
+            ("norm", lambda: global_norm(floats), 8)):
+        peak, ms = peak_and_ms(torch, fn)
+        ops = device_ops(torch, fn)
+        row[name] = [peak, ms, ops]
+        check(peak * 8 < nbytes, f"(c) guard {name}: peak {peak} B on a "
+                                 f"{nbytes} B tree (a copy of the tree?)")
+        check(ops is None or ops <= max_ops,
+              f"(c) guard {name}: {ops} device ops (at most {max_ops})")
+    log(f"(c) guard checks, main path carry ({nbytes} bytes of floating "
+        "leaves): " + ", ".join(
+            f"{k} {v[0]} B peak {v[1]:.4f} ms {v[2]} device ops"
+            for k, v in row.items() if k != "tree_bytes"))
+    return row
 
 
 def pack_host_costs(torch, TRAIN, ON, root):
@@ -2177,11 +2116,551 @@ def _telemetry_checks(torch, TRAIN, ON, g2, root, Telemetry):
             f"{len(tr_obs['window_kernels'])}, K1 launches in each "
             f"{tr_obs['window_kernels']}")
     costs = guard_check_costs(torch, si["trainers"][-1].carry)
-    costs["guarded window"] = guarded_window_costs(torch, TRAIN, ON, base)
     log("(c) guard checks json: " + json.dumps(costs))
     path = ("--metrics-dir --trace: compact_fused (t1), pallas with --rewire "
             "rigl --rewire-every 2 (t2), --guard --inject-corrupt-at 6 (t3)")
     return {k: {"path": path, "launches": v} for k, v in launches.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the stream fleet
+# ---------------------------------------------------------------------------
+
+# (f2)/(f3): windows of the kernel fleets, and the windows after which each
+# slot is held against the same session run alone
+FLEET_WINDOWS = 12
+FLEET_HELD = (1, 8)
+# (f5): the fleet widths timed against as many solo windows, and the widest
+FLEET_SLOTS = (1, 8, 64)
+FLEET_WIDEST = 256
+
+
+def admission_windows(sessions, slots, windows):
+    """Fleet windows of the reference launcher's loop
+    (`repro.launch.serve._fleet_main`) for a queue of `sessions` that need
+    `windows` windows each, admitted into free slots as they free up."""
+    queue, need, n = list(range(sessions)), {}, 0
+    while queue or need:
+        while queue and len(need) < slots:
+            need[queue.pop(0)] = windows
+        n += 1
+        for s in list(need):
+            need[s] -= 1
+            if need[s] <= 0:
+                del need[s]
+    return n
+
+
+def tree_gap(torch, a, b):
+    """(bitwise, the largest |a - b| over a leaf's largest |b|) over the
+    leaves of two trees of tensors."""
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    check(len(la) == len(lb), f"trees of {len(la)} and {len(lb)} leaves")
+    same, worst = True, 0.0
+    for x, y in zip(la, lb):
+        same = same and torch.equal(x, y)
+        x, y = x.double(), y.double()
+        scale = max(float(y.abs().max()), 1e-30) if y.numel() else 1.0
+        worst = max(worst, float((x - y).abs().max()) / scale
+                    if x.numel() else 0.0)
+    return same, worst
+
+
+def launcher_fleet(torch, SERVE, FL, backend, slots, store=None,
+                   telemetry=None):
+    """A StreamFleet at `launch.serve --fleet`'s full configuration (n 96,
+    batch 8 a session, sparsity 0.9, adamw 1e-3, the launcher's generators
+    and streams) with `backend`.  Returns (fleet, params, stream_of)."""
+    dev = torch.device("cuda")
+    cfg, masks, learner, opt, params = SERVE.fleet_setup(96, dev, backend)
+    stream_of = lambda i: SERVE.make_fleet_stream(i, 8, cfg.n_in, cfg.n_out)
+    fleet = FL.StreamFleet(FL.FleetConfig(slots=slots, update_every=8,
+                                          store_dir=store),
+                           learner, opt, params, masks,
+                           example=stream_of(0)(0), device=dev,
+                           telemetry=telemetry)
+    return fleet, params, stream_of
+
+
+def fleet_step_operands(torch, SP, fleet, xs):
+    """The kernel operands of one stream step of every slot of `fleet`
+    (from its stacked carry, on the slots' inputs xs [S, B, n_in]), each
+    [S, B, ...]: K1's (compact_fused) or K2's padded ones and their block
+    masks (pallas), as the vmapped step builds them."""
+    from repro_torch.kernels import ops as OPS
+    lr = fleet.learner
+    cfg = lr.cfg
+
+    def one(carry, x):
+        w = {k: v for k, v in carry["params"].items() if k != "out"}
+        if lr.backend == "compact_fused":
+            return SP.fused_step_operands(cfg, w, lr.layout, carry["a"],
+                                          carry["vals"], carry["idx"], x,
+                                          cl=lr._cl)[2]
+        _, _, ops = SP.pallas_step_operands(
+            cfg, w, lr.layout, carry["a"], carry["M"], x, cl=lr._cl,
+            col_mask=lr._colm, jmask=lr._jm)
+        return OPS.influence_operands(*ops[:4], block_masks=lr._kmasks)[:6]
+
+    return torch.func.vmap(one)(fleet.carry, xs)
+
+
+def fleet_kernel_check(torch, CF, IN, OPS, SP, fleet, xs):
+    """K1 or K2 on the operands of a real fleet step, called as the fleet
+    calls it (torch.func.vmap: one launch, the slots folded into the
+    examples) against its plain version on the folded operands; K2's
+    executed blocks against the sum over the slots of
+    realized_block_savings x blocks.  Returns (max abs err, blocks)."""
+    ops = fleet_step_operands(torch, SP, fleet, xs)
+    S, B = ops[0].shape[:2]
+    fold = lambda t: t.reshape(S * B, *t.shape[2:]).contiguous()
+    if fleet.learner.backend == "compact_fused":
+        before = CF.fused_update.launches
+        out = torch.func.vmap(CF.fused_update)(*ops)
+        torch.cuda.synchronize()
+        check(CF.fused_update.launches == before + 1,
+              "(f2) the vmapped K1 call launched "
+              f"{CF.fused_update.launches - before} times")
+        err = compare_k1(torch, CF, [fold(t) for t in ops],
+                         f"(f2) folded fleet step, S={S}, one launch",
+                         out=fold(out))
+        return err, None
+    kmasks = fleet.learner._kmasks
+    count = torch.zeros(1, dtype=torch.int64, device=ops[0].device)
+    before = IN.influence_update.launches
+    out = torch.func.vmap(lambda hp, J, M, Mb, row, prev: IN.influence_update(
+        hp, J, M, Mb, row_mask=row, prev_mask=prev, col_mask=kmasks[0],
+        jmask=kmasks[1], block_count=count))(*ops)
+    torch.cuda.synchronize()
+    check(IN.influence_update.launches == before + 1,
+          f"(f3) the vmapped K2 call launched "
+          f"{IN.influence_update.launches - before} times")
+    masks = dict(row_mask=fold(ops[4]), prev_mask=fold(ops[5]),
+                 col_mask=kmasks[0], jmask=kmasks[1])
+    ref = IN.influence_reference(*(fold(t) for t in ops[:4]), **masks)
+    err, scale = within(fold(out), ref, False, f"(f3) folded fleet step, S={S}")
+    live = (masks["row_mask"] != 0).repeat_interleave(IN.BK, 1)[:, :, None] \
+        & (kmasks[0] != 0).repeat_interleave(IN.BP)
+    check(bool((fold(out)[~live] == 0).all()),
+          "(f3) dead row/column blocks not exactly zero")
+    per_slot = [int(IN.executed_blocks(ops[4][s], ops[5][s], *kmasks))
+                for s in range(S)]
+    check(int(count) == sum(per_slot),
+          f"(f3) executed blocks {int(count)} on the folded call, the slots "
+          f"sum to {sum(per_slot)} ({per_slot})")
+    # realized_block_savings x blocks of each slot, the host's count
+    from repro_torch.tree import tree_map
+    lr = fleet.learner
+    total = B * ops[4].shape[2] * ops[5].shape[2] * kmasks[0].shape[0]
+    for s in range(S):
+        c = tree_map(lambda b: b[s], fleet.carry)
+        w = {k: v for k, v in c["params"].items() if k != "out"}
+        _, _, u = SP.pallas_step_operands(
+            lr.cfg, w, lr.layout, c["a"], c["M"], xs[s], cl=lr._cl,
+            col_mask=lr._colm, jmask=lr._jm)
+        sav = OPS.realized_block_savings(u[0], u[2], u[4], u[5]) * total
+        check(round(sav) == per_slot[s],
+              f"(f3) slot {s}: {per_slot[s]} executed blocks, "
+              f"realized_block_savings x blocks {sav}")
+    log(f"K2 (f3) folded fleet step: S={S} B={B} n_p={ops[2].shape[2]} "
+        f"P_p={ops[2].shape[3]}, one launch, max_abs_err {err:.3e} (scale "
+        f"{scale:.3e}), executed blocks {int(count)} = the slots' "
+        f"realized_block_savings x blocks {per_slot}")
+    return err, int(count)
+
+
+def first_fleet_difference(torch, ON, FL, fleet, xs, ys):
+    """Where a slot of the vmapped fleet first parts from the same session
+    computed alone: one stream step and one update, stage by stage, each
+    stage from the same inputs, slot 0 of the fleet's S against the
+    unbatched call.  Returns [(stage, bitwise, max relative gap)]."""
+    import numpy as np
+    from repro_torch.core import cells
+    from repro_torch.tree import tree_map
+    lr, opt = fleet.learner, fleet.opt
+    S = fleet.cfg.slots
+    one = tree_map(lambda b: b[0].clone(), fleet.carry)
+    ost = tree_map(lambda b: b[0].clone(), fleet.opt_state)
+    w = cells.rec_param_tree(fleet.carry["params"])
+    x, y = xs[:, 0], ys[:, 0]
+    rows = []
+
+    def stage(name, solo, batched):
+        same, gap = tree_gap(torch, tree_map(lambda b: b[0], batched), solo)
+        rows.append((name, same, gap))
+
+    W = w["u"]["W"]
+    stage("slot_mm x @ W_u", cells.slot_mm(x[0], W[0]),
+          torch.func.vmap(cells.slot_mm)(x, W))
+    wp0 = cells.rec_param_tree(one["params"])
+    stage("cell partials", lr.cell.partials(wp0, one["a"], x[0]),
+          torch.func.vmap(lr.cell.partials)(w, fleet.carry["a"], x))
+    stage("learner step (K1/K2 folded, the gradient extraction)",
+          lr.step(one, x[0], y[0])[0],
+          torch.func.vmap(lambda c, a, b: lr.step(c, a, b)[0])(
+              fleet.carry, x, y))
+    u0 = 3
+    stage("window update (the step, adamw with per-slot bias corrections)",
+          ON.online_update_chunk(lr, opt, one, ost, xs[0], ys[0], u0)[:2],
+          torch.func.vmap(lambda c, o, a, b, u: ON.online_update_chunk(
+              lr, opt, c, o, a, b, u)[:2])(fleet.carry, fleet.opt_state,
+                                           xs, ys,
+                                           opt.slot_steps([u0] * S, xs.device)))
+    # the library calls the step does not take, for the record: a cuBLAS
+    # product of two slot tensors, and a divisor that is a host scalar
+    # (CUDA multiplies by its reciprocal) against the [S] slot tensor
+    R, a = w["u"]["R"], fleet.carry["a"]
+    lib = [("library a @ R_u (cuBLAS, batch 1 against S)", a[0] @ R[0],
+            torch.func.vmap(torch.matmul)(a, R)),
+           ("library m / c1, host scalar against the slot tensor",
+            ost["m"]["u"]["R"] / float(np.float32(0.271)),
+            torch.func.vmap(torch.div)(
+                fleet.opt_state["m"]["u"]["R"],
+                torch.full((S,), float(np.float32(0.271)),
+                           device=xs.device)))]
+    n_path = len(rows)
+    for name, solo, batched in lib:
+        stage(name, solo, batched)
+    return rows[:n_path], rows[n_path:]
+
+
+def fleet_kernel_phase(torch, SERVE, FL, ON, CF, IN, OPS, SP, backend,
+                       kernel, label):
+    """(f2) / (f3): a `backend` fleet at the launcher's configuration, 4
+    slots, FLEET_WINDOWS windows with the live slots going 4 -> 3 -> 4,
+    every count set to 0 just before and read just after; K1 or K2 on the
+    operands of a real fleet step; the slots held against the same
+    sessions run alone through OnlineTrainer; the first stage where a slot
+    parts from its solo run.  Returns the kernels line's "fleet" entry."""
+    fleet, params, stream_of = launcher_fleet(torch, SERVE, FL, backend, 4)
+    for i in range(4):
+        fleet.add_session(f"s{i}", stream_of(i))
+    held = ("s0", "s1", "s2")
+    snaps, live = {}, []
+    reset_counts()
+    for w in range(FLEET_WINDOWS):
+        if w == 6:
+            fleet.remove("s3")
+        if w == 8:
+            fleet.add_session("s4", stream_of(4))
+        stats = fleet.step_window()
+        live.append(len(stats))
+        check(all(math.isfinite(v["loss"]) for v in stats.values()),
+              f"{label}: non-finite loss {stats}")
+        if w + 1 in FLEET_HELD:
+            snaps[w + 1] = {sid: fleet.slot_state(sid) for sid in held}
+    counts = read_counts()
+    want = 8 * FLEET_WINDOWS
+    check_counts(counts, {kernel: want}, f"{label} fleet")
+    log(f"{label} {backend} StreamFleet, 4 slots, live {live}: launches "
+        f"{counts} over {FLEET_WINDOWS} windows (8 a window whatever the "
+        f"live count)")
+    xs, ys, _, _ = fleet._gather(8)
+    xs = torch.from_numpy(xs).cuda()
+    ys = torch.from_numpy(ys).cuda()
+    err, blocks = fleet_kernel_check(torch, CF, IN, OPS, SP, fleet, xs[:, 0])
+    # each held slot against the same session run alone
+    gaps = {}
+    for i, sid in enumerate(held):
+        tr = ON.OnlineTrainer(
+            ON.OnlineTrainerConfig(total_steps=8 * FLEET_HELD[0],
+                                   update_every=8),
+            fleet.learner, fleet.opt, params, fleet.masks, stream_of(i),
+            device=fleet.device)
+        for n_win in FLEET_HELD:
+            tr.cfg.total_steps = 8 * n_win
+            tr.run()
+            gaps[(sid, n_win)] = tree_gap(torch, snaps[n_win][sid],
+                                          (tr.carry, tr.opt_state))
+    stages, lib = first_fleet_difference(torch, ON, FL, fleet, xs, ys)
+    first = next((name for name, same, _ in stages if not same), None)
+    fmt = lambda rows: "; ".join(
+        f"{name}: {'bitwise' if same else f'{gap:.3e}'}"
+        for name, same, gap in rows)
+    log(f"{label} stage by stage, fleet slot 0 of 4 against the unbatched "
+        f"call on the same inputs: {fmt(stages)}; first to differ: {first}"
+        f"; the library forms the step avoids: {fmt(lib)}")
+    bitwise = all(same for same, _ in gaps.values())
+    for (sid, n_win), (same, gap) in gaps.items():
+        bar = 1e-6 if n_win == 1 else 1e-5
+        check(same or gap <= bar,
+              f"{label} {sid} after {n_win} windows: {gap:.3e} from the "
+              f"session run alone (bar {bar:g})")
+    held_note = ("bitwise" if bitwise else "within the bars: " + ", ".join(
+        f"{sid}@{n}: {g:.3e}" for (sid, n), (_, g) in gaps.items()))
+    log(f"{label} slots against the sessions run alone through "
+        f"OnlineTrainer after {FLEET_HELD} windows: {held_note}")
+    entry = {"path": f"StreamFleet {backend} at launch.serve --fleet's "
+                     f"configuration (n 96, B 8), 4 slots, live {live}",
+             "launches": counts[kernel], "windows": FLEET_WINDOWS,
+             "max_abs_err": err, "held_alone": held_note,
+             "first_difference": first}
+    if blocks is not None:
+        entry["executed_blocks"] = blocks
+    return entry
+
+
+def lane_exactness(torch, SERVE, FL, MetricPack, root):
+    """(f4): on the card, bitwise: a guest joining at window 2 and leaving
+    at window 5 moves no bit of the other slots; evict, then resume into
+    another slot ends where the never-evicted run ends; a MetricPack fleet
+    chunk's carry and optimizer state equal the bare chunk's."""
+    def join_leave(guest):
+        fleet, _, stream_of = launcher_fleet(torch, SERVE, FL,
+                                             "compact_fused", 4)
+        for i in range(3):
+            fleet.add_session(f"s{i}", stream_of(i))
+        for w in range(8):
+            if guest and w == 2:
+                fleet.add_session("guest", stream_of(9))
+            if guest and w == 5:
+                fleet.remove("guest")
+            fleet.step_window()
+        return [fleet.slot_state(f"s{i}") for i in range(3)]
+
+    alone, shared = join_leave(False), join_leave(True)
+    check(all(tree_gap(torch, a, b)[0] for a, b in zip(alone, shared)),
+          "(f4) a guest joining at window 2 and leaving at 5 moved bits of "
+          "its neighbours")
+
+    def evict_resume(evict, store):
+        fleet, _, stream_of = launcher_fleet(torch, SERVE, FL,
+                                             "compact_fused", 2, store=store)
+        fleet.add_session("a", stream_of(3))
+        for _ in range(3):
+            fleet.step_window()
+        if evict:
+            check(fleet.evict("a") == 24, "(f4) evicted at the wrong position")
+            fleet.add_session("filler", stream_of(8))
+            fleet.step_window()
+            check(fleet.resume("a", stream_of(3)) == 1,
+                  "(f4) resumed into the slot it left")
+            fleet.remove("filler")
+        for _ in range(3):
+            fleet.step_window()
+        return fleet.slot_state("a")
+
+    ref = evict_resume(False, None)
+    ev = evict_resume(True, str(root / "store"))
+    check(tree_gap(torch, ev, ref)[0],
+          "(f4) evict and resume did not end where the never-evicted run "
+          "ends")
+    fleet, _, stream_of = launcher_fleet(torch, SERVE, FL, "compact_fused", 4)
+    for i in range(3):
+        fleet.add_session(f"s{i}", stream_of(i))
+    fleet.step_window()
+    xs, ys, upd, live = fleet._gather(8)
+    args = [fleet.carry, fleet.opt_state, *(torch.from_numpy(a).cuda()
+                                            for a in (xs, ys)), upd,
+            torch.from_numpy(live).cuda()]
+    c_a, o_a, m_a = FL.fleet_update_chunk(fleet.learner, fleet.opt, *args)
+    c_b, o_b, m_b = FL.fleet_update_chunk(fleet.learner, fleet.opt, *args,
+                                          pack=MetricPack.default())
+    check(tree_gap(torch, (c_b, o_b), (c_a, o_a))[0],
+          "(f4) the packed fleet chunk's carry or optimizer state differs "
+          "from the bare chunk's")
+    check(torch.equal(m_b[:, :3], m_a), "(f4) the packed rows' verdict "
+                                        "columns differ from the bare ones")
+    log("(f4) on the card, bitwise: a guest joining at window 2 and leaving "
+        "at 5 moves no bit of its 3 neighbours after 8 windows; evict after "
+        "3 windows, a filler window, resume into the other slot, 3 more: "
+        "the never-evicted run's state; the MetricPack fleet chunk's carry "
+        "and optimizer state the bare chunk's, its verdict columns equal")
+
+
+def bench_fleet(torch, FL, ON, slots):
+    """A StreamFleet of `slots` at the operating point of
+    benchmarks/fleet_bench.py (the reference's fleet bench): EGRU kind gru,
+    n 16, n_in 8, n_out 4, eps 0.12, theta + 0.4, sparsity 0.9 in 8 x 8
+    blocks, one example a session, k = 8, adamw 1e-3, here with
+    compact_fused (K1) at capacity 1.  Every slot holds a session.
+    Returns (fleet, make_solo); make_solo(i) builds session i as a solo
+    OnlineTrainer."""
+    import numpy as np
+    from repro_torch.core import cells as C, sparse_rtrl as SP
+    from repro_torch.core.learner import LearnerSpec, make_learner
+    from repro_torch.optim import make_optimizer
+    dev = torch.device("cuda")
+    cfg = C.EGRUConfig(n_hidden=16, n_in=8, n_out=4, kind="gru", eps=0.12)
+    params = C.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    params["theta"] = params["theta"] + 0.4
+    masks = SP.make_masks(cfg, torch.Generator().manual_seed(9), 0.9,
+                          device=dev, block=8)
+    params = SP.apply_masks(params, masks)
+    learner = make_learner(LearnerSpec(engine="sparse", cfg=cfg,
+                                       backend="compact_fused"))
+    opt = make_optimizer("adamw", lr=1e-3)
+
+    def stream_of(i):
+        def stream(step):
+            rng = np.random.default_rng(i * 100003 + step)
+            return ((4.0 * rng.standard_normal((1, 8))).astype(np.float32),
+                    np.zeros((1,), np.int32))
+        return stream
+
+    fleet = FL.StreamFleet(FL.FleetConfig(slots=slots, update_every=8),
+                           learner, opt, params, masks,
+                           example=stream_of(0)(0), device=dev)
+    for i in range(slots):
+        fleet.add_session(f"s{i}", stream_of(i))
+
+    def make_solo(i):
+        return ON.OnlineTrainer(
+            ON.OnlineTrainerConfig(total_steps=0, update_every=8),
+            learner, opt, params, masks, stream_of(i), device=dev)
+
+    return fleet, make_solo
+
+
+def solo_windows(trainers):
+    """One window of each solo trainer in turn, each read back once (the
+    trainer's own window: gather, chunk, one readback)."""
+    for tr in trainers:
+        ok, _, _ = tr._execute_window(tr.step, 8)
+        tr.step += 8
+        tr.update += 1
+
+
+def trace_calls(torch, fn, calls=3):
+    """Device ops a call and the device's idle share of the wall time over
+    `calls` calls of fn under torch.profiler (None where it records no
+    device event)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and e.name not in SPAN_NAMES]
+    if not dev:
+        return None
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return {"ops": len(dev) / calls, "busy_us": busy / calls,
+            "idle": 1 - busy / wall_us}
+
+
+def fleet_costs(torch, FL, ON):
+    """(f5) and (g), measured, not gated: at the fleet bench's operating
+    point, for S in FLEET_SLOTS the fleet window against S solo windows
+    stepped in turn (one readback each), the median of 5 rounds taken in
+    turn, sessions/s, device ops a window and idle share from traces; the
+    widest fleet's window alone; the peak bytes of a 64-slot fleet's
+    window against 64 x session_carry_bytes."""
+    out = {}
+    for S in FLEET_SLOTS:
+        fleet, make_solo = bench_fleet(torch, FL, ON, S)
+        solos = [make_solo(i) for i in range(S)]
+        fleet.step_window()
+        solo_windows(solos)
+        got = {"fleet": [], "solo": []}
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fleet.step_window()
+            got["fleet"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            solo_windows(solos)
+            got["solo"].append((time.perf_counter() - t0) * 1e3)
+        med = {k: statistics.median(v) for k, v in got.items()}
+        tf = trace_calls(torch, fleet.step_window)
+        ts = trace_calls(torch, lambda: solo_windows(solos[:1]))
+        out[S] = {"fleet_ms": med["fleet"], "solo_ms": med["solo"],
+                  "fleet_sessions_per_s": S / med["fleet"] * 1e3,
+                  "solo_sessions_per_s": S / med["solo"] * 1e3,
+                  "fleet_trace": tf, "solo_trace": ts,
+                  "session_carry_bytes": fleet.session_carry_bytes}
+        log(f"(f5) S={S}: fleet window {med['fleet']:.3f} ms against {S} "
+            f"solo windows {med['solo']:.3f} ms (median of 5 rounds in turn;"
+            f" rounds {[round(v, 3) for v in got['fleet']]} / "
+            f"{[round(v, 3) for v in got['solo']]}), sessions/s "
+            f"{out[S]['fleet_sessions_per_s']:.1f} against "
+            f"{out[S]['solo_sessions_per_s']:.1f}; trace of a fleet window "
+            f"{tf}, of one solo window {ts}")
+        del fleet, solos
+    fleet, _ = bench_fleet(torch, FL, ON, FLEET_WIDEST)
+    fleet.step_window()
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fleet.step_window()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out[FLEET_WIDEST] = {"fleet_ms": statistics.median(ms),
+                         "fleet_sessions_per_s":
+                         FLEET_WIDEST / statistics.median(ms) * 1e3,
+                         "fleet_trace": trace_calls(torch, fleet.step_window)}
+    log(f"(f5) S={FLEET_WIDEST}: fleet window "
+        f"{out[FLEET_WIDEST]['fleet_ms']:.3f} ms (median of 5: "
+        f"{[round(v, 3) for v in ms]}), sessions/s "
+        f"{out[FLEET_WIDEST]['fleet_sessions_per_s']:.1f}, trace "
+        f"{out[FLEET_WIDEST]['fleet_trace']}")
+    del fleet
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fleet, _ = bench_fleet(torch, FL, ON, 64)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    fleet.step_window()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    out["memory"] = {"stacked_bytes": held, "window_peak_bytes": peak,
+                     "64 x session_carry_bytes":
+                     64 * fleet.session_carry_bytes,
+                     "fleet_carry_bytes": fleet.report()["fleet_carry_bytes"]}
+    log(f"(g) a 64-slot fleet: {held} bytes allocated once built (carry, "
+        f"optimizer state and the template), {peak} bytes at the peak of a "
+        f"window, against 64 x session_carry_bytes = "
+        f"{64 * fleet.session_carry_bytes}")
+    return out
+
+
+def fleet_phase(torch, SERVE, FL, ON, CF, IN, OPS, SP):
+    """Phase 11, the stream fleet: (f1) the launcher; (f2) K1 and (f3) K2
+    through fleets; (f4) lane exactness on the card; (f5) and (g) the
+    costs.  Returns the "fleet" entries of K1's and K2's records."""
+    import shutil
+    import tempfile
+    from repro_torch.obs import MetricPack
+    # (f1) the launcher at its defaults, on the card
+    reset_counts()
+    out = SERVE.main(["--fleet"])
+    counts = read_counts()
+    s = out["summary"]
+    want = admission_windows(6, 4, 12)
+    check(sorted(out["completed"]) == [f"s{i}" for i in range(6)],
+          f"(f1) completed {out['completed']}")
+    check(s["fleet_windows"] == want == 24,
+          f"(f1) fleet_windows {s['fleet_windows']}, the admission "
+          f"arithmetic gives {want}")
+    check_counts(counts, {}, "(f1) launch.serve --fleet (backend compact)")
+    log(f"(f1) launch.serve --fleet (n 96, B 8, compact, 6 sessions, 4 "
+        f"slots, 12 windows each): every session completed; summary "
+        f"{json.dumps(s)}")
+    entries = {
+        "compact_fused": fleet_kernel_phase(torch, SERVE, FL, ON, CF, IN,
+                                            OPS, SP, "compact_fused",
+                                            "compact_fused", "(f2)"),
+        "influence": fleet_kernel_phase(torch, SERVE, FL, ON, CF, IN, OPS,
+                                        SP, "pallas", "influence", "(f3)")}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    try:
+        lane_exactness(torch, SERVE, FL, MetricPack, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    costs = fleet_costs(torch, FL, ON)
+    log("(f5) fleet costs json: " + json.dumps(
+        {str(k): v for k, v in costs.items()}))
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -2764,8 +3243,8 @@ def main():
     from repro_torch.kernels import _build, compact as CK
     from repro_torch.kernels import compact_fused as CF, event_matmul as EM
     from repro_torch.kernels import influence as IN, ops as OPS, wkv as WK
-    from repro_torch.launch import train as TRAIN
-    from repro_torch.runtime import online as ON
+    from repro_torch.launch import serve as SERVE, train as TRAIN
+    from repro_torch.runtime import fleet as FL, online as ON
 
     # -- phase 1: device and build ------------------------------------------
     smi = subprocess.run(
@@ -2939,7 +3418,10 @@ def main():
     # -- phase 10: the telemetry plane --------------------------------------
     telemetry = telemetry_phase(torch, TRAIN, ON, g2)
 
-    # -- phase 11: the kernels line and the result --------------------------
+    # -- phase 11: the stream fleet -----------------------------------------
+    fleet = fleet_phase(torch, SERVE, FL, ON, CF, IN, OPS, SP)
+
+    # -- phase 12: the kernels line and the result --------------------------
     t1, t2 = times["(a) f32"], k2_times["(a) column-compact"]
     kernels = [{"name": "compact_fused", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/compact_fused.cu",
@@ -2963,6 +3445,8 @@ def main():
     kernels[1]["rewire"] = rewire_entry
     kernels[0]["telemetry"] = telemetry["compact_fused"]
     kernels[1]["telemetry"] = telemetry["influence"]
+    kernels[0]["fleet"] = fleet["compact_fused"]
+    kernels[1]["fleet"] = fleet["influence"]
     kernels += [k3_entry, k4_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,9 +23,10 @@ Tree = Any
 
 
 def _gru_forward(w, a, x):
-    u = torch.sigmoid(x @ w["u"]["W"] + a @ w["u"]["R"] + w["u"]["b"])
-    r = torch.sigmoid(x @ w["r"]["W"] + a @ w["r"]["R"] + w["r"]["b"])
-    z = torch.tanh(x @ w["z"]["W"] + (r * a) @ w["z"]["R"] + w["z"]["b"])
+    mm = cells.slot_mm
+    u = torch.sigmoid(mm(x, w["u"]["W"]) + mm(a, w["u"]["R"]) + w["u"]["b"])
+    r = torch.sigmoid(mm(x, w["r"]["W"]) + mm(a, w["r"]["R"]) + w["r"]["b"])
+    z = torch.tanh(mm(x, w["z"]["W"]) + mm(r * a, w["z"]["R"]) + w["z"]["b"])
     v = u * z + (1.0 - u) * a - w["theta"]
     return v, (u, r, z)
 
@@ -53,7 +54,8 @@ def _cell_partials_impl(cfg: EGRUConfig, w: Tree, a_prev: torch.Tensor,
     B, n = a_prev.shape
     ones = a_prev.new_ones((B, 1))
     if cfg.kind == "rnn":
-        v = x_t @ w["v"]["W"] + a_prev @ w["v"]["R"] + w["v"]["b"] - w["theta"]
+        v = (cells.slot_mm(x_t, w["v"]["W"]) + cells.slot_mm(a_prev, w["v"]["R"])
+             + w["v"]["b"] - w["theta"])
         a_new, hp = _activation(cfg, v)
         Jhat = w["v"]["R"].T[None].expand(B, n, n)
         # group vector g = (x, a_prev, 1, -1): diag Mbar coefficient = 1

@@ -27,9 +27,12 @@ The port runs on one device, so it writes whole leaves only (one
 `s_full` file, `"index": null`).  Its reader still assembles a sharded
 checkpoint of the JAX package from its shard files.  Placement by target
 shardings (the JAX package's `shardings` argument, elastic re-mesh) is
-not ported: ROADMAP Queue 1 item 13.  The session-keyed store of the
-stream fleet (`save_session`, `load_session`, `list_sessions`) is ROADMAP
-Queue 1 item 10.
+not ported: ROADMAP Queue 1 item 13.
+
+The session-keyed store of the stream fleet (`save_session`,
+`load_session`, `list_sessions`) keeps one checkpoint lineage a session
+under `<root>/session/<sid>/step_*`, the JAX package's layout, so a session
+either package evicted resumes in the other.
 """
 from __future__ import annotations
 
@@ -314,3 +317,60 @@ class CheckpointManager:
         gc-truncated directory does not shadow a good older one)."""
         steps = valid_steps(self.root)
         return steps[-1] if steps else -1
+
+
+# ---------------------------------------------------------------------------
+# Session-keyed store: per-session namespacing for the stream fleet
+# ---------------------------------------------------------------------------
+#
+# A StreamFleet (runtime/fleet.py) evicts idle sessions — full {carry, opt
+# state, stream position} trees — and resumes them bit for bit later,
+# possibly into another slot or another process.  Each session gets its own
+# checkpoint lineage under `<root>/session/<sid>/`, on the atomic write and
+# the validation above: a truncated eviction write falls back to the
+# session's previous valid state instead of poisoning the resume.
+
+_SID_OK = frozenset(
+    "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789._-")
+
+
+def _session_dir(root: str | Path, sid: str) -> Path:
+    """`<root>/session/<sid>` with the sid validated as a single path
+    component — a sid like '../step_0' must not escape the namespace."""
+    if not sid or any(c not in _SID_OK for c in sid) or sid in (".", ".."):
+        raise ValueError(
+            f"invalid session id {sid!r}: use [A-Za-z0-9._-]+ (a single "
+            "path component)")
+    return Path(root) / "session" / sid
+
+
+def save_session(root: str | Path, sid: str, tree: Tree, step: int = 0,
+                 extra: dict | None = None) -> Path:
+    """Atomically persist one session's state under its own namespace.
+    `step` keys the lineage (the fleet uses the session's update count), so
+    repeated evictions of the same session keep their history like any
+    other checkpoint root."""
+    return save_checkpoint(_session_dir(root, sid), step, tree, extra)
+
+
+def load_session(root: str | Path, sid: str, tree_like: Tree,
+                 step: int | None = None):
+    """Restore one session (the newest VALID step by default, with the
+    fallback of `load_checkpoint`).  Returns (tree, step); raises
+    CheckpointError if the session has no valid checkpoint."""
+    sdir = _session_dir(root, sid)
+    tree, got = load_checkpoint(sdir, tree_like, step)
+    if tree is None:
+        raise CheckpointError(
+            f"session {sid!r} has no valid checkpoint under {sdir}")
+    return tree, got
+
+
+def list_sessions(root: str | Path) -> list:
+    """Session ids under `root` that have at least one VALID checkpoint,
+    sorted — the fleet's resumable population."""
+    base = Path(root) / "session"
+    if not base.is_dir():
+        return []
+    return sorted(p.name for p in base.iterdir()
+                  if p.is_dir() and valid_steps(p))

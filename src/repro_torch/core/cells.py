@@ -111,6 +111,24 @@ def init_state(cfg: EGRUConfig, batch: int, *,
                        device=device)
 
 
+def slot_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for 2-D a and b, as the products ``a[i, k] * b[k, j]`` and
+    one sum over k, the innermost axis.
+
+    A slot of the stream fleet (`runtime.fleet`, under `torch.func.vmap`)
+    then rounds as the same call alone: the sum over an innermost axis this
+    short runs in an order set by its length, on the CPU and on the card,
+    whatever the leading axes.  A library product does not: vmapped over
+    two slot tensors it becomes a batched product, which ATen on the CPU
+    computes with its own loop below 400 multiply-adds a product while the
+    unbatched ``mm`` goes to BLAS, and for which cuBLAS picks its kernel by
+    the batch count (on the H100 a fleet's products differed from the
+    session's own by 1e-7, which adamw's first step spread to 6.7e-6).  The
+    products here are the cell's and the readout's: a few hundred to a few
+    thousand multiply-adds."""
+    return (a[:, None, :] * b.T[None, :, :]).sum(-1)
+
+
 # ---------------------------------------------------------------------------
 # Cell step
 # ---------------------------------------------------------------------------

@@ -180,14 +180,17 @@ class _LearnerBase:
         """Instantaneous loss xent(a W + b, y) / tt with its gradients in
         closed form: (loss, logits, {"W", "b"} readout grads, c-bar =
         dL/da)."""
-        logits = a @ po["W"] + po["b"]
+        mm = cells.slot_mm          # rounds alike in a vmapped fleet slot
+        logits = mm(a, po["W"]) + po["b"]
         logp = torch.log_softmax(logits, dim=-1)
         yl = y.long()[:, None]
         loss = -logp.gather(1, yl).mean() / tt
-        onehot = torch.zeros_like(logp).scatter_(1, yl, 1.0)
+        # out of place: vmap has a batching rule for `scatter`, not for
+        # `scatter_`
+        onehot = torch.zeros_like(logp).scatter(1, yl, 1.0)
         dlogits = (logp.exp() - onehot) / (a.shape[0] * tt)
-        gout = {"W": a.T @ dlogits, "b": dlogits.sum(dim=0)}
-        return loss, logits, gout, dlogits @ po["W"].T
+        gout = {"W": mm(a.T, dlogits), "b": dlogits.sum(dim=0)}
+        return loss, logits, gout, mm(dlogits, po["W"].T)
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +351,7 @@ class SparseLearner(_LearnerBase):
                                           block_masks=self._kmasks)
             lt, logits, gout_t, cbar = self._inst_loss_and_grads(
                 params["out"], a_new, y_t, carry["t_total"])
-            gw_t = torch.einsum("bk,bkp->p", cbar, M_new)
+            gw_t = CK.row_contract(cbar, M_new)
             new["gw"] = carry["gw"] + gw_t
             new["M"] = M_new
             row_density = (M_new != 0.0).any(dim=2).float().mean()
@@ -697,7 +700,7 @@ class StackedLearner(_LearnerBase):
                 inp = a_new
             lt, logits, gout_t, cbar = self._inst_loss_and_grads(
                 params["out"], a_news[-1], y_t, carry["t_total"])
-            gw_t = torch.einsum("bk,bkp->p", cbar, M_news[-1])
+            gw_t = CK.row_contract(cbar, M_news[-1])
             new["M"] = tuple(M_news)
             row_density = torch.stack([(M != 0.0).any(dim=2).float().mean()
                                        for M in M_news]).mean()

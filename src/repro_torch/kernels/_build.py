@@ -20,6 +20,23 @@ a failed build raises with nvcc's stderr.  Nothing here runs at import.
 entered only when it is not current, the raw stream handle, the arguments
 packed.  `refuse_autograd` is the check every wrapper makes
 before a launch: the kernels have no backward.
+
+The slot fold (`fold`, `is_transformed`): the stream fleet
+(`runtime.fleet`) runs its sessions' update chunk under `torch.func.vmap`,
+one slot a session.  A tensor there has no storage of its own, so a wrapper
+that launches from raw data pointers (K1, `compact_fused.fused_update`; K2,
+`influence.influence_update`) cannot run on it.  Both kernels take a batch
+of examples and the slots differ only in their examples, so the wrapper
+hands such a call to `fold`: an autograd.Function whose vmap rule folds the
+slot axis into the example axis ([S, B, ...] -> [S*B, ...]), calls the
+wrapper once on plain tensors and unfolds its output.  Operands that every
+slot shares (K2's constant block masks and its block counter) pass through
+unfolded; a batched one raises.  On the CPU the wrapper runs its plain
+version on the folded operands, so the CPU tests walk the same fold.  The
+wrapper looks for a vmapped slot only where an unbatched call never goes:
+where the operands differ from the last call's, and where a data pointer
+cannot be read (a slot has no storage, and its shapes can match).  So an
+unbatched call pays nothing for the route.
 """
 from __future__ import annotations
 
@@ -31,6 +48,7 @@ import struct
 import subprocess
 import time
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -234,3 +252,51 @@ class KernelCall:
             raise RuntimeError(f"{self.kernel}: kernel launch failed: "
                                f"{error_string(self.lib, err)}")
 
+
+# ---------------------------------------------------------------------------
+# The slot fold
+# ---------------------------------------------------------------------------
+
+def is_transformed(t: torch.Tensor) -> bool:
+    """True for a tensor wrapped by a `torch.func` transform (a slot of a
+    vmapped fleet, say): it has no storage of its own and its values cannot
+    steer the host."""
+    return torch._C._functorch.is_functorch_wrapped_tensor(t)
+
+
+class _Fold(torch.autograd.Function):
+    """fn(*args), with a vmap rule that calls fn once for every slot."""
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(fn, shared, *args):
+        return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, fn, shared, *args):
+        S = info.batch_size
+        folded = []
+        for i, (a, d) in enumerate(zip(args, in_dims[2:])):
+            if a is None or i in shared:
+                if d is not None:
+                    raise ValueError(
+                        f"{fn.__name__}: operand {i} is shared by every "
+                        "slot of the fold and cannot differ between slots")
+                folded.append(a)
+                continue
+            a = a.expand(S, *a.shape) if d is None else a.movedim(d, 0)
+            folded.append(a.reshape(S * a.shape[1], *a.shape[2:])
+                          .contiguous())
+        out = fn(*folded)
+        return out.reshape(S, out.shape[0] // S, *out.shape[1:]), 0
+
+
+def fold(fn: Callable, args: tuple, shared: tuple = ()):
+    """fn(*args) under `torch.func.vmap`, as one call of fn on the operands
+    with the slot axis folded into their leading (example) axis; `shared`
+    names the positions of operands that every slot shares."""
+    return _Fold.apply(fn, shared, *args)

@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels._build import is_transformed
+
 DEAD = -1   # THE dead-slot sentinel: every idx array here is -1 or in [0, n)
 
 
@@ -28,10 +30,12 @@ class CompactInfluence(NamedTuple):
 
 def check_idx(idx: torch.Tensor, n: int) -> None:
     """Assert the -1 dead-slot convention: every entry is DEAD or a valid
-    row in [0, n).  Checked on CPU tensors only — on the card the check
-    would stall the stream for a device-to-host copy every step, as the
-    JAX package skips it under jit."""
-    if idx.device.type != "cpu":
+    row in [0, n).  Checked on plain CPU tensors only — on the card the
+    check would stall the stream for a device-to-host copy every step, as
+    the JAX package skips it under jit, and under `torch.func.vmap` (the
+    stream fleet) a tensor cannot steer Python control flow, as a traced
+    value cannot under jit."""
+    if idx.device.type != "cpu" or is_transformed(idx):
         return
     bad = (idx != DEAD) & ((idx < 0) | (idx >= n))
     if bool(bad.any()):
@@ -132,19 +136,27 @@ def compact_influence_step(hp: torch.Tensor, Jhat: torch.Tensor,
     return compact_update(Jgg, Mc.vals, Mbar_g, hp_g, idx_new, count_new, K)
 
 
+def row_contract(c: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """sum_b sum_k c[b, k] M[b, k, :] in f32: per example over the rows,
+    then over the batch — the JAX package's order — as products and two
+    sums over leading axes, so that a slot of the stream fleet (vmapped)
+    rounds as the same call alone (a batched library product would not:
+    cuBLAS picks its kernel by the batch count)."""
+    return (c[:, :, None] * M.float()).sum(dim=1).sum(dim=0)
+
+
 def compact_grads(vals: torch.Tensor, idx: torch.Tensor, cbar: torch.Tensor):
     """Fused gradient extraction  dL/dw = c-bar^T M  on the compact form.
 
     c-bar [B, n] is gathered at the active rows and contracted with vals
-    [B, K, P] per example ([B, K] x [B, K, P] -> [B, P]), then summed over
-    the batch — the JAX package's order.  Returns the flat gradient [P]
-    in f32."""
+    [B, K, P] per example, then summed over the batch (`row_contract`).
+    Returns the flat gradient [P] in f32."""
     n = cbar.shape[1]
     check_idx(idx, n)
     safe = idx.clamp(0, n - 1).long()
     live = idx >= 0
     cb = cbar.gather(1, safe) * live                            # [B, K]
-    return torch.bmm(cb[:, None, :], vals.float())[:, 0].sum(dim=0)
+    return row_contract(cb, vals)
 
 
 def compact_to_dense(Mc: CompactInfluence, n: int) -> torch.Tensor:

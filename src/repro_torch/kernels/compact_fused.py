@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, compact as CK
+from repro_torch.kernels._build import fold, is_transformed
 
 # gate-segment kinds on the compact column axis (see fused_segments)
 _DIAG, _RGATE, _THETA = "diag", "r", "theta"
@@ -160,11 +161,17 @@ def fused_update(Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev,
     The operands are checked in one comparison per tensor against the last
     call's shapes; only where that fails are the shapes looked at again.
     The kernel has no backward: an operand that requires grad under grad
-    mode raises."""
+    mode raises.
+
+    Under `torch.func.vmap` (the stream fleet) the slots fold into the
+    example axis (`kernels._build.fold`): one launch for every slot, counted
+    once."""
     args = (Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev, count_new,
             count_prev)
     call = _last[0]
     if call is None or not call.matches(args):
+        if is_transformed(vals):
+            return fold(fused_update, args)
         dev = vals.device
         if dev.type == "cpu":
             return fused_reference(*args)
@@ -179,7 +186,14 @@ def fused_update(Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev,
         call.check(args)
         _last[0] = call
     _build.refuse_autograd("fused_update", Jhat, vals, mbar_rows, hp_rows)
-    ptrs = list(map(torch.Tensor.data_ptr, args))
+    try:
+        ptrs = list(map(torch.Tensor.data_ptr, args))
+    except RuntimeError:
+        # a vmapped slot has no storage, and its shapes can match the last
+        # call's: only here, off the unbatched call's path, is it folded
+        if is_transformed(vals):
+            return fold(fused_update, args)
+        raise
     if (ptrs[1] | ptrs[2]) & 15:
         raise ValueError("fused_update: vals and mbar_rows must be 16-byte "
                          "aligned")

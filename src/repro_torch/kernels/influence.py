@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import fold, is_transformed
 
 BK = BL = 8        # rows of an output block / of an l-block
 BP = 128           # columns of a block
@@ -171,12 +172,20 @@ def influence_update(hp, Jhat, M, Mbar, *, row_mask, prev_mask, col_mask,
     time); a fresh or padded tensor is.  The operands are checked in one
     comparison per tensor against the last call's shapes; only where that
     fails are the shapes looked at again.  The kernel has no backward: a
-    float operand that requires grad under grad mode raises."""
+    float operand that requires grad under grad mode raises.
+
+    Under `torch.func.vmap` (the stream fleet) the slots fold into the
+    example axis (`kernels._build.fold`): one launch for every slot,
+    counted once, with col_mask, jmask and block_count shared by every
+    slot (the counter then adds the blocks of all of them)."""
     args = (hp, Jhat, M, Mbar, row_mask, prev_mask, col_mask, jmask)
     if block_count is not None:
         args += (block_count,)
     call = _last[0]
     if call is None or not call.matches(args):
+        if is_transformed(M):
+            return _fold(hp, Jhat, M, Mbar, row_mask, prev_mask, col_mask,
+                         jmask, block_count)
         dev = M.device
         if dev.type == "cpu":
             masks = dict(row_mask=row_mask, prev_mask=prev_mask,
@@ -194,7 +203,15 @@ def influence_update(hp, Jhat, M, Mbar, *, row_mask, prev_mask, col_mask,
         call.check(args)
         _last[0] = call
     _build.refuse_autograd("influence_update", hp, Jhat, M, Mbar)
-    ptrs = list(map(torch.Tensor.data_ptr, args))
+    try:
+        ptrs = list(map(torch.Tensor.data_ptr, args))
+    except RuntimeError:
+        # a vmapped slot has no storage, and its shapes can match the last
+        # call's: only here, off the unbatched call's path, is it folded
+        if is_transformed(M):
+            return _fold(hp, Jhat, M, Mbar, row_mask, prev_mask, col_mask,
+                         jmask, block_count)
+        raise
     if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15:
         raise ValueError("influence_update: hp, Jhat, M and Mbar must be "
                          "16-byte aligned")
@@ -206,6 +223,20 @@ def influence_update(hp, Jhat, M, Mbar, *, row_mask, prev_mask, col_mask,
 
 
 influence_update.launches = 0
+
+
+def _folded_update(hp, Jhat, M, Mbar, row_mask, prev_mask, col_mask, jmask,
+                   block_count):
+    """`influence_update` with every operand positional (the fold's call)."""
+    return influence_update(hp, Jhat, M, Mbar, row_mask=row_mask,
+                            prev_mask=prev_mask, col_mask=col_mask,
+                            jmask=jmask, block_count=block_count)
+
+
+def _fold(*args):
+    """One launch for every slot of a vmapped call: the masks and the block
+    counter shared, the rest folded into the examples."""
+    return fold(_folded_update, args, shared=(6, 7, 8))
 
 
 def empty_launch(device) -> None:

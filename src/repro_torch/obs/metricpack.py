@@ -37,6 +37,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.kernels._build import is_transformed
 from repro_torch.tree import tree_leaves
 
 Tree = Any
@@ -50,11 +51,17 @@ def global_norm(tree) -> torch.Tensor:
     clip decision used.  A multi-tensor reduction (`get_total_norm`, the
     foreach kernels where the device has them): one norm a leaf, then the
     norm of those, with no copy of the tree (a leaf of another dtype is
-    widened to float32 first, as the reference widens every leaf)."""
+    widened to float32 first, as the reference widens every leaf).  Under
+    `torch.func.vmap` (a stream fleet's slots), which has no batching rule
+    for the foreach kernels, the same two stages run one reduction a leaf,
+    each slot getting its own norm."""
     leaves = [x if x.dtype == torch.float32 else x.float()
               for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
     if not leaves:
         return torch.zeros((), dtype=torch.float32)
+    if any(map(is_transformed, leaves)):
+        norms = [torch.linalg.vector_norm(x) for x in leaves]
+        return torch.linalg.vector_norm(torch.stack(norms))
     return torch.nn.utils.get_total_norm(leaves, 2.0)
 
 

@@ -8,7 +8,9 @@ are ROADMAP Queue 1 item 14).  An :class:`Optimizer` is (init, update):
     params', state'  = opt.update(grads, state, params, step)
 
 Updates return new tensors; nothing is modified in place.  ``step`` is the
-integer update count.
+integer update count, or, for a batch of slots updated under
+`torch.func.vmap` (the stream fleet), what ``opt.slot_steps(counts,
+device)`` makes of the slots' counts: each slot may stand at another count.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.tree import apply_mask_tree, tree_map
+from repro_torch.tree import apply_mask_tree, tree_leaves, tree_map
 
 Tree = Any
 
@@ -27,6 +29,9 @@ Tree = Any
 class Optimizer:
     init: Callable[[Tree], Tree]
     update: Callable[[Tree, Tree, Tree, int], tuple[Tree, Tree]]
+    # ([S] host update counts, device) -> the step argument of a vmapped
+    # update, one entry a slot along axis 0
+    slot_steps: Callable[[Any, Any], Tree]
 
 
 def _ipow1(base: float, step: int) -> np.float32:
@@ -46,6 +51,21 @@ def _ipow1(base: float, step: int) -> np.float32:
 
 
 def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
+    """`step` is the host integer update count, or the pair (c1, c2) of
+    bias corrections that `slot_steps` computes on the host for every
+    slot's count (the same float32 rounding).  Either way the moments are
+    divided by a float32 tensor, so that a slot's m / c1 is bitwise the
+    unbatched update's on every device (CUDA would take a host scalar
+    divisor as a product with its reciprocal)."""
+    def bias(step: int) -> tuple[float, float]:
+        return (float(np.float32(1.0) - _ipow1(b1, step)),
+                float(np.float32(1.0) - _ipow1(b2, step)))
+
+    def slot_steps(counts, device):
+        c = np.array([bias(int(s)) for s in counts], dtype=np.float32)
+        c = torch.as_tensor(c.reshape(-1, 2), device=device)
+        return c[:, 0], c[:, 1]
+
     def init(params):
         return {"m": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                               params),
@@ -53,8 +73,12 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
                               params)}
 
     def update(grads, state, params, step):
-        c1 = float(np.float32(1.0) - _ipow1(b1, step))
-        c2 = float(np.float32(1.0) - _ipow1(b2, step))
+        if isinstance(step, tuple):
+            c1, c2 = step
+        else:
+            dev = tree_leaves(state["m"])[0].device
+            c1, c2 = (torch.full((), c, dtype=torch.float32, device=dev)
+                      for c in bias(step))
 
         def leaf(g, m, v, p):
             g = g.float()
@@ -69,7 +93,7 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
         out = tree_map(leaf, grads, state["m"], state["v"], params)
         return _pick(out, 0), {"m": _pick(out, 1), "v": _pick(out, 2)}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, slot_steps)
 
 
 def _pick(tree, i):
@@ -89,7 +113,7 @@ def masked(opt: Optimizer, mask: Tree) -> Optimizer:
                                   params, step)
         return apply_mask_tree(mask, p_new), s_new
 
-    return Optimizer(opt.init, update)
+    return Optimizer(opt.init, update, opt.slot_steps)
 
 
 def masked_dynamic(opt: Optimizer, mask0: Tree) -> Optimizer:
@@ -107,7 +131,7 @@ def masked_dynamic(opt: Optimizer, mask0: Tree) -> Optimizer:
                                   state["inner"], params, step)
         return apply_mask_tree(mk, p_new), {"inner": s_new, "mask": mk}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, opt.slot_steps)
 
 
 def set_opt_mask(state: Tree, new_mask: Tree) -> Tree:

@@ -296,6 +296,85 @@ def test_influence_kernel_rejects_bad_operands(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("solo_first", [False, True])
+def test_kernel_folds_vmapped_slots_into_one_launch(cuda, dtype, solo_first):
+    """K1 under torch.func.vmap (the stream fleet's slots): one launch for
+    every slot, each slot within the bar of the plain version on its own
+    operands, its dead rows exactly 0 — also right after an unbatched call
+    of a slot's shapes, which the vmapped call's shapes match."""
+    slots = [_operands(cuda, dtype, 4, 16, 40, 384, seed=s) for s in range(3)]
+    stacked = [torch.stack([ops[i] for ops in slots]) for i in range(8)]
+    if solo_first:
+        CF.fused_update(*slots[0])
+    before = CF.fused_update.launches
+    out = torch.func.vmap(CF.fused_update)(*stacked)
+    torch.cuda.synchronize()
+    assert CF.fused_update.launches == before + 1
+    assert out.shape == stacked[1].shape and out.dtype == dtype
+    for s, ops in enumerate(slots):
+        ref = CF.fused_reference(*ops).float()
+        o = out[s].float()
+        err = (o - ref).abs()
+        scale = max(float(ref.abs().max()), 1.0)
+        if dtype == torch.float32:
+            assert float(err.max()) <= F32_REL * scale
+        else:
+            assert bool((err <= BF16_STEP * ref.abs() + F32_REL * scale).all())
+        dead = torch.arange(16, device=cuda)[None, :] >= ops[6][:, None]
+        assert bool((o[dead] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solo_first", [False, True])
+def test_influence_kernel_folds_vmapped_slots_into_one_launch(cuda,
+                                                              solo_first):
+    """K2 under torch.func.vmap: one launch for every slot, the column and
+    J block masks shared, each slot within the bar of the plain version,
+    and the shared counter adding every slot's executed blocks — also right
+    after an unbatched call of a slot's shapes."""
+    slots = []
+    for s in range(3):
+        a = list(_k2_operands(4, 20, 130, beta=0.3, dead_example=s == 1,
+                              masked=True, zero_M=False, seed=0))
+        rng = np.random.default_rng(10 + s)     # slot-own values, one pattern
+        a[0] = np.where(a[0] != 0, rng.random(a[0].shape), 0.0).astype(
+            np.float32)
+        a[2] = (a[2] * rng.normal(size=a[2].shape)).astype(np.float32)
+        slots.append(a)
+    t = [[None if x is None else torch.from_numpy(x).to(cuda) for x in a]
+         for a in slots]
+    ops = [OPS.influence_operands(*ts) for ts in t]
+    stacked = [torch.stack([o[i] for o in ops]) for i in range(6)]
+    if solo_first:
+        IN.influence_update(*ops[0][:4], row_mask=ops[0][4],
+                            prev_mask=ops[0][5], col_mask=ops[0][6],
+                            jmask=ops[0][7],
+                            block_count=torch.zeros(1, dtype=torch.int64,
+                                                    device=cuda))
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    before = IN.influence_update.launches
+    out = torch.func.vmap(
+        lambda hp, J, M, Mb, row, prev: IN.influence_update(
+            hp, J, M, Mb, row_mask=row, prev_mask=prev, col_mask=ops[0][6],
+            jmask=ops[0][7], block_count=count))(*stacked)
+    torch.cuda.synchronize()
+    assert IN.influence_update.launches == before + 1
+    want_blocks = 0
+    for s, o in enumerate(ops):
+        masks = dict(row_mask=o[4], prev_mask=o[5], col_mask=o[6],
+                     jmask=o[7])
+        ref = IN.influence_reference(*o[:4], **masks)
+        scale = max(float(ref.abs().max()), 1.0)
+        assert float((out[s] - ref).abs().max()) <= F32_REL * scale
+        total = 4 * o[4].shape[1] * o[5].shape[1] * o[6].shape[0]
+        a = slots[s]
+        want_blocks += round(OPS.realized_block_savings(a[0], a[2], a[4], a[5])
+                             * total)
+    assert int(count) == want_blocks
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("backend", ["compact", "compact_fused", "pallas",
                                      "dense"])
 def test_first_window_on_cuda_matches_cpu(cuda, backend):

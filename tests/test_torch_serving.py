@@ -77,12 +77,11 @@ def test_serve_launcher_smoke_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--arch", "rwkv6-3b", "--fleet", "--device", "cpu"], "item 10"),
     (["--arch", "gemma2-2b", "--smoke", "--device", "cpu"], "item 14"),
     (["--smoke", "--device", "cpu"], "item 14"),         # the reference's default arch
-    # telemetry is ported: beside --fleet it still meets the fleet's refusal
-    (["--arch", "rwkv6-3b", "--fleet", "--smoke", "--device", "cpu",
-      "--metrics-dir", "x", "--trace"], "item 10"),
+    # telemetry is ported: beside an unported arch it still meets the refusal
+    (["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
+      "--metrics-dir", "x", "--trace"], "item 14"),
 ])
 def test_serve_launcher_rejects_what_is_not_ported(argv, match, tmp_path,
                                                    monkeypatch):
