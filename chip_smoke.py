@@ -203,11 +203,36 @@ checkout, it exits non-zero and prints no result.  Phases:
      and idle share of a window from traces; S = 256 the fleet window
      alone; (g) a 64-slot fleet's bytes and window peak against 64 x
      session_carry_bytes;
- 12. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
+ 12. the online token LM (`--arch {egru,rglru,snn}-lm --online` at the
+     reference's defaults: width 64, vocab 64, batch 4, seq 64, k 8, lr
+     3e-3, 20 updates), every run with the counts set to 0 just before and
+     read just after, its checkpoints and metrics directories under a
+     temporary root that is removed at the end: egru-lm with every
+     backend at --sparsity 0.8 and pallas at 0 (K1 160 with compact_fused,
+     K2 160 with pallas), rglru-lm at 0 and 0.5, snn-lm (no kernel), finite
+     losses, overflow 0; (l1) K1 on the operands of a real egru-lm step
+     (K, P, Pc, Pc_pad printed) against its plain version, dead rows 0;
+     the first window of compact_fused, pallas and compact against dense
+     and against the window BPTT oracle (a label a step, on the surviving
+     parameters), and the card's compact_fused window against the CPU's;
+     (l2) K2 on real steps' operands at --sparsity 0.8 (column-compact)
+     and 0 (full width, P_pad 24,832): 0.0 against its plain version,
+     executed blocks the host's; (l3) rglru-lm (0 and 0.5) within 1e-5 of
+     its BPTT oracle, snn-lm's e-prop with cosine >= 0.9 on W and R (the
+     readout within 1e-5), each against the CPU; (l4) crash and resume
+     with `--ckpt-every 5 --fail-at 7` for egru-lm compact_fused (K1 176 /
+     160) and rglru-lm 0.5, final checkpoints bitwise; (l5) `--metrics-dir
+     --trace` on each arch: the validator clean, 20 `window` events with
+     the engine's fields, losses bitwise the bare run's; (c) traces of
+     egru-lm compact_fused and pallas and of rglru-lm (device ops a stream
+     step, idle share, K1/K2 µs a launch), K1 at (l1)'s and K2 at (l2)'s
+     operands timed as in phases 2 and 3, K1's launch shape there;
+ 13. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
      K1's and K2's with a "stacked" entry for phase 8's path, K1's with a
      "guard" and K2's with a "rewire" entry for phase 9's, both with a
-     "telemetry" entry for phase 10's and a "fleet" entry for phase 11's,
-     then the result line {"ok": true, "device": {...}}.
+     "telemetry" entry for phase 10's, a "fleet" entry for phase 11's and
+     an "lm" entry for phase 12's, then the result line {"ok": true,
+     "device": {...}}.
 
 Tolerances: a float32 kernel result is within 1e-5 of the largest
 magnitude of the plain version's (the sums associate differently); a bf16
@@ -762,7 +787,7 @@ TELEMETRY_ROUNDS = 12
 
 
 def trace_main_path(torch, TRAIN, ON, backend, kernel, *extra, warm=2,
-                    traced=2, k=8, telemetry=None):
+                    traced=2, k=8, telemetry=None, argv=None):
     """Where a main-path window's time goes: a torch.profiler trace of
     `traced` windows after `warm` untraced ones, in a run of its own (the
     window times come from the untraced run).  Reports device kernels per
@@ -774,12 +799,13 @@ def trace_main_path(torch, TRAIN, ON, backend, kernel, *extra, warm=2,
     copies in the traced run, its end included), "window_kernels" and
     "window_dtoh" (the port kernel's launches and the device-to-host
     copies inside each `window` record_function span; [] without spans)}
-    (None where the profiler recorded no device event)."""
+    (None where the profiler recorded no device event).  `argv` replaces
+    the main path's arguments (the token LM's run, phase 12)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.runtime.guard import GuardConfig
-    args = TRAIN.parse_args(main_argv(backend, *extra))
-    run = TRAIN.build_online(args)
+    args = TRAIN.parse_args(argv or main_argv(backend, *extra))
+    run = built_run(TRAIN, args)
     tr = ON.OnlineTrainer(
         ON.OnlineTrainerConfig(total_steps=warm * k, update_every=k),
         run["learner"], run["opt"], run["params"], run["masks"],
@@ -854,11 +880,18 @@ def run_counted(TRAIN, argv):
     return out, read_counts()
 
 
+def built_run(TRAIN, args):
+    """The launcher's online run of `args`: the token LM's (phase 12) or
+    the spiral stream's."""
+    return (TRAIN.build_lm if args.arch in TRAIN.LM_ARCHS
+            else TRAIN.build_online)(args)
+
+
 def ckpt_like(TRAIN, argv):
     """The checkpoint tree of a launcher run's trainer, for load_checkpoint."""
     args = TRAIN.parse_args(argv)
     if args.online:
-        return TRAIN.online_trainers(args, TRAIN.build_online(args))(1) \
+        return TRAIN.online_trainers(args, built_run(TRAIN, args))(1) \
             ._ckpt_tree()
     return TRAIN.offline_trainers(args, TRAIN.build_offline(args))(1) \
         ._ckpt_tree()
@@ -894,8 +927,9 @@ def crash_and_resume(torch, TRAIN, CKP, argv, kernel, root, label,
     """The run with one crash at update/step 7 (checkpoints every 5) and
     the same run without it: restarts 1 and 0, the launches of `kernel`
     (one a layer a stream step; the crashed run replays two windows or
-    steps), the records after the resume equal to the uncrashed run's, and
-    the final checkpoints bit for bit."""
+    steps; None: a run that launches no kernel), the records after the
+    resume equal to the uncrashed run's, and the final checkpoints bit for
+    bit."""
     online = "--online" in argv
     a, ca = run_counted(TRAIN, [*argv, "--fail-at", "7", "--ckpt-dir",
                                 str(root / "a")])
@@ -907,8 +941,10 @@ def crash_and_resume(torch, TRAIN, CKP, argv, kernel, root, label,
     check(a["final_step"] == b["final_step"] == done,
           f"{label}: final steps {a['final_step']} / {b['final_step']}")
     n_units = done // 8 if online else done
-    check_counts(ca, {kernel: (n_units + 2) * per}, f"{label} crashed")
-    check_counts(cb, {kernel: n_units * per}, f"{label} uncrashed")
+    check_counts(ca, {kernel: (n_units + 2) * per} if kernel else {},
+                 f"{label} crashed")
+    check_counts(cb, {kernel: n_units * per} if kernel else {},
+                 f"{label} uncrashed")
     key, recs = ("update", "windows") if online else ("step", "steps")
     b_loss = {r[key]: r["loss"] for r in b[recs]}
     check([r[key] for r in a[recs]] == list(range(6, n_units + 1)),
@@ -918,8 +954,10 @@ def crash_and_resume(torch, TRAIN, CKP, argv, kernel, root, label,
     like = ckpt_like(TRAIN, [*argv, "--ckpt-dir", str(root / "like")])
     n, tree = checkpoints_bitwise(torch, CKP, root / "a", root / "b", like,
                                   label)
-    log(f"resume {label}: restarts 1 / 0, {kernel} launches "
-        f"{ca[kernel]} / {cb[kernel]}, final step {done}, {len(a[recs])} "
+    launched = (f"{kernel} launches {ca[kernel]} / {cb[kernel]}" if kernel
+                else "no kernel launches")
+    log(f"resume {label}: restarts 1 / 0, {launched}, final step {done}, "
+        f"{len(a[recs])} "
         f"records after the resume equal to the uncrashed run's, final "
         f"checkpoints bitwise on {n} leaves")
     return a, b, tree
@@ -2664,6 +2702,295 @@ def fleet_phase(torch, SERVE, FL, ON, CF, IN, OPS, SP):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the online token LM
+# ---------------------------------------------------------------------------
+
+# the packed fields a window event carries on each LM path (K1_FIELDS on
+# egru-lm's compact_fused run)
+LM_FIELDS = {"rglru-lm": ("loss", "grad_norm", "clip_factor", "health"),
+             "snn-lm": ("loss", "grad_norm", "act_sparsity", "clip_factor",
+                        "health")}
+
+
+def lm_argv(arch="egru-lm", *extra):
+    """The online token LM's launcher arguments at the reference's defaults
+    (width 64, vocab 64, batch 4, seq 64, lr 3e-3; k 8, 20 updates; no
+    --device: it runs on CUDA)."""
+    return ["--arch", arch, "--online", "--update-every", "8", "--steps",
+            "20", "--seed", "0", *extra]
+
+
+def lm_first_window(torch, TRAIN, ON, BP, argv, oracle=False):
+    """The first window (k=8) of an LM launcher run: (loss, grads), and
+    with `oracle` also the BPTT oracle's (loss, grads) through the same
+    window on the run's device, the pruned parameters' gradients masked
+    as the optimizer masks them."""
+    from repro_torch.cells import resolve_cell
+    from repro_torch.tree import apply_mask_tree
+    run = TRAIN.build_lm(TRAIN.parse_args(argv))
+    xs, ys = stream_window(torch, run, 8)
+    carry = run["learner"].init(run["params"], run["masks"], (xs[0], ys[0]),
+                                t_total=8.0)
+    _, loss, grads, _ = ON.stream_grads(run["learner"], carry, xs, ys)
+    if not oracle:
+        return float(loss), grads
+    bloss, bgrads = BP.window_bptt_loss_and_grads(resolve_cell(run["cfg"]),
+                                                  run["params"], xs, ys)
+    if run["masks"] is not None:
+        bgrads = apply_mask_tree(run["masks"], bgrads)
+    return (float(loss), grads), (float(bloss), bgrads)
+
+
+def lm_step_carry(torch, TRAIN, ON, argv, steps=5):
+    """An LM run stepped `steps` times from init: (run, carry, the next
+    stream step's x)."""
+    run = TRAIN.build_lm(TRAIN.parse_args(argv))
+    xs, ys = stream_window(torch, run, steps + 1)
+    carry = run["learner"].init(run["params"], run["masks"], (xs[0], ys[0]),
+                                t_total=8.0)
+    carry, _, _, _ = ON.stream_grads(run["learner"], carry, xs[:steps],
+                                     ys[:steps])
+    return run, carry, xs[steps]
+
+
+def lm_k1_operands(torch, TRAIN, SP, ON):
+    """K1's operands at a live step of egru-lm's compact_fused run (l1),
+    its column layout and its influence columns P."""
+    run, carry, x = lm_step_carry(torch, TRAIN, ON, lm_argv(
+        "egru-lm", "--rtrl-backend", "compact_fused", "--sparsity", "0.8"))
+    cfg = run["cfg"]
+    layout = SP.flat_layout(cfg)
+    cl = SP.col_layout(layout, run["masks"], device=run["device"])
+    w = {k: v for k, v in carry["params"].items() if k != "out"}
+    _, _, ops, _ = SP.fused_step_operands(cfg, w, layout, carry["a"],
+                                          carry["vals"], carry["idx"], x,
+                                          cl=cl)
+    return list(ops), cl, layout.P
+
+
+def lm_k2_operands(torch, TRAIN, SP, ON, sparsity):
+    """K2's unpadded operands at a live step of egru-lm's pallas run (l2):
+    column-compact at --sparsity 0.8, full width at 0."""
+    run, carry, x = lm_step_carry(torch, TRAIN, ON, lm_argv(
+        "egru-lm", "--rtrl-backend", "pallas", "--sparsity", sparsity))
+    cfg, masks, dev = run["cfg"], run["masks"], run["device"]
+    layout = SP.flat_layout(cfg)
+    compact = carry["M"].shape[-1] != layout.P_pad
+    cl = SP.col_layout(layout, masks, device=dev) if compact else None
+    w = {k: v for k, v in carry["params"].items() if k != "out"}
+    _, _, ops = SP.pallas_step_operands(
+        cfg, w, layout, carry["a"], carry["M"], x, cl=cl,
+        col_mask=cl.live if compact else SP.flat_col_mask(layout, masks,
+                                                          device=dev),
+        jmask=SP.flat_jmask(cfg, masks))
+    return list(ops)
+
+
+def cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a @ b) / (a.norm() * b.norm()))
+
+
+def lm_metrics_run(torch, TRAIN, argv, bare, want, fields, root, label):
+    """(l5): the run with `--metrics-dir D --trace`, counted: the launches
+    `want`, D clean under the validator, 20 `window` events with `fields`,
+    every window's loss bitwise the bare run's."""
+    d = root / label.replace(" ", "_")
+    out, counts = run_counted(TRAIN, [*argv, "--ckpt-every", "0",
+                                      "--metrics-dir", str(d), "--trace"])
+    check_counts(counts, want, f"(l5) {label}")
+    validated_dir(d, f"(l5) {label}")
+    _, wins = window_events(d)
+    check(len(wins) == 20, f"(l5) {label}: {len(wins)} window events")
+    check_window_fields(wins, fields, f"(l5) {label}")
+    check([w["loss"] for w in out["windows"]]
+          == [w["loss"] for w in bare["windows"]],
+          f"(l5) {label}: the instrumented windows differ from the bare run")
+    log(f"(l5) {label} --metrics-dir --trace: launches {counts}, the "
+        f"validator clean, 20 window events with {', '.join(fields)}, "
+        f"losses bitwise the bare run's")
+
+
+def lm_phase(torch, TRAIN, ON, CKP, BP, SP, CF, CK, IN, OPS):
+    """(l1)-(l5) and (c) of the online token LM, at the reference's
+    defaults, its checkpoints and metrics directories under a temporary
+    root that is removed at the end.  Returns K1's and K2's "lm" entries
+    for the kernels line."""
+    import shutil
+    import tempfile
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_"))
+    try:
+        return _lm_checks(torch, TRAIN, ON, CKP, BP, SP, CF, CK, IN, OPS,
+                          root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _lm_checks(torch, TRAIN, ON, CKP, BP, SP, CF, CK, IN, OPS, root):
+    fused = ("--rtrl-backend", "compact_fused", "--sparsity", "0.8")
+    mains = {  # label -> (argv, the launches its run must make)
+        "egru-lm compact_fused 0.8": (lm_argv("egru-lm", *fused),
+                                      {"compact_fused": 160}),
+        "egru-lm pallas 0.8": (lm_argv("egru-lm", "--rtrl-backend", "pallas",
+                                       "--sparsity", "0.8"),
+                               {"influence": 160}),
+        "egru-lm pallas 0": (lm_argv("egru-lm", "--rtrl-backend", "pallas"),
+                             {"influence": 160}),
+        "egru-lm compact 0.8": (lm_argv("egru-lm", "--rtrl-backend",
+                                        "compact", "--sparsity", "0.8"), {}),
+        "egru-lm dense 0.8": (lm_argv("egru-lm", "--sparsity", "0.8"), {}),
+        "rglru-lm 0": (lm_argv("rglru-lm"), {}),
+        "rglru-lm 0.5": (lm_argv("rglru-lm", "--sparsity", "0.5"), {}),
+        "snn-lm": (lm_argv("snn-lm"), {}),
+    }
+    runs = {}
+    for label, (argv, want) in mains.items():
+        out, counts = run_counted(TRAIN, [*argv, "--ckpt-every", "0"])
+        check_counts(counts, want, f"LM {label}")
+        check(out["final_step"] == 160,
+              f"LM {label}: {out['final_step']} stream steps, not 160")
+        losses = [w["loss"] for w in out["windows"]]
+        check(all(math.isfinite(v) for v in losses),
+              f"LM {label}: non-finite loss {losses}")
+        check(out["summary"].get("overflow", 0) == 0, f"LM {label}: overflow")
+        runs[label] = out
+        s = out["summary"]
+        log(f"LM {label}: launches {counts} over 160 stream steps; first "
+            f"window {losses[0]:.6f}, last {losses[-1]:.6f}, median window "
+            f"{s['median_window_ms']:.3f} ms, carry {s['carry_bytes']} bytes"
+            + (f", act {s['act_sparsity']:.4f}" if "act_sparsity" in s else "")
+            + (f", bwd {s['bwd_sparsity']:.4f}" if "bwd_sparsity" in s
+               else ""))
+
+    # (l1) K1 on a real step's operands; first windows against dense and
+    # the BPTT oracle, and the card against the CPU
+    k1_ops, cl, P = lm_k1_operands(torch, TRAIN, SP, ON)
+    B, K, Pc_pad = k1_ops[1].shape
+    log(f"(l1) K1 at egru-lm's operands: B={B} n={k1_ops[0].shape[-1]} K={K} "
+        f"P={P} Pc={cl.Pc} Pc_pad={Pc_pad}, count_new "
+        f"{k1_ops[6].tolist()}, count_prev {k1_ops[7].tolist()}")
+    err_k1 = compare_k1(torch, CF, k1_ops, "(l1) egru-lm f32")
+    firsts = {b: lm_first_window(torch, TRAIN, ON, BP, lm_argv(
+        "egru-lm", "--rtrl-backend", b, "--sparsity", "0.8"))
+        for b in ("compact_fused", "pallas", "compact")}
+    (ld, gd), (lo, go) = lm_first_window(
+        torch, TRAIN, ON, BP, lm_argv("egru-lm", "--sparsity", "0.8"),
+        oracle=True)
+    for b, (lb, gb) in firsts.items():
+        check(abs(lb - ld) <= F32_REL * abs(ld),
+              f"(l1) first window loss {b} {lb} vs dense {ld}")
+        compare_grads(gb, gd, f"(l1) egru-lm {b} vs dense (cuda)")
+        compare_grads(gb, go, f"(l1) egru-lm {b} vs the BPTT oracle (cuda)")
+    check(abs(lo - ld) <= F32_REL * abs(ld),
+          f"(l1) first window loss: BPTT {lo} vs dense {ld}")
+    lc, gc = lm_first_window(torch, TRAIN, ON, BP,
+                             lm_argv("egru-lm", *fused, "--device", "cpu"))
+    lf, gf = firsts["compact_fused"]
+    check(abs(lc - lf) <= F32_REL * abs(lc),
+          f"(l1) first window loss cuda {lf} vs cpu {lc}")
+    compare_grads(gf, gc, "(l1) egru-lm compact_fused cuda vs cpu")
+
+    # (l2) K2 on real steps' operands, column-compact and full width
+    k2 = {}
+    for sp in ("0.8", "0"):
+        err, ops = compare_k2(torch, IN, OPS,
+                              lm_k2_operands(torch, TRAIN, SP, ON, sp),
+                              f"(l2) egru-lm --sparsity {sp}")
+        check(err == 0.0, f"(l2) K2 at --sparsity {sp}: {err:.3e}, not 0.0")
+        k2[sp] = (err, ops)
+
+    # (l3) rglru-lm and snn-lm against their oracles, the card against the
+    # CPU
+    for label, argv in (("rglru-lm 0", lm_argv("rglru-lm")),
+                        ("rglru-lm 0.5", lm_argv("rglru-lm", "--sparsity",
+                                                 "0.5")),
+                        ("snn-lm", lm_argv("snn-lm"))):
+        (l, g), (lo, go) = lm_first_window(torch, TRAIN, ON, BP, argv,
+                                           oracle=True)
+        check(abs(l - lo) <= F32_REL * abs(lo),
+              f"(l3) {label}: first window loss {l} vs BPTT {lo}")
+        if label.startswith("snn"):
+            cos = {k: cosine(g[k], go[k]) for k in ("W", "R")}
+            check(min(cos.values()) >= 0.9,
+                  f"(l3) snn-lm: e-prop cosine with BPTT {cos}")
+            compare_grads(g["out"], go["out"],
+                          "(l3) snn-lm readout vs the BPTT oracle (cuda)")
+            log(f"(l3) snn-lm: e-prop vs the surrogate BPTT oracle, cosine "
+                f"W {cos['W']:.4f}, R {cos['R']:.4f} (bar 0.9)")
+        else:
+            compare_grads(g, go, f"(l3) {label} diag_exact vs the BPTT "
+                                 "oracle (cuda)")
+        lcpu, gcpu = lm_first_window(torch, TRAIN, ON, BP,
+                                     [*argv, "--device", "cpu"])
+        check(abs(l - lcpu) <= F32_REL * abs(lcpu),
+              f"(l3) {label}: first window loss cuda {l} vs cpu {lcpu}")
+        compare_grads(g, gcpu, f"(l3) {label} cuda vs cpu")
+
+    # (l4) crash and resume
+    crash_and_resume(torch, TRAIN, CKP, lm_argv("egru-lm", *fused,
+                                                "--ckpt-every", "5"),
+                     "compact_fused", root / "l4k1", "(l4) egru-lm "
+                     "compact_fused")
+    crash_and_resume(torch, TRAIN, CKP, lm_argv("rglru-lm", "--sparsity",
+                                                "0.5", "--ckpt-every", "5"),
+                     None, root / "l4rg", "(l4) rglru-lm 0.5")
+
+    # (l5) the metrics directories
+    lm_metrics_run(torch, TRAIN, lm_argv("egru-lm", *fused),
+                   runs["egru-lm compact_fused 0.8"], {"compact_fused": 160},
+                   K1_FIELDS, root, "egru-lm compact_fused")
+    lm_metrics_run(torch, TRAIN, lm_argv("rglru-lm", "--sparsity", "0.5"),
+                   runs["rglru-lm 0.5"], {}, LM_FIELDS["rglru-lm"], root,
+                   "rglru-lm 0.5")
+    lm_metrics_run(torch, TRAIN, lm_argv("snn-lm"), runs["snn-lm"], {},
+                   LM_FIELDS["snn-lm"], root, "snn-lm")
+
+    # (c) the costs: traces, and K1 / K2 timed at the LM's operands
+    for label, backend, kernel, argv in (
+            ("egru-lm compact_fused 0.8", "compact_fused",
+             "fused_update_kernel", lm_argv("egru-lm", *fused)),
+            ("egru-lm pallas 0.8", "pallas", "influence_kernel",
+             lm_argv("egru-lm", "--rtrl-backend", "pallas", "--sparsity",
+                     "0.8")),
+            ("rglru-lm 0", "diag_exact", "(no port kernel)",
+             lm_argv("rglru-lm"))):
+        log(f"(c) trace of {label}:")
+        trace_main_path(torch, TRAIN, ON, backend, kernel, argv=argv)
+    t1 = time_k1(torch, CF, CK, k1_ops, 200, 50)
+    t2 = {sp: time_k2(torch, IN, k2[sp][1], 200, 50, host=False)
+          for sp in k2}
+    for label, t in [("K1 (l1)", t1)] + [
+            (f"K2 (l2) --sparsity {sp}", t2[sp]) for sp in t2]:
+        lib = "baddbmm on pre-gathered tiles" if label.startswith("K1") \
+            else "baddbmm"
+        log(f"(c) {label} time: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, {lib} {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']:.0f} B, "
+            f"{t['flops']:.0f} FLOP); in turn kernel {t['alt_ms']:.4f} ms, "
+            f"{lib} {t['alt_library_ms']:.4f} ms (median of 5 rounds); "
+            f"device kernel {t['device_us']} us, {lib} "
+            f"{t['library_device_us']} us (profiler, 20 calls)")
+    log(f"(c) K1 launch shape (l1): {k1_launch_shape(CF, k1_ops)}")
+    log("LM K1/K2 times json: " + json.dumps({"K1": t1, "K2": t2}))
+
+    entry = lambda t: {k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}
+    return {"compact_fused": {
+                "path": "egru-lm --rtrl-backend compact_fused --sparsity 0.8 "
+                        "(width 64, vocab 64, batch 4)",
+                "launches": 160, "max_abs_err": err_k1, "K": K,
+                "Pc": cl.Pc, "Pc_pad": Pc_pad, **entry(t1)},
+            "influence": {
+                "path": "egru-lm --rtrl-backend pallas at --sparsity 0 (full "
+                        "width, P_pad 24832; the timed case) and 0.8 "
+                        "(column-compact)",
+                "launches": {"--sparsity 0": 160, "--sparsity 0.8": 160},
+                "max_abs_err": max(k2["0"][0], k2["0.8"][0]),
+                **entry(t2["0"]),
+                "column_compact": entry(t2["0.8"])}}
+
+
+# ---------------------------------------------------------------------------
 # launch counts of every kernel wrapper
 # ---------------------------------------------------------------------------
 
@@ -3421,7 +3748,12 @@ def main():
     # -- phase 11: the stream fleet -----------------------------------------
     fleet = fleet_phase(torch, SERVE, FL, ON, CF, IN, OPS, SP)
 
-    # -- phase 12: the kernels line and the result --------------------------
+    # -- phase 12: the online token LM --------------------------------------
+    t12 = time.perf_counter()
+    lm = lm_phase(torch, TRAIN, ON, CKP, BP, SP, CF, CK, IN, OPS)
+    log(f"phase 12 (the online token LM): {time.perf_counter() - t12:.1f} s")
+
+    # -- phase 13: the kernels line and the result --------------------------
     t1, t2 = times["(a) f32"], k2_times["(a) column-compact"]
     kernels = [{"name": "compact_fused", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/compact_fused.cu",
@@ -3447,6 +3779,8 @@ def main():
     kernels[1]["telemetry"] = telemetry["influence"]
     kernels[0]["fleet"] = fleet["compact_fused"]
     kernels[1]["fleet"] = fleet["influence"]
+    kernels[0]["lm"] = lm["compact_fused"]
+    kernels[1]["lm"] = lm["influence"]
     kernels += [k3_entry, k4_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

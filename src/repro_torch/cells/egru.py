@@ -133,6 +133,11 @@ class EGRUCell:
         """-> (a_new, hp, J-hat, B-hat [B,n,n_in], mbar pieces)."""
         return cell_partials_full(self.cfg, w, a_prev, x_t)
 
+    def step_st(self, w: Tree, a_prev: torch.Tensor, x_t: torch.Tensor):
+        """Autograd-able forward (the shared surrogate gradient): what the
+        BPTT oracles differentiate."""
+        return cells.step_straight_through(self.cfg, w, a_prev, x_t)
+
     def readout(self, params: Tree, a: torch.Tensor) -> torch.Tensor:
         return cells.readout(params, a)
 

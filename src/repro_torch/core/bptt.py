@@ -51,6 +51,27 @@ def stacked_bptt_loss_and_grads(cfg, params, xs: torch.Tensor,
         lambda p: cells.stacked_sequence_loss(cfg, p, xs, labels), params)
 
 
+def window_bptt_loss_and_grads(cell, params, xs: torch.Tensor,
+                               ys: torch.Tensor):
+    """BPTT oracle of one online window with a label a step, for any zoo
+    cell (`repro_torch.cells`): from the cell's initial state, s_t =
+    cell.step_st(w, s_{t-1}, x_t) and loss = sum_t xent(cell.readout(
+    params, s_t), y_t) / T, the learners' window loss at t_total = T.
+    xs [T, B, n_in], ys [T, B].  (loss, grads) by reverse mode, grads in
+    params' structure (the pruned parameters get a gradient too)."""
+
+    def loss_fn(p):
+        s = cell.init_state(xs.shape[1], device=xs.device)
+        w, losses = cell.rec_params(p), []
+        for x_t, y_t in zip(xs, ys):
+            s = cell.step_st(w, s, x_t)
+            losses.append(cells.xent(cell.readout(p, s), y_t))
+        return torch.stack(losses).sum() / xs.shape[0], {}
+
+    loss, grads, _ = _loss_and_grads(loss_fn, params)
+    return loss, grads
+
+
 def bptt_train_step(cfg: EGRUConfig, params, opt, opt_state, batch, step,
                     masks=None):
     xs, labels = batch

@@ -20,12 +20,14 @@ per-gate reference), "pallas" (block-sparse update on the dense flat carry,
 the CUDA kernel of `kernels.influence`), "compact" and "compact_fused" —
 with or without the column-compact carry (f32, or bf16 for the compact
 ones); engine "stacked" at any depth (one layer delegates to "sparse", as
-the JAX package does); and engine "bptt", the streaming BPTT oracle.  The
-sparse and stacked learners are rewirable (``LearnerSpec(rewirable=True)``,
-every backend but compact_fused): ``learner.rewire(carry, event_key)``
-prunes and regrows the masks between windows with exact carry migration.
-Every other engine raises NotImplementedError naming the ROADMAP item that
-brings it.
+the JAX package does); the cell zoo's engines "diag_exact" (exact
+diagonal traces for any jac_kind "diagonal" cell, "diag" its alias),
+"eprop" (the SNN) and "snap" (SnAp-1/2 on the dense per-gate backend); and
+engine "bptt", the streaming BPTT oracle.  The sparse and stacked learners
+are rewirable (``LearnerSpec(rewirable=True)``, every backend but
+compact_fused): ``learner.rewire(carry, event_key)`` prunes and regrows
+the masks between windows with exact carry migration.  Engine "scaled"
+raises NotImplementedError naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -234,7 +236,7 @@ class SparseLearner(_LearnerBase):
                              "carry (backend 'compact' or 'compact_fused')")
         self.spec = spec
         self.cfg: EGRUConfig = spec.cfg
-        self.cell = resolve_cell(spec.cfg)      # raises for unported cells
+        self.cell = resolve_cell(spec.cfg)
         self.backend = spec.backend
 
     def init(self, params, masks, batch, t_total: float = 1.0):
@@ -812,6 +814,198 @@ class StackedLearner(_LearnerBase):
 
 
 # ---------------------------------------------------------------------------
+# Diagonal-recurrence eligibility traces (exact) and e-prop (approximate)
+# ---------------------------------------------------------------------------
+
+def _trace_contract(cbar: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """sum_b cbar[b, k] e[b, ..., k], as a product and one sum over the
+    leading batch axis (`kernels.compact.row_contract`'s form: no library
+    product, whose kernel cuBLAS picks by the batch count)."""
+    shape = (cbar.shape[0],) + (1,) * (e.ndim - 2) + (cbar.shape[-1],)
+    return (cbar.reshape(shape) * e).sum(dim=0)
+
+
+class _TraceLearner(_LearnerBase):
+    """What the trace engines share: the carry ({"h": cell state, "tr":
+    traces, gw/gout accumulators}), masking of the per-step increments,
+    the closed-form instantaneous loss and the gradient finish."""
+
+    def __init__(self, spec: LearnerSpec):
+        self.spec = spec
+        self.cfg = spec.cfg
+        self.cell = resolve_cell(spec.cfg)
+
+    def init(self, params, masks, batch, t_total: float = 1.0):
+        x0, _ = batch
+        B = x0.shape[0]
+        device = params["out"]["W"].device
+        self._freeze_static(masks=masks)
+        self.masks = masks
+        carry = self._base_carry(params, t_total, device)
+        carry["h"] = self.cell.init_state(B, device=device)
+        carry["tr"] = self.cell.init_traces(B, device=device)
+        carry["gw"] = tree_map(torch.zeros_like, self.cell.rec_params(params))
+        carry["gout"] = tree_map(torch.zeros_like, params["out"])
+        return carry
+
+    def _masked(self, inc: Tree) -> Tree:
+        """Dead parameters' increments zeroed, so their traces and
+        gradients stay exactly 0."""
+        if self.masks is None:
+            return inc
+        return tree_map(lambda m, mk: m * mk, inc,
+                        {k: self.masks[k] for k in inc})
+
+    def _finish(self, carry, y_t, h_new, tr_new, e, readout_state, stats):
+        """Loss and readout gradients at readout_state, the step's
+        gradient term c-bar . e, and the accumulated carry."""
+        params = carry["params"]
+        lt, logits, gout_t, cbar = self._inst_loss_and_grads(
+            params["out"], readout_state, y_t.clamp(min=0), carry["t_total"])
+        gw_t = tree_map(lambda el: _trace_contract(cbar, el), e)
+        new = dict(carry)
+        new["h"], new["tr"] = h_new, tr_new
+        new["gw"] = tree_map(torch.add, carry["gw"], gw_t)
+        new["gout"] = tree_map(torch.add, carry["gout"], gout_t)
+        new["loss"] = carry["loss"] + lt
+        step_grads = None
+        if self.spec.per_step_grads:
+            step_grads = dict(gw_t)
+            step_grads["out"] = gout_t
+        return new, StepOut(lt, logits, stats, step_grads)
+
+    def grads(self, carry):
+        grads = dict(carry["gw"])
+        grads["out"] = carry["gout"]
+        return grads
+
+
+class DiagExactLearner(_TraceLearner):
+    """Exact eligibility-trace RTRL for any jac_kind "diagonal" zoo cell
+    (RG-LRU, the diag_rtrl toy cell): J_t = diag(a_t) factors the
+    influence matrix into independent per-parameter traces
+
+        e_t[w] = a_t * e_{t-1}[w] + mbar_t[w]
+
+    at O(n p) a step and O(p) trace memory.  `engine="diag"` is the same
+    engine.  With masks the dead parameters' increments are zeroed every
+    step, so their traces and gradients stay exactly 0."""
+
+    def __init__(self, spec: LearnerSpec):
+        super().__init__(spec)
+        if self.cell.jac_kind != "diagonal":
+            raise ValueError(
+                f"engine='diag_exact' needs a diagonal-Jacobian cell; "
+                f"{self.cell.name!r} has jac_kind={self.cell.jac_kind!r}")
+
+    def step(self, carry, x_t, y_t):
+        w = self.cell.rec_params(carry["params"])
+        h_new, _, adiag, mbar = self.cell.partials(w, carry["h"], x_t)
+        mbar = self._masked(mbar)
+
+        def decay(leaf):            # a_t [B, n] over a leaf [B, ..., n]
+            return adiag.reshape((adiag.shape[0],) + (1,) * (leaf.ndim - 2)
+                                 + (adiag.shape[-1],))
+
+        tr_new = tree_map(lambda t, m: decay(t) * t + m, carry["tr"], mbar)
+        return self._finish(carry, y_t, h_new, tr_new, tr_new, h_new, {})
+
+
+# the historical name
+DiagLearner = DiagExactLearner
+
+
+class EpropLearner(_TraceLearner):
+    """Bellec-style e-prop for cells exposing `eprop_step` (the SNN of
+    `cells.snn`): rank-1 membrane traces plus full adaptation traces, the
+    learning signal broadcast exactly from the readout.  An approximation:
+    the explicit spike recurrence through R is dropped."""
+
+    def __init__(self, spec: LearnerSpec):
+        super().__init__(spec)
+        if not hasattr(self.cell, "eprop_step"):
+            raise ValueError(
+                f"engine='eprop' needs a cell exposing eprop_step; "
+                f"{self.cell.name!r} does not")
+
+    def step(self, carry, x_t, y_t):
+        w = self.cell.rec_params(carry["params"])
+        state_new, tr_new, e = self.cell.eprop_step(w, carry["h"],
+                                                    carry["tr"], x_t)
+        z_new = state_new["z"]
+        stats = {"alpha": (z_new != 0.0).float().mean()}
+        return self._finish(carry, y_t, state_new, tr_new, self._masked(e),
+                            z_new, stats)
+
+
+# ---------------------------------------------------------------------------
+# SnAp-1 / SnAp-2 approximations
+# ---------------------------------------------------------------------------
+
+class SnapLearner(_LearnerBase):
+    """`core.snap` as a streaming learner: the dense per-gate influence
+    pruned to the SnAp-n pattern every step (an approximation: the Table-1
+    baseline the exact engines are measured against)."""
+
+    def __init__(self, spec: LearnerSpec):
+        self.spec = spec
+        self.cfg: EGRUConfig = spec.cfg
+        self.cell = resolve_cell(spec.cfg)
+        self.order = spec.order
+
+    def init(self, params, masks, batch, t_total: float = 1.0):
+        from repro_torch.core import snap as SN
+        cfg = self.cfg
+        x0, _ = batch
+        B = x0.shape[0]
+        device = params["out"]["W"].device
+        self._freeze_static(masks=masks)
+        self.masks = masks
+        self.keep = (torch.eye(cfg.n_hidden, device=device)
+                     if self.order == 1
+                     else SN.snap2_pattern(cfg, masks, device=device))
+        carry = self._base_carry(params, t_total, device)
+        carry["a"] = cells.init_state(cfg, B, device=device)
+        carry["M"] = SP.init_influence(cfg, B, device=device)
+        carry["gw"] = tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
+                               cells.rec_param_tree(params))
+        carry["gout"] = tree_map(
+            lambda x: torch.zeros_like(x, dtype=torch.float32), params["out"])
+        return carry
+
+    def _prune(self, M):
+        keep = self.keep
+        return {g: Mg * (keep[None, :, :, None] if Mg.ndim == 4
+                         else keep[None]) for g, Mg in M.items()}
+
+    def step(self, carry, x_t, y_t):
+        cfg, params = self.cfg, carry["params"]
+        w = cells.rec_param_tree(params)
+        a_new, hp, Jhat, mbar = self.cell.partials(w, carry["a"], x_t)
+        M_new = self._prune(SP.influence_update(cfg, carry["M"], hp, Jhat,
+                                                mbar, self.masks))
+        lt, logits, gout_t, cbar = self._inst_loss_and_grads(
+            params["out"], a_new, y_t, carry["t_total"])
+        gw_t = SP.influence_grads(cfg, M_new, cbar)
+        new = dict(carry)
+        new["a"], new["M"] = a_new, M_new
+        new["gw"] = tree_map(torch.add, carry["gw"], gw_t)
+        new["gout"] = tree_map(torch.add, carry["gout"], gout_t)
+        new["loss"] = carry["loss"] + lt
+        stats = {"beta": (hp == 0.0).float().mean()}
+        step_grads = None
+        if self.spec.per_step_grads:
+            step_grads = dict(gw_t)
+            step_grads["out"] = gout_t
+        return new, StepOut(lt, logits, stats, step_grads)
+
+    def grads(self, carry):
+        grads = dict(carry["gw"])
+        grads["out"] = carry["gout"]
+        return grads
+
+
+# ---------------------------------------------------------------------------
 # BPTT sequence-adapter oracle
 # ---------------------------------------------------------------------------
 
@@ -892,16 +1086,17 @@ class BPTTLearner(_LearnerBase):
         return carry
 
 
-_NOT_PORTED_ENGINES = {
-    "scaled": "ROADMAP Queue 1 item 13",
-    "diag": "ROADMAP Queue 1 item 12",
-    "diag_exact": "ROADMAP Queue 1 item 12",
-    "eprop": "ROADMAP Queue 1 item 12",
-    "snap": "ROADMAP Queue 1 item 12",
-}
+_NOT_PORTED_ENGINES = {"scaled": "ROADMAP Queue 1 item 13"}
 
-ENGINES = {"sparse": SparseLearner, "stacked": StackedLearner,
-           "bptt": BPTTLearner}
+ENGINES = {
+    "sparse": SparseLearner,
+    "stacked": StackedLearner,
+    "diag": DiagExactLearner,        # the historical name, same engine
+    "diag_exact": DiagExactLearner,
+    "eprop": EpropLearner,
+    "snap": SnapLearner,
+    "bptt": BPTTLearner,
+}
 
 
 def make_learner(spec: LearnerSpec):

@@ -1,8 +1,9 @@
 """The paper's synthetic task (Sec. 6): 2-D spirals unwinding over time,
 classified clockwise vs anti-clockwise.
 
-A numpy copy of `repro.data.spiral.spiral_dataset`; its output is
-`array_equal` to the reference's for the same arguments (tested).
+A numpy copy of `repro.data.spiral` (`spiral_dataset` and the batch
+iterator `spiral_batches`); its outputs are `array_equal` to the
+reference's for the same arguments (tested).
 """
 from __future__ import annotations
 
@@ -25,3 +26,18 @@ def spiral_dataset(n_samples: int = 10_000, T: int = 17, noise: float = 0.05,
     xs = np.stack([r * np.cos(ang), r * np.sin(ang)], axis=-1)
     xs += noise * rng.standard_normal(xs.shape)
     return xs.astype(np.float32), labels
+
+
+def spiral_batches(batch_size: int, T: int = 17, n_samples: int = 10_000,
+                   seed: int = 0, time_major: bool = True):
+    """Infinite batch iterator -> (xs [T, B, 2] (or [B, T, 2]), labels [B]),
+    the batch drawn from default_rng(seed + 1)."""
+    xs, labels = spiral_dataset(n_samples, T, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    n = xs.shape[0]
+    while True:
+        idx = rng.integers(0, n, size=batch_size)
+        xb, yb = xs[idx], labels[idx]
+        if time_major:
+            xb = np.swapaxes(xb, 0, 1)
+        yield xb, yb

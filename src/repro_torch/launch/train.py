@@ -1,4 +1,5 @@
-"""Training launcher of the port: the paper's spiral experiment.
+"""Training launcher of the port: the paper's spiral experiment and the
+online token LM.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch egru-spiral \\
         [--online] [--rtrl-backend {dense,pallas,compact,compact_fused}] \\
@@ -75,7 +76,30 @@ drawn from torch.Generator(2*seed) and masks from torch.Generator(2*seed +
 `jax.random` draws.  The online stream is the JAX launcher's step-keyed
 numpy stream, element for element.
 
-Every arch but egru-spiral raises (ROADMAP Queue 1 items 12 and 14).
+The online token LM (counterpart of the reference's `train_lm_online`):
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch {egru-lm,rglru-lm,snn-lm} --online [--vocab 64] [--width 64] \\
+        [--lr 3e-3] [--batch 4] [--seq 64] [--sparsity S] [--smoke] \\
+        [--rtrl-backend B --capacity C (egru-lm)] [--device cpu] [...]
+
+trains a next-token head online, one token a stream step
+(`data.tokens.token_lm_stream`, seed 1234 + --seed), with the engine
+matched to the cell: egru-lm -> 'sparse' (the EGRU influence carry, every
+backend: K1 with compact_fused, K2 with pallas), rglru-lm -> 'diag_exact'
+(exact diagonal traces, `cells.rglru`), snn-lm -> 'eprop' (spiking
+eligibility traces, `cells.snn`).  `--online` is required and `--steps`
+counts updates; `--smoke` runs vocab 16, width <= 32 and <= 10 updates.
+`--sparsity` masks the EGRU's W/R or the rgLRU's Wx/Wi/Wa (lam dense) and
+is refused for snn-lm.  The run goes through the same OnlineTrainer,
+checkpoints, `--fail-at` and telemetry as the spiral stream.  The
+reference's LM path silently ignores the flags it does not read
+(`--layers`, `--rewire*`, `--guard*`, `--inject-*`, `--influence-dtype`,
+`--col-compact`, and `--rtrl-backend` / `--capacity` off egru-lm); the port
+refuses each of them, when not at its default, before anything is
+written, and likewise refuses the LM's own flags beside egru-spiral.
+
+Every other arch raises (ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -90,6 +114,17 @@ from repro_torch.device import resolve_device
 from repro_torch.obs import add_obs_args, finish_run, telemetry_from_args
 
 ARCHS = ("egru-spiral", "egru_spiral")
+LM_ARCHS = {"egru-lm": "sparse", "rglru-lm": "diag_exact", "snn-lm": "eprop"}
+
+# flags (argparse dest -> default) that a path does not read: given at
+# another value beside its arch they are refused, not ignored
+_LM_FLAGS = {"vocab": 64, "width": 64, "lr": 3e-3, "batch": 4, "seq": 64}
+_SPIRAL_FLAGS = {"layers": 1, "rewire": "off", "rewire_every": 50,
+                 "rewire_frac": 0.3, "guard": False, "guard_ring": 4,
+                 "guard_policy": "full", "inject_nan_at": -1,
+                 "inject_nan_len": 1, "inject_corrupt_at": -1,
+                 "influence_dtype": "float32", "col_compact": "auto"}
+_EGRU_FLAGS = {"rtrl_backend": "dense", "capacity": 1.0}
 
 
 def make_stream(cfg, seed: int):
@@ -143,11 +178,19 @@ def _median_ms(records: list) -> float | None:
 
 
 def _reject_later_slices(args) -> None:
-    later = []
-    if args.arch not in ARCHS:
-        later.append(f"--arch {args.arch} (the port has egru-spiral only)")
-    if later:
-        raise SystemExit("not ported yet: " + "; ".join(later))
+    if args.arch not in ARCHS and args.arch not in LM_ARCHS:
+        raise SystemExit(f"not ported yet: --arch {args.arch} (the port has "
+                         f"{', '.join((ARCHS[0],) + tuple(LM_ARCHS))})")
+
+
+def _refuse_unread(args, unread: dict) -> None:
+    """SystemExit naming every flag of `unread` given at another value
+    than its default: the arch's path does not read it."""
+    given = [f"--{k.replace('_', '-')}" for k, default in unread.items()
+             if getattr(args, k) != default]
+    if given:
+        raise SystemExit(f"{', '.join(given)}: not read by --arch "
+                         f"{args.arch}, so refused rather than ignored")
 
 
 def _build_common(args) -> dict:
@@ -160,6 +203,7 @@ def _build_common(args) -> dict:
                                               masked_dynamic)
 
     _reject_later_slices(args)
+    _refuse_unread(args, _LM_FLAGS)
     backend = args.rtrl_backend
     rewiring = args.rewire != "off"
     if rewiring and not args.online:
@@ -217,7 +261,8 @@ def _build_common(args) -> dict:
               f"col-compact carry {'ON' if col_compact else 'OFF'}")
     return {"cfg": cfg, "masks": masks, "make_params": make_params,
             "params": make_params(), "opt": opt, "col_compact": col_compact,
-            "device": device}
+            "device": device,
+            "updates": min(args.steps, 12) if args.smoke else args.steps}
 
 
 def build_online(args) -> dict:
@@ -243,7 +288,7 @@ def online_trainers(args, run, telemetry=None):
     from repro_torch.runtime.guard import FaultPlan, GuardConfig
     from repro_torch.runtime.online import OnlineTrainer, OnlineTrainerConfig
     from repro_torch.sparsity import RewireSchedule
-    updates = min(args.steps, 12) if args.smoke else args.steps
+    updates = run["updates"]
     k = args.update_every
     schedule = None
     if args.rewire != "off":
@@ -306,6 +351,108 @@ def train_egru_online(args) -> dict:
                             "recovered": len(g["recoveries"]),
                             "quarantined": len(g["quarantined"])}
     finish_run(obs, "train egru-spiral (online RTRL)", summary)
+    print(json.dumps(summary))
+    out["summary"] = summary
+    return out
+
+
+def build_lm(args) -> dict:
+    """Everything the online token LM needs, on the resolved device, as
+    build_online's dict: cfg, engine, vocab, width, masks, params (masked)
+    and their factory, opt, learner, stream, device, updates.  Every
+    refusal comes before anything is written."""
+    from repro_torch.cells import resolve_cell
+    from repro_torch.cells import rglru as RG
+    from repro_torch.cells.snn import SNNConfig
+    from repro_torch.core import sparse_rtrl as SP
+    from repro_torch.core.cells import EGRUConfig
+    from repro_torch.core.learner import LearnerSpec, make_learner
+    from repro_torch.data.tokens import token_lm_stream
+    from repro_torch.optim.optimizers import make_optimizer, masked
+
+    if not args.online:
+        raise SystemExit(f"--arch {args.arch} is an online streaming "
+                         f"workload — pass --online (--steps counts "
+                         f"optimizer updates)")
+    engine = LM_ARCHS[args.arch]
+    _refuse_unread(args, _SPIRAL_FLAGS if engine == "sparse"
+                   else {**_SPIRAL_FLAGS, **_EGRU_FLAGS})
+    if engine == "eprop" and args.sparsity > 0.0:
+        raise SystemExit("--sparsity is not wired for snn-lm (no "
+                         "parameter-mask convention for the spiking cell)")
+    device = resolve_device(args.device)
+    vocab = 16 if args.smoke else args.vocab
+    width = min(args.width, 32) if args.smoke else args.width
+    mask_gen = torch.Generator().manual_seed(2 * args.seed + 1)
+    masks = None
+    if engine == "sparse":
+        cfg = EGRUConfig(n_hidden=width, n_in=vocab, n_out=vocab, kind="gru")
+        if args.sparsity > 0.0:
+            masks = SP.make_masks(cfg, mask_gen, args.sparsity, device=device)
+        col_compact = args.rtrl_backend == "compact_fused" or (
+            masks is not None and args.rtrl_backend != "dense")
+        spec = LearnerSpec(engine="sparse", cfg=cfg, backend=args.rtrl_backend,
+                           capacity=args.capacity, col_compact=col_compact)
+        if args.rtrl_backend != "dense":
+            layout = SP.flat_layout(cfg)
+            live = int(SP.flat_col_mask(layout, masks, device="cpu").sum())
+            print(f"influence columns: {live}/{layout.P} live (P_pad "
+                  f"{layout.P_pad}); col-compact carry "
+                  f"{'ON' if col_compact else 'OFF'}")
+    elif engine == "diag_exact":
+        cfg = RG.RGLRUCellConfig(n=width, n_in=vocab, n_out=vocab)
+        if args.sparsity > 0.0:
+            masks = RG.make_masks(cfg, mask_gen, args.sparsity, device=device)
+        spec = LearnerSpec(engine="diag_exact", cfg=cfg)
+    else:
+        cfg = SNNConfig(n=width, n_in=vocab, n_out=vocab)
+        spec = LearnerSpec(engine="eprop", cfg=cfg)
+    cell = resolve_cell(cfg)
+
+    def make_params():
+        params = cell.init_params(
+            torch.Generator().manual_seed(2 * args.seed), device=device)
+        if masks is None:
+            return params
+        return (SP.apply_masks if engine == "sparse"
+                else RG.apply_masks)(params, masks)
+
+    opt = make_optimizer("adamw", lr=args.lr)
+    if masks is not None:
+        opt_mask = dict(masks)
+        opt_mask.setdefault("out", None)
+        opt = masked(opt, opt_mask)
+    return {"cfg": cfg, "engine": engine, "vocab": vocab, "width": width,
+            "masks": masks, "make_params": make_params,
+            "params": make_params(), "opt": opt,
+            "learner": make_learner(spec), "device": device,
+            "stream": token_lm_stream(args.batch, vocab, seq=args.seq,
+                                      seed=1234 + args.seed),
+            "updates": min(args.steps, 10) if args.smoke else args.steps}
+
+
+def train_lm_online(args) -> dict:
+    """The online token LM; `--steps` counts optimizer updates.  Returns
+    the trainer's result plus the printed summary."""
+    from repro_torch.runtime.trainer import run_with_restart
+    run = build_lm(args)
+    obs = telemetry_from_args(args, arch=args.arch, mode="online",
+                              engine=run["engine"], vocab=run["vocab"],
+                              width=run["width"])
+    out = run_with_restart(online_trainers(args, run, obs))
+    summary = {"arch": args.arch, "mode": "online", "engine": run["engine"],
+               "device": str(run["device"]), "vocab": run["vocab"],
+               "width": run["width"], "update_every": args.update_every,
+               "updates": out["updates"], "final_step": out["final_step"],
+               "restarts": out["restarts"], "stragglers": out["stragglers"],
+               "carry_bytes": out["carry_bytes"],
+               **_loss_fields(out["metrics"]),
+               "median_window_ms": _median_ms(out["windows"])}
+    if run["engine"] == "sparse":
+        summary["backend"] = args.rtrl_backend
+        summary["overflow"] = max((w.get("overflow", 0.0)
+                                   for w in out["windows"]), default=0.0)
+    finish_run(obs, f"train {args.arch} (online token LM)", summary)
     print(json.dumps(summary))
     out["summary"] = summary
     return out
@@ -417,7 +564,8 @@ def parse_args(argv=None):
     ap.add_argument("--capacity", type=float, default=1.0,
                     help="compact row capacity fraction")
     ap.add_argument("--smoke", action="store_true",
-                    help="online: cap the run at 12 updates")
+                    help="online: cap the run at 12 updates (10, vocab 16 "
+                         "and width <= 32 for the *-lm archs)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
@@ -466,6 +614,17 @@ def parse_args(argv=None):
     ap.add_argument("--inject-corrupt-at", type=int, default=-1,
                     help="fault injection (online): poison one influence "
                          "element after this update commits")
+    ap.add_argument("--vocab", type=int, default=64,
+                    help="token vocabulary of the *-lm archs (--smoke: 16)")
+    ap.add_argument("--width", type=int, default=64,
+                    help="recurrent state width of the *-lm archs "
+                         "(--smoke: at most 32)")
+    ap.add_argument("--lr", type=float, default=3e-3,
+                    help="adamw learning rate of the *-lm archs")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="streams in the batch of the *-lm archs")
+    ap.add_argument("--seq", type=int, default=64,
+                    help="tokens a sequence of the *-lm archs' stream")
     add_obs_args(ap)
     args = ap.parse_args(argv)
     if args.ckpt_dir is None:
@@ -475,6 +634,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    if args.arch in LM_ARCHS:
+        return train_lm_online(args)
     return (train_egru_online if args.online else train_egru_offline)(args)
 
 

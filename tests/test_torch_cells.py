@@ -147,9 +147,22 @@ def test_spiral_dataset_array_equal(seed, T, n):
 
 
 def test_resolve_cell_egru_only():
+    """The dispatch by config type: EGRU, rgLRU, SNN and the toy diagonal
+    cell (the whole zoo since the cell zoo was ported); an unknown type
+    raises ValueError, as in the reference."""
+    from repro_torch.cells import DiagCell, RGLRUCell, SNNCell
+    from repro_torch.cells.rglru import RGLRUCellConfig
+    from repro_torch.cells.snn import SNNConfig
+    from repro_torch.core.diag_rtrl import DiagCellConfig
     cell = resolve_cell(C.EGRUConfig(n_hidden=4))
     assert isinstance(cell, EGRUCell) and cell.jac_kind == "dense"
     a = cell.init_state(3, device="cpu")
     assert a.shape == (3, 4) and not cell.activity_mask(a).any()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for cfg, kind, jac in ((RGLRUCellConfig(n=4), RGLRUCell, "diagonal"),
+                           (SNNConfig(n=4), SNNCell, "dense"),
+                           (DiagCellConfig(n=4), DiagCell, "diagonal")):
+        cell = resolve_cell(cfg)
+        assert type(cell) is kind and cell.jac_kind == jac
+        assert cell.cfg is cfg
+    with pytest.raises(ValueError, match="no cell registered"):
         resolve_cell(object())

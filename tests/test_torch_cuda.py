@@ -1015,3 +1015,77 @@ def test_packed_window_on_the_card_issues_no_sync(cuda):
     assert np.float32(pk["act_sparsity"]) == m_a["alpha"].item()
     assert pk["kb_max"] <= 16 and pk["health"] == 0.0
     assert pack.unpack(m_g["packed"])["clip_factor"] == 1.0
+
+
+def _lm_window(argv):
+    """The first window (k=8) of an online token-LM launcher run, with the
+    BPTT oracle's through the same window on the run's device (the pruned
+    parameters' gradients masked as the optimizer masks them)."""
+    from repro_torch.cells import resolve_cell
+    from repro_torch.core import bptt as BP
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.runtime import online as ON
+    from repro_torch.tree import apply_mask_tree
+    run = TRAIN.build_lm(TRAIN.parse_args(argv))
+    xs, ys = zip(*(run["stream"](t) for t in range(8)))
+    xs = torch.from_numpy(np.stack(xs)).to(run["device"])
+    ys = torch.from_numpy(np.stack(ys)).to(run["device"])
+    carry = run["learner"].init(run["params"], run["masks"], (xs[0], ys[0]),
+                                t_total=8.0)
+    _, loss, grads, _ = ON.stream_grads(run["learner"], carry, xs, ys)
+    bloss, bgrads = BP.window_bptt_loss_and_grads(resolve_cell(run["cfg"]),
+                                                  run["params"], xs, ys)
+    if run["masks"] is not None:
+        bgrads = apply_mask_tree(run["masks"], bgrads)
+    return float(loss), grads, float(bloss), bgrads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,extra", [
+    ("egru-lm", ("--rtrl-backend", "compact_fused", "--sparsity", "0.8")),
+    ("egru-lm", ("--rtrl-backend", "pallas", "--sparsity", "0.8")),
+    ("egru-lm", ("--rtrl-backend", "pallas",)),
+    ("rglru-lm", ("--sparsity", "0.5")), ("snn-lm", ())])
+def test_lm_first_window_on_cuda_matches_cpu_and_oracle(cuda, arch, extra):
+    """(l1) and (l3) of chip_smoke.py at --smoke: the first window on the
+    card (K1 or K2 launched once a stream step) against the CPU's and
+    against the BPTT oracle on the card (e-prop by cosine >= 0.9)."""
+    from repro_torch.tree import tree_leaves
+    argv = ["--arch", arch, "--online", "--smoke", *extra]
+    before = _launches()
+    lg, gg, bl, bg = _lm_window(argv)
+    launched = tuple(a - b for a, b in zip(_launches(), before))
+    backend = extra[1] if arch == "egru-lm" else None
+    assert launched == ((8 if backend == "compact_fused" else 0),
+                        (8 if backend == "pallas" else 0))
+    lc, gc, _, _ = _lm_window([*argv, "--device", "cpu"])
+    assert lg == pytest.approx(lc, rel=F32_REL)
+    assert lg == pytest.approx(bl, rel=F32_REL)
+
+    def close(a, b):
+        scale = max(float(b.abs().max()), 1e-3)
+        assert float((a.cpu() - b.cpu()).abs().max()) <= F32_REL * scale
+
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc)):
+        close(a, b)
+    if arch == "snn-lm":
+        for k in ("W", "R"):
+            a, b = gg[k].double().flatten(), bg[k].double().flatten()
+            assert float(a @ b / (a.norm() * b.norm())) >= 0.9, k
+        bg, gg = bg["out"], gg["out"]
+    for a, b in zip(tree_leaves(gg), tree_leaves(bg)):
+        close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["compact_fused", "pallas"])
+def test_lm_launcher_on_cuda_launches_once_a_stream_step(cuda, backend):
+    from repro_torch.launch import train as TRAIN
+    before = _launches()
+    out = TRAIN.main(["--arch", "egru-lm", "--online", "--smoke", "--steps",
+                      "3", "--rtrl-backend", backend, "--sparsity", "0.8",
+                      "--ckpt-every", "0"])
+    launched = tuple(a - b for a, b in zip(_launches(), before))
+    assert out["final_step"] == 24 and out["summary"]["device"] == "cuda"
+    assert launched == ((24, 0) if backend == "compact_fused" else (0, 24))
+    assert all(np.isfinite(w["loss"]) for w in out["windows"])

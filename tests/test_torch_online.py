@@ -152,9 +152,17 @@ def test_scan_learner_is_the_stream_path_bitwise():
 
 def test_unported_engines_and_backends_raise():
     cfg = C.EGRUConfig()
-    for engine in ("scaled", "diag_exact", "eprop", "snap"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_learner(LearnerSpec(engine=engine, cfg=cfg))
+    # only the scaled carry is still to port; the cell zoo's engines build
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+        make_learner(LearnerSpec(engine="scaled", cfg=cfg))
+    from repro_torch.cells.rglru import RGLRUCellConfig
+    from repro_torch.cells.snn import SNNConfig
+    from repro_torch.core.diag_rtrl import DiagCellConfig
+    for engine, zoo_cfg in (("diag", DiagCellConfig()),
+                            ("diag_exact", RGLRUCellConfig()),
+                            ("eprop", SNNConfig()), ("snap", cfg)):
+        assert make_learner(LearnerSpec(engine=engine, cfg=zoo_cfg)) \
+            .spec.engine == engine
     for backend in ("dense", "pallas"):     # ported: a bf16 carry is not
         with pytest.raises(ValueError, match="compact carry"):
             make_learner(LearnerSpec(engine="sparse", cfg=cfg,
@@ -307,18 +315,21 @@ def test_launcher_raises_without_cuda_unless_cpu_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    # --guard, --rewire and --metrics-dir are ported: beside a later
-    # slice's arch they still meet its refusal first, and the refusal
-    # comes before the metrics directory is made
+    # the LM archs are ported: the flags their path does not read (the
+    # reference ignores --guard, --rewire and --sparsity for snn-lm refuses)
+    # are refused beside them, and every refusal comes before the metrics
+    # directory is made
     ["--guard", "--metrics-dir", "m", "--arch", "egru-lm"],
     ["--rewire", "rigl", "--sparsity", "0.8", "--metrics-dir", "m",
      "--arch", "rglru-lm"],
-    ["--metrics-dir", "m", "--trace", "--arch", "snn-lm"],
+    ["--metrics-dir", "m", "--trace", "--arch", "snn-lm", "--sparsity",
+     "0.5"],
     ["--rewire", "set", "--rtrl-backend", "dense", "--arch", "yi-6b"],
     ["--arch", "yi-6b"]])
 def test_launcher_rejects_later_slices(extra, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit,
+                       match="not ported yet|not read by|not wired for"):
         TRAIN.main(["--arch", "egru-spiral", "--online", "--device", "cpu",
                     *extra])
     assert list(tmp_path.iterdir()) == []

@@ -13,10 +13,11 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 # every module the port has so far
 EXPECTED = {
     "configs", "configs.base", "configs.egru_spiral", "configs.rwkv6_3b",
-    "cells", "cells.egru", "checkpoint", "checkpoint.ckpt", "core.bptt",
-    "core.cells", "core.costs", "core.learner", "core.rtrl",
+    "cells", "cells.egru", "cells.rglru", "cells.snn", "checkpoint",
+    "checkpoint.ckpt", "core.bptt", "core.cells", "core.costs",
+    "core.diag_rtrl", "core.learner", "core.rtrl", "core.snap",
     "core.sparse_rtrl", "core.stacked_rtrl",
-    "data.spiral", "device",
+    "data.spiral", "data.tokens", "device",
     "kernels._build", "kernels.compact", "kernels.compact_fused",
     "kernels.event_matmul", "kernels.influence", "kernels.ops", "kernels.ref",
     "kernels.wkv", "launch.serve", "launch.train", "models", "models.layers",
