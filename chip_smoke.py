@@ -227,7 +227,35 @@ checkout, it exits non-zero and prints no result.  Phases:
      egru-lm compact_fused and pallas and of rglru-lm (device ops a stream
      step, idle share, K1/K2 µs a launch), K1 at (l1)'s and K2 at (l2)'s
      operands timed as in phases 2 and 3, K1's launch shape there;
- 13. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
+ 13. the dense decoders and LM training, every launch with the counts set
+     to 0 just before and read just after, K1-K4 0 in every run, the
+     checkpoints under a temporary root removed at the end: (p1) gemma2-2b
+     at full width and depth (2,614,341,888 parameters, bf16, drawn on the
+     card), `transformer.prefill` of 4 x 2048 tokens with max_seq 2064
+     and 16 greedy decode steps from its cache, `launch.serve.main([])`
+     at its defaults and with `--arch qwen3-8b` (full size), every request
+     completed; (p2) (a) the chunked flash attention against
+     `flash_attention_ref` at gemma2's head shape (causal, and a window of
+     1024 across chunk edges) and qwen3's (qk-normed), f32 and bf16; (b)
+     gemma2-2b at full width, 2 layers, f32: prefill against the full
+     forward and a 256-step teacher-forced decode, prefill of S then 16
+     decode steps against the full forward over S + 16 at S 2048 and 8192
+     (the local ring wraps), 1e-4 of the largest logit; (c) the same
+     model's loss and gradients at B 1, S 64, card against CPU (the
+     gradients within 1e-5 or twice the CPU's own spread between one
+     thread and its default, whichever is larger); (p3)
+     `launch.train --arch gemma2-2b` and `--arch rwkv6-3b` at full width
+     and depth (20 steps, batch 4, seq 64, bf16): finite losses and
+     gradient norms, K4 0 while training and 32 in a prefill after; rwkv6-
+     3b at full width, 2 layers, f32, card against CPU; crash and resume
+     (`--smoke --ckpt-every 5 --fail-at 7`) for both, final checkpoints
+     bitwise; (p4) the costs: prefill tokens/s (CUDA events, best of 3
+     after a warm run) and its achieved FLOP rate against the bf16 peak,
+     decode ms a step (median of 16), the Engine's tok/s, median train
+     step ms and peak allocation of both training runs, and traces of a
+     prefill, a decode step and a train step (device ops, idle share,
+     attention's and the GEMMs' share of device time);
+ 14. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
      K1's and K2's with a "stacked" entry for phase 8's path, K1's with a
      "guard" and K2's with a "rewire" entry for phase 9's, both with a
      "telemetry" entry for phase 10's, a "fleet" entry for phase 11's and
@@ -236,11 +264,13 @@ checkout, it exits non-zero and prints no result.  Phases:
 
 Tolerances: a float32 kernel result is within 1e-5 of the largest
 magnitude of the plain version's (the sums associate differently); a bf16
-result within one bf16 rounding step (2^-7 relative) more.  Window
+result within one bf16 rounding step (2^-7 relative) more (phase 13's
+attention: (1e-5 + 2^-7) of the largest magnitude).  Window
 gradients across backends, devices and BPTT: 1e-5 of each leaf's largest
 entry (BPTT on the surviving parameters: it also gives the pruned ones a
 gradient, which the masked optimizer drops).
 """
+import bisect
 import contextlib
 import json
 import math
@@ -3553,6 +3583,486 @@ def rwkv_serving(torch, dev, WK):
     return entry, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dense decoders and LM training
+# ---------------------------------------------------------------------------
+
+GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma")
+
+
+@contextlib.contextmanager
+def attention_ranges(A):
+    """Each flash/decode attention call inside a profiler range named
+    "attention" (phase 13's traces attribute device time to it)."""
+    from torch.profiler import record_function
+    saved = A.flash_attention, A.decode_attention
+
+    def ranged(fn):
+        def call(*args, **kw):
+            with record_function("attention"):
+                return fn(*args, **kw)
+        return call
+    A.flash_attention, A.decode_attention = map(ranged, saved)
+    try:
+        yield
+    finally:
+        A.flash_attention, A.decode_attention = saved
+
+
+def profile_split(torch, A, fn, label):
+    """torch.profiler over one call of fn: device ops, the idle share of the
+    wall time, and the shares of the kernel time taken by the kernels
+    inside the attention ranges (a forward's flash/decode attention; a
+    backward's attention kernels run outside them) and by GEMM kernels (by
+    name: the projections, the MLP, the logits and attention's f32
+    products).  Returns the numbers (None where the profiler recorded no
+    device event)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with attention_ranges(A), profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    # the attention ranges show on the device timeline too, as annotations
+    # spanning their kernels
+    spans = [e for e in events if e.device_type == DeviceType.CUDA
+             and e.name == "attention"]
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.name != "attention"]
+    if not dev:
+        log(f"trace {label}: the profiler recorded no device events: shares "
+            "not measured")
+        return None
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    kern = sum(e.time_range.elapsed_us() for e in dev)
+    gemm = sum(e.time_range.elapsed_us() for e in dev
+               if any(g in e.name.lower() for g in GEMM_NAMES))
+    windows = sorted((e.time_range.start, e.time_range.end) for e in spans)
+    starts = [w[0] for w in windows]
+
+    def in_attention(e):
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        return i >= 0 and e.time_range.end <= windows[i][1]
+    attn = sum(e.time_range.elapsed_us() for e in dev if in_attention(e))
+    out = {"ops": len(dev), "busy_us": busy, "wall_us": wall_us,
+           "idle": 1 - busy / wall_us, "attention": attn / kern,
+           "gemm": gemm / kern}
+    log(f"trace {label} (profiler on): {len(dev)} device ops, device busy "
+        f"{busy:.0f} us of {wall_us:.0f} us wall (idle share "
+        f"{out['idle']:.3f}); of {kern:.0f} us kernel time, attention's "
+        f"kernels {attn:.0f} us ({out['attention']:.3f}), GEMM kernels "
+        f"{gemm:.0f} us ({out['gemm']:.3f})")
+    by_name = {}
+    for e in dev:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    for n, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+        log(f"  {tot:10.1f} us  x{cnt:5d}  {n[:90]}")
+    return out
+
+
+def decoder_flops(cfg, params, B, S):
+    """The prefill's FLOPs, counted from the shapes: 2 a multiply-add of
+    every unit weight matrix for each of the B*S tokens, the logits at the
+    last position (B x d x V), and causal attention's QK^T and P.V over
+    the pairs each query needs (a local layer's window included)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    mm = sum(t.numel() for unit in T._units(cfg, params["units"])
+             for t in tree_leaves(unit) if t.dim() == 2)
+    pairs = 0
+    for kind in T.unit_layout(cfg):
+        w = cfg.local_window if kind == "local" else 0
+        per = sum(min(q + 1, w) if w else q + 1 for q in range(S))
+        pairs += per * T.n_units(cfg)
+    attn = 4 * B * cfg.n_heads * cfg.head_dim * pairs
+    return 2 * mm * B * S + 2 * B * cfg.d_model * cfg.vocab_size + attn
+
+
+def flash_checks(torch, dev, A, REF, cfg_g, cfg_q):
+    """(p2a) the chunked flash attention against flash_attention_ref on the
+    card: gemma2's head shape causal and with a window of 1024, qwen3's
+    qk-normed; f32 within 1e-5 of the largest magnitude, bf16 one bf16
+    step more.  Returns the largest f32 error relative to its scale."""
+    from repro_torch.models.layers import rmsnorm
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = 0.0
+    cases = [("gemma2 causal", cfg_g, 0), ("gemma2 window 1024", cfg_g, 1024),
+             ("qwen3 qk-norm", cfg_q, 0)]
+    for label, cfg, window in cases:
+        B, S = 4, 2048
+        q, k, v = (torch.randn((B, S, h, cfg.head_dim), generator=gen,
+                               device=dev)
+                   for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+        if cfg.qk_norm:
+            ones = torch.ones(cfg.head_dim, device=dev)
+            q, k = rmsnorm(q, ones), rmsnorm(k, ones)
+        for dtype in (torch.float32, torch.bfloat16):
+            c = cfg.replace(compute_dtype=dtype)
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            got = A.flash_attention(c, qd, kd, vd, causal=True, window=window)
+            ref = REF.flash_attention_ref(qd, kd, vd, causal=True,
+                                          window=window, scale=A._scale(c),
+                                          cap=c.attn_softcap)
+            err = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            tol = F32_REL + (BF16_STEP if dtype == torch.bfloat16 else 0.0)
+            check(bool(got.isfinite().all()) and err <= tol * scale,
+                  f"(p2a) {label} {dtype}: chunked vs plain {err:.3e} "
+                  f"(scale {scale:.4g})")
+            if dtype == torch.float32:
+                worst = max(worst, err / scale)
+            log(f"(p2a) flash attention {label}, B {B} S {S} H {cfg.n_heads} "
+                f"KV {cfg.n_kv_heads} Dh {cfg.head_dim} softcap "
+                f"{cfg.attn_softcap} {str(dtype)[6:]}: chunked vs "
+                f"flash_attention_ref {err:.3e} of {scale:.4g} (bound "
+                f"{tol:.3g} of it)")
+            del got, ref
+    torch.cuda.empty_cache()
+    return worst
+
+
+def grads_card_vs_cpu(torch, loss_fn, cfg, params, batch, label):
+    """Loss and gradients of `params` (on the card) and of their CPU copy:
+    the loss within 1e-5; each gradient leaf within 1e-5 of its largest
+    entry, or within twice the CPU's own spread, whichever is larger.  The
+    spread is the largest leaf difference between the CPU's gradients at
+    one thread and at its default thread count: the same f32 arithmetic
+    summed in another order, which at full width moves these gradients by
+    about 1e-5 (gemma2-2b) and 1e-4 (rwkv6-3b) of a leaf's largest entry.
+    Returns (loss error, worst leaf error, the CPU's spread), relative."""
+    from repro_torch.optim import microbatch_grads
+    from repro_torch.tree import leaf_name, tree_flatten_with_path, tree_map
+    fn = lambda p, b: loss_fn(cfg, p, b)
+    ld, gd = microbatch_grads(fn, params, batch, 1)
+    cpu = tree_map(lambda t: t.detach().cpu(), params)
+    lc, gc = microbatch_grads(fn, cpu, {k: v.cpu() for k, v in batch.items()},
+                              1)
+    lerr = abs(float(ld) - float(lc)) / abs(float(lc))
+    errs = sorted(((float((a.cpu() - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30), leaf_name(path))
+                   for (path, b), a in zip(tree_flatten_with_path(gc),
+                                           [x for _, x in
+                                            tree_flatten_with_path(gd)])),
+                  reverse=True)
+    worst = errs[0][0]
+    # the CPU against itself at one thread: the f32 spread of another
+    # reduction order
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        l1, g1 = microbatch_grads(fn, cpu, {k: v.cpu() for k, v in
+                                            batch.items()}, 1)
+    finally:
+        torch.set_num_threads(threads)
+    spread = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                 for (_, a), (_, b) in zip(tree_flatten_with_path(g1),
+                                           tree_flatten_with_path(gc)))
+    log(f"{label}: loss card {float(ld):.7f} cpu {float(lc):.7f} (relative "
+        f"{lerr:.2e}), gradients: worst leaves "
+        f"{', '.join(f'{n} {e:.2e}' for e, n in errs[:3])} of their largest "
+        f"entry; the CPU at 1 thread against {threads}: loss "
+        f"{abs(float(l1) - float(lc)) / abs(float(lc)):.2e}, gradients "
+        f"{spread:.2e} (bound: the larger of 1e-5 and twice that spread)")
+    bound = max(F32_REL, 2 * spread)
+    check(lerr <= F32_REL and worst <= bound,
+          f"{label}: loss {lerr:.3e}, gradients {worst:.3e} (bound "
+          f"{bound:.3e})")
+    return lerr, worst, spread
+
+
+def decode_vs_full(torch, T, cfg, params, toks, S, n):
+    """Prefill of S tokens with room for n more, then n teacher-forced
+    decode steps, against the full forward over S + n: the largest
+    difference over the n + 1 logit rows, relative to the largest logit."""
+    B = toks.shape[0]
+    full = T.forward_logits(cfg, params, toks[:, :S + n], start=S - 1)
+    lg, cache = T.prefill(cfg, params, toks[:, :S], max_seq=S + n)
+    errs = [float((lg - full[:, 0]).abs().max())]
+    for i in range(n):
+        pos = torch.full((B,), S + i, device=toks.device)
+        lg, cache = T.decode_step(cfg, params, toks[:, S + i:S + i + 1], cache,
+                                  pos)
+        errs.append(float((lg - full[:, i + 1]).abs().max()))
+    return max(errs) / float(full.abs().max())
+
+
+def decoder_serving(torch, dev, A, SERVE, T):
+    """(p1) gemma2-2b at full width and depth, and (p4)'s serving costs.
+    Returns the costs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.module import count_params, materialize
+    cfg = get_config("gemma2-2b")
+    specs = T.decoder_specs(cfg)
+    t0 = time.perf_counter()
+    params = materialize(specs, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = count_params(specs)
+    check(n_params == 2_614_341_888, f"gemma2-2b: {n_params:,} parameters")
+    log(f"gemma2-2b: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} x "
+        f"{cfg.head_dim} heads, {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, {n_params:,} parameters ({cfg.param_dtype}),"
+        f" drawn on the card in {time.perf_counter() - t0:.2f} s")
+    B, S, n_dec = 4, 2048, 16
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    reset_counts()
+    logits, cache = T.prefill(cfg, params, tokens, max_seq=S + n_dec)
+    check(logits.shape == (B, cfg.vocab_size) and bool(logits.isfinite().all()),
+          f"gemma2-2b prefill logits {tuple(logits.shape)}")
+    tok, step_ms = logits.argmax(-1)[:, None], []
+    dcache = cache
+    for i in range(n_dec):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pos = torch.full((B,), S + i, device=dev)
+        dl, dcache = T.decode_step(cfg, params, tok, dcache, pos)
+        tok = dl.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        check(bool(dl.isfinite().all()), "gemma2-2b decode: non-finite logits")
+    check_counts(read_counts(), {}, "gemma2-2b prefill and decode")
+    served = {}
+    for argv in ([], ["--arch", "qwen3-8b"]):
+        reset_counts()
+        out = SERVE.main(argv)
+        check_counts(read_counts(), {}, f"launch.serve {argv}")
+        s = out["summary"]
+        check(s["requests"] == 6 and s["failed"] == 0
+              and out["failed_requests"] == []
+              and all(len(o) == 12 for o in out["outputs"]),
+              f"launch.serve {argv}: {s}, failed {out['failed_requests']}")
+        served[s["arch"]] = s
+        log(f"(p1) launch.serve {' '.join(argv) or '(defaults)'}: "
+            f"{s['arch']} at full size, {s['requests']} requests, "
+            f"{s['tokens']} tokens in {s['wall_s']} s, {s['tok_per_s']} "
+            f"tok/s, every request completed")
+        del out
+        torch.cuda.empty_cache()
+    log(f"(p1) gemma2-2b: prefill {B} x {S} (max_seq {S + n_dec}) and "
+        f"{n_dec} greedy decode steps from its cache, launches K1-K4 0")
+
+    # (p4) the costs
+    prefill = lambda: T.prefill(cfg, params, tokens, max_seq=S + n_dec)
+    runs = [time_ms(torch, prefill, 1, warmup=1 if i == 0 else 0)
+            for i in range(3)]
+    flops = decoder_flops(cfg, params, B, S)
+    best = min(runs)
+    rate = flops / (best / 1e3)
+    log(f"(p4) prefill {B} x {S}: {best:.2f} ms (runs "
+        f"{', '.join(f'{x:.2f}' for x in runs)}), {B * S * 1e3 / best:.0f} "
+        f"tokens/s; {flops:.4g} FLOP (matmuls, last-position logits, causal "
+        f"attention) -> {rate / 1e12:.1f} TFLOP/s, {rate / BF16_FLOP_S:.3f} "
+        f"of the 989 TFLOP/s bf16 peak (attention's products run in f32)")
+    med = statistics.median(step_ms)
+    log(f"(p4) decode: {n_dec} greedy steps of batch {B} from the 2064-slot "
+        f"cache, median {med:.2f} ms a step (min {min(step_ms):.2f}, max "
+        f"{max(step_ms):.2f}), {B * 1e3 / med:.1f} tok/s")
+    pos = torch.full((B,), S, device=dev)
+    tr_prefill = profile_split(torch, A, prefill, f"gemma2-2b prefill {B} x {S}")
+    tr_decode = profile_split(torch, A, lambda: T.decode_step(
+        cfg, params, tok, cache, pos), f"gemma2-2b decode step (batch {B})")
+    return {"prefill_ms": best, "prefill_tok_s": B * S * 1e3 / best,
+            "prefill_flop_share": rate / BF16_FLOP_S, "decode_ms": med,
+            "engine_tok_s": {a: s["tok_per_s"] for a, s in served.items()},
+            "trace_prefill": tr_prefill, "trace_decode": tr_decode}
+
+
+def decoder_correctness(torch, dev, A, REF, T):
+    """(p2): the chunked attention, gemma2-2b at full width and 2 layers in
+    f32 (prefill, decode, the full forward), its gradients card vs CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.module import materialize
+    cfg_g, cfg_q = get_config("gemma2-2b"), get_config("qwen3-8b")
+    worst_flash = flash_checks(torch, dev, A, REF, cfg_g, cfg_q)
+    cfg = cfg_g.replace(n_layers=2, param_dtype=torch.float32,
+                        compute_dtype=torch.float32)
+    params = materialize(T.decoder_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(3))
+    toks = torch.randint(0, cfg.vocab_size, (2, 8192 + 16),
+                         generator=torch.Generator().manual_seed(4)).to(dev)
+    reset_counts()
+    # prefill against the full forward and a teacher-forced decode
+    St = 256
+    lg, _ = T.prefill(cfg, params, toks[:, :St])
+    full = T.forward_logits(cfg, params, toks[:, :St], start=St - 1)[:, 0]
+    scale = float(full.abs().max())
+    err_full = float((lg - full).abs().max()) / scale
+    c = T.init_cache(cfg, 2, St, dev)
+    for t in range(St):
+        ld, c = T.decode_step(cfg, params, toks[:, t:t + 1], c,
+                              torch.full((2,), t, device=dev))
+    err_tf = float((lg - ld).abs().max()) / scale
+    check(err_full <= 1e-4 and err_tf <= 1e-4,
+          f"(p2b) prefill vs full forward {err_full:.3e}, vs teacher-forced "
+          f"decode {err_tf:.3e}")
+    log(f"(p2b) gemma2-2b full width, 2 layers, f32, 2 x {St} tokens: prefill "
+        f"vs the full forward {err_full:.2e}, vs a {St}-step teacher-forced "
+        f"decode {err_tf:.2e} of the largest logit (bound 1e-4)")
+    errs = {}
+    for S, B in ((2048, 2), (8192, 1)):
+        errs[S] = decode_vs_full(torch, T, cfg, params, toks[:B], S, 16)
+        check(errs[S] <= 1e-4, f"(p2b) prefill {S} + 16 decode steps vs the "
+                               f"full forward: {errs[S]:.3e}")
+        log(f"(p2b) prefill of {B} x {S} (max_seq {S + 16}) then 16 decode "
+            f"steps vs the full forward over {S + 16}: {errs[S]:.2e} of the "
+            f"largest logit (bound 1e-4; window {cfg.local_window}"
+            f"{', the ring wraps' if S > cfg.local_window else ''})")
+    check_counts(read_counts(), {}, "(p2b) the 2-layer decoder")
+    batch = {"tokens": toks[:1, :64], "labels": toks[:1, 1:65]}
+    grads = grads_card_vs_cpu(torch, T.loss_fn, cfg, params, batch,
+                              "(p2c) gemma2-2b full width, 2 layers, f32, "
+                              "B 1 S 64, card vs CPU")
+    del params
+    torch.cuda.empty_cache()
+    return {"flash_rel": worst_flash, "prefill_vs_full": err_full,
+            "prefill_vs_decode": err_tf, "decode_vs_full": errs,
+            "grads": grads}
+
+
+def free_disk_gb(path):
+    import shutil
+    return shutil.disk_usage(path).free / 1e9
+
+
+def final_files(root, step):
+    d = Path(root) / f"step_{step:08d}"
+    return {p.name: p.read_bytes() for p in sorted(d.iterdir())
+            if p.suffix == ".npy"}
+
+
+def decoder_training(torch, dev, A, TRAIN, STEPS, T, RW, root):
+    """(p3) training at full width and depth, the f32 check, crash and
+    resume; (p4)'s training costs.  Checkpoints go under `root`."""
+    import shutil
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.models.module import materialize
+    costs = {}
+    for arch in ("gemma2-2b", "rwkv6-3b"):
+        ck = Path(root) / arch
+        log(f"(p3) {arch}: {free_disk_gb(root):.1f} GB free under the "
+            f"checkpoint root before the full-size run writes its final "
+            f"checkpoint")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out = TRAIN.main(["--arch", arch, "--steps", "20", "--batch", "4",
+                          "--seq", "64", "--ckpt-every", "0", "--ckpt-dir",
+                          str(ck)])
+        check_counts(read_counts(), {}, f"(p3) launch.train --arch {arch}")
+        peak = torch.cuda.max_memory_allocated()
+        steps = out["steps"]
+        check(len(steps) == 20 and out["final_step"] == 20
+              and all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                      for s in steps),
+              f"(p3) {arch}: {len(steps)} steps, {out['summary']}")
+        med = statistics.median(s["ms"] for s in steps[1:])
+        log(f"(p3) launch.train --arch {arch} --steps 20 --batch 4 --seq 64 "
+            f"(full width and depth, bf16): losses {steps[0]['loss']:.4f} -> "
+            f"{steps[-1]['loss']:.4f}, grad norms {steps[0]['grad_norm']:.4f} "
+            f"-> {steps[-1]['grad_norm']:.4f}, all 20 finite; median step "
+            f"{med:.1f} ms (steps 2-20, first {steps[0]['ms']:.1f} ms), peak "
+            f"allocated {peak / 1e9:.2f} GB; K1-K4 launches 0")
+        costs[arch] = {"median_step_ms": med, "peak_bytes": peak}
+        shutil.rmtree(ck, ignore_errors=True)
+        del out
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        if arch == "rwkv6-3b":
+            params = materialize(RW.rwkv_model_specs(cfg),
+                                 torch.Generator(device=dev).manual_seed(0))
+            reset_counts()
+            RW.prefill(cfg, params, torch.zeros((1, 64), dtype=torch.long,
+                                                device=dev))
+            counts = read_counts()
+            check_counts(counts, {"wkv": cfg.n_layers}, "(p3) rwkv6-3b prefill "
+                                                        "after training")
+            log(f"(p3) rwkv6-3b: K4 0 launches in training, {counts['wkv']} in "
+                f"a prefill after it")
+            del params
+        else:
+            # one train step traced, on fresh parameters and moments
+            params = materialize(T.decoder_specs(cfg),
+                                 torch.Generator(device=dev).manual_seed(0))
+            opt = STEPS.default_optimizer(cfg)
+            state = [params, opt.init(params)]
+            step_fn = STEPS.make_train_step(cfg, opt)
+            batch = TRAIN.build_model_lm(TRAIN.parse_args(
+                ["--arch", arch, "--ckpt-dir", str(ck)]))["data_at"](0)
+
+            def one_step():
+                state[0], state[1], m = step_fn(state[0], state[1], batch, 0)
+                return m
+            costs["trace_train"] = profile_split(
+                torch, A, one_step, "gemma2-2b train step (4 x 64)")
+            del params, state, opt
+        torch.cuda.empty_cache()
+
+    # rwkv6-3b at full width, 2 layers, f32: card against CPU
+    cfg = get_config("rwkv6-3b").replace(n_layers=2, param_dtype=torch.float32,
+                                         compute_dtype=torch.float32)
+    params = materialize(RW.rwkv_model_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(2))
+    toks = torch.randint(0, cfg.vocab_size, (1, 65),
+                         generator=torch.Generator().manual_seed(6)).to(dev)
+    reset_counts()
+    costs["rwkv_grads"] = grads_card_vs_cpu(
+        torch, RW.loss_fn, cfg, params,
+        {"tokens": toks[:, :64], "labels": toks[:, 1:]},
+        "(p3) rwkv6-3b full width, 2 layers, f32, B 1 S 64, card vs CPU")
+    check_counts(read_counts(), {}, "(p3) rwkv6-3b loss and gradients")
+    del params
+    torch.cuda.empty_cache()
+
+    # crash and resume at --smoke
+    for arch in ("gemma2-2b", "rwkv6-3b"):
+        argv = ["--arch", arch, "--smoke", "--ckpt-every", "5"]
+        a = TRAIN.main([*argv, "--fail-at", "7", "--ckpt-dir",
+                        str(Path(root) / f"{arch}_a")])
+        b = TRAIN.main([*argv, "--ckpt-dir", str(Path(root) / f"{arch}_b")])
+        check((a["restarts"], b["restarts"]) == (1, 0)
+              and a["final_step"] == b["final_step"] == 20,
+              f"(p3) crash and resume {arch}: restarts {a['restarts']} / "
+              f"{b['restarts']}, steps {a['final_step']} / {b['final_step']}")
+        fa = final_files(Path(root) / f"{arch}_a", 20)
+        fb = final_files(Path(root) / f"{arch}_b", 20)
+        check(fa.keys() == fb.keys() and fa and all(fa[k] == fb[k] for k in fa),
+              f"(p3) crash and resume {arch}: the final checkpoints differ")
+        log(f"(p3) crash and resume {arch} --smoke --ckpt-every 5 --fail-at 7:"
+            f" restarts 1 / 0, the final checkpoints' {len(fa)} leaves bitwise")
+    return costs
+
+
+def decoder_phase(torch, dev):
+    """Phase 13: the dense decoders and LM training (module docstring)."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import ref as REF
+    from repro_torch.launch import serve as SERVE, steps as STEPS
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.models import attention as A, rwkv as RW
+    from repro_torch.models import transformer as T
+    serving = decoder_serving(torch, dev, A, SERVE, T)
+    torch.cuda.empty_cache()
+    correct = decoder_correctness(torch, dev, A, REF, T)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_"))
+    try:
+        training = decoder_training(torch, dev, A, TRAIN, STEPS, T, RW, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("phase 13 json: " + json.dumps({"serving": serving,
+                                         "correctness": correct,
+                                         "training": training}))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3753,7 +4263,13 @@ def main():
     lm = lm_phase(torch, TRAIN, ON, CKP, BP, SP, CF, CK, IN, OPS)
     log(f"phase 12 (the online token LM): {time.perf_counter() - t12:.1f} s")
 
-    # -- phase 13: the kernels line and the result --------------------------
+    # -- phase 13: the dense decoders and LM training -----------------------
+    t13 = time.perf_counter()
+    decoder_phase(torch, dev)
+    log(f"phase 13 (the dense decoders and LM training): "
+        f"{time.perf_counter() - t13:.1f} s")
+
+    # -- phase 14: the kernels line and the result --------------------------
     t1, t2 = times["(a) f32"], k2_times["(a) column-compact"]
     kernels = [{"name": "compact_fused", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/compact_fused.cu",

@@ -1,33 +1,50 @@
 """Model configurations of the port (counterpart of `repro.configs`):
 ``get_config(<id>)`` resolves ``--arch <id>``.
 
-Ported: the paper's own ``egru-spiral`` and ``rwkv6-3b``.  Every other
-architecture of the reference is in ``NOT_PORTED`` and raises: its model
-family is ROADMAP Queue 1 item 14's remaining work.
+Ported: the paper's own ``egru-spiral``, ``rwkv6-3b`` and the dense
+decoders (gemma2-2b, qwen3-8b, yi-6b, minitron-8b, internvl2-2b).  The
+architectures in ``NOT_PORTED`` raise: their model families (MoE, the
+encoder-decoder, the rglru LM) are ROADMAP Queue 1 item 14's remaining
+work.
 """
 from __future__ import annotations
 
+import importlib
+
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSuite, smoke_config
 
-NOT_PORTED = frozenset({
-    "olmoe-1b-7b", "kimi-k2-1t-a32b", "internvl2-2b", "whisper-large-v3",
-    "qwen3-8b", "gemma2-2b", "minitron-8b", "yi-6b", "recurrentgemma-9b"})
+ARCHS = {
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "internvl2-2b": "internvl2_2b",
+    "whisper-large-v3": "whisper_large_v3",
+    "qwen3-8b": "qwen3_8b",
+    "gemma2-2b": "gemma2_2b",
+    "minitron-8b": "minitron_8b",
+    "yi-6b": "yi_6b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "rwkv6-3b": "rwkv6_3b",
+}
+
+NOT_PORTED = frozenset({"olmoe-1b-7b", "kimi-k2-1t-a32b", "whisper-large-v3",
+                        "recurrentgemma-9b"})
 
 
-def get_config(name: str):
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP Queue 1 item 14 (the LM "
+        "substrate: MoE, encdec and the rglru model); the port has "
+        "egru-spiral, rwkv6-3b and the dense decoders")
+
+
+def get_config(name: str) -> ModelConfig:
     if name in ("egru_spiral", "egru-spiral"):
         from repro_torch.configs.egru_spiral import CONFIG
         return CONFIG
-    if name == "rwkv6-3b":
-        from repro_torch.configs.rwkv6_3b import CONFIG
-        return CONFIG
     if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"--arch {name} is not ported yet: its model family is ROADMAP "
-            "Queue 1 item 14 (LM substrate, other families); the port has "
-            "rwkv6-3b and egru-spiral")
-    raise KeyError(name)
+        raise not_ported(f"--arch {name}")
+    return importlib.import_module(f"repro_torch.configs.{ARCHS[name]}").CONFIG
 
 
-__all__ = ["NOT_PORTED", "SHAPES", "ModelConfig", "ShapeSuite", "get_config",
-           "smoke_config"]
+__all__ = ["ARCHS", "NOT_PORTED", "SHAPES", "ModelConfig", "ShapeSuite",
+           "get_config", "not_ported", "smoke_config"]

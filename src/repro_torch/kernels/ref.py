@@ -1,7 +1,6 @@
 """Plain-torch oracles of the kernels (the allclose references).
 
-Counterpart of `repro.kernels.ref` (the slice's part: the flash-attention
-oracle comes with the decoder family)."""
+Counterpart of `repro.kernels.ref`."""
 from __future__ import annotations
 
 import torch
@@ -21,6 +20,31 @@ def influence_grads_ref(cbar, M):
 def event_matmul_ref(a, R):
     """y[b] = a[b] @ R with a activity-sparse.  [B,n] x [n,m] -> [B,m]."""
     return torch.einsum("bn,nm->bm", a.float(), R.float()).to(R.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None, cap=0.0):
+    """Naive full-softmax attention. q:[B,S,H,D], k/v:[B,S,KV,D].  All f32
+    math; the output in q's dtype.  `cap` > 0 applies the logit softcap
+    cap * tanh(s / cap) to the scaled scores (the reference's oracle has
+    no softcap; with cap = 0 the two are the same function)."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = scale or D ** -0.5
+    qg = q.reshape(B, S, KV, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if cap > 0.0:
+        s = cap * torch.tanh(s / cap)
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window > 0:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    s = torch.where(mask[None, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
+    return o.reshape(B, KV * G, S, D).transpose(1, 2).to(q.dtype)
 
 
 def wkv_chunk_ref(r, k, v, logw, u, S_prev):

@@ -53,8 +53,12 @@ def wkv_chunk(r, k, v, logw, u, S_prev):
     o_inter = torch.einsum("bhld,bhdv->bhlv", q_inter, S_prev)
 
     # intra-chunk: A[i,j] = sum_d r_i k_j exp(logP_{i-1,d} - logP_{j,d}) (j<i)
-    #              A[i,i] = sum_d r_i k_i u_d; the clamped exponent is <= 0
-    delta = (logP_prev[:, :, :, None, :] - logP[:, :, None, :, :]).clamp(max=0.0)
+    #              A[i,i] = sum_d r_i k_i u_d; the clamped exponent is <= 0.
+    # `minimum` (not `clamp`): at j = i-1 the exponent is exactly 0, and
+    # minimum's backward splits a tie's gradient in half, as jnp.minimum's
+    # does, so the training gradients round as the reference's do
+    delta = torch.minimum(logP_prev[:, :, :, None, :] - logP[:, :, None, :, :],
+                          torch.zeros((), dtype=logP.dtype, device=logP.device))
     L = r.shape[2]
     ii = torch.arange(L, device=r.device)
     diag = (ii[:, None] == ii[None, :])[None, None, :, :, None]

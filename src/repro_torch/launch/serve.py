@@ -1,7 +1,7 @@
 """Serving launcher of the port: batched decode with slot-based continuous
 batching.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve [--arch gemma2-2b] \\
         [--smoke] [--requests 6] [--slots 4] [--max-seq 64] [--max-new 12] \\
         [--temperature 0.0] [--device cpu] [--metrics-dir DIR [--trace]]
 
@@ -34,8 +34,10 @@ summary with the reference's fields.
     PYTHONPATH=src python -m repro_torch.launch.serve --fleet --smoke \
         --device cpu
 
-Not ported yet, and raising: every arch but rwkv6-3b (ROADMAP Queue 1
-item 14).
+Serving runs rwkv6-3b and the dense decoders (gemma2-2b, the default,
+qwen3-8b, yi-6b, minitron-8b, internvl2-2b; the VLM decodes text tokens
+only, as the reference's Engine does).  The MoE, encdec and rglru archs
+raise (ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 

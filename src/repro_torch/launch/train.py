@@ -1,5 +1,5 @@
-"""Training launcher of the port: the paper's spiral experiment and the
-online token LM.
+"""Training launcher of the port: the paper's spiral experiment, the
+online token LM and the LM families.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch egru-spiral \\
         [--online] [--rtrl-backend {dense,pallas,compact,compact_fused}] \\
@@ -99,7 +99,25 @@ reference's LM path silently ignores the flags it does not read
 refuses each of them, when not at its default, before anything is
 written, and likewise refuses the LM's own flags beside egru-spiral.
 
-Every other arch raises (ROADMAP Queue 1 item 14).
+The LM families (counterpart of the reference's LM path, its `main`):
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch {gemma2-2b,qwen3-8b,yi-6b,minitron-8b,internvl2-2b,rwkv6-3b} \
+        [--smoke] [--steps 20] [--batch 4] [--seq 64] [--seed 0] \
+        [--device cpu] [--ckpt-every 10] [--ckpt-dir DIR] [--fail-at K] \
+        [--metrics FILE] [--metrics-dir DIR [--trace]]
+
+trains offline through `launch.steps.make_train_step` (the loss over
+cfg.n_microbatches slices, the global norm clipped to 1.0, the config's
+optimizer at lr 3e-4) and the same Trainer, checkpoints and restart
+supervisor.  `--smoke` takes the reduced same-family config.  The batch of
+step s is `data.tokens.synthetic_token_batches(batch, seq, vocab, seed=1234
++ s)` (with internvl2's patch embeddings), so a restart replays it; the
+parameters are drawn from torch.Generator(--seed) on the device.  RWKV6
+trains through the plain WKV (`models.rwkv.loss_fn`).  The flags this path
+does not read (the spiral's and the online LM's) are refused before
+anything is written.  The MoE, encdec and rglru archs raise (ROADMAP Queue
+1 item 14).
 """
 from __future__ import annotations
 
@@ -177,12 +195,6 @@ def _median_ms(records: list) -> float | None:
     return statistics.median(r["ms"] for r in records) if records else None
 
 
-def _reject_later_slices(args) -> None:
-    if args.arch not in ARCHS and args.arch not in LM_ARCHS:
-        raise SystemExit(f"not ported yet: --arch {args.arch} (the port has "
-                         f"{', '.join((ARCHS[0],) + tuple(LM_ARCHS))})")
-
-
 def _refuse_unread(args, unread: dict) -> None:
     """SystemExit naming every flag of `unread` given at another value
     than its default: the arch's path does not read it."""
@@ -202,7 +214,6 @@ def _build_common(args) -> dict:
     from repro_torch.optim.optimizers import (make_optimizer, masked,
                                               masked_dynamic)
 
-    _reject_later_slices(args)
     _refuse_unread(args, _LM_FLAGS)
     backend = args.rtrl_backend
     rewiring = args.rewire != "off"
@@ -632,10 +643,87 @@ def parse_args(argv=None):
     return args
 
 
+def build_model_lm(args) -> dict:
+    """The LM family run of `args`: cfg, device, opt, the train step and
+    data_at (the step's batch on the device).  The refusals come first."""
+    from repro_torch.configs import ARCHS as MODEL_ARCHS
+    from repro_torch.configs import NOT_PORTED, get_config, smoke_config
+    from repro_torch.launch import steps as steps_lib
+
+    if args.arch not in MODEL_ARCHS:
+        raise SystemExit(f"unknown --arch {args.arch}")
+    if args.arch in NOT_PORTED:
+        raise SystemExit(f"not ported yet: --arch {args.arch} (ROADMAP Queue "
+                         "1 item 14: the MoE, encdec and rglru models)")
+    _refuse_unread(args, {**_SPIRAL_FLAGS, **_EGRU_FLAGS, "online": False,
+                          "sparsity": 0.0, "update_every": 8,
+                          **{k: v for k, v in _LM_FLAGS.items()
+                             if k not in ("batch", "seq")}})
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_config(cfg)
+    device = resolve_device(args.device)
+    opt = steps_lib.default_optimizer(cfg)
+    batches = {"n_patches": cfg.n_patches} if cfg.n_patches else {}
+
+    def data_at(step):                   # step-keyed: replay-exact
+        from repro_torch.data.tokens import synthetic_token_batches
+        b = next(synthetic_token_batches(args.batch, args.seq, cfg.vocab_size,
+                                         seed=1234 + step, **batches))
+        return {k: torch.from_numpy(v).to(device, torch.long
+                                         if v.dtype.kind == "i" else None)
+                for k, v in b.items()}
+
+    return {"cfg": cfg, "device": device, "opt": opt, "data_at": data_at,
+            "step_fn": steps_lib.make_train_step(cfg, opt)}
+
+
+def model_lm_trainers(args, run):
+    """make_trainer(attempt) for `run_with_restart`: a Trainer with the
+    parameters drawn anew from torch.Generator(--seed) on the device,
+    `--fail-at` armed on attempt 0 only."""
+    from repro_torch.models import get_model
+    from repro_torch.models.module import materialize
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg, device = run["cfg"], run["device"]
+
+    def make_trainer(attempt=0):
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = materialize(get_model(cfg).specs(cfg), gen)
+        tcfg = TrainerConfig(total_steps=args.steps,
+                             ckpt_every=args.ckpt_every,
+                             ckpt_dir=args.ckpt_dir,
+                             fail_at_step=args.fail_at if attempt == 0 else -1,
+                             metrics_path=args.metrics)
+        return Trainer(tcfg, run["step_fn"], params, run["opt"].init(params),
+                       run["data_at"])
+
+    return make_trainer
+
+
+def train_model_lm(args) -> dict:
+    """Offline LM training of a model family; `--steps` counts steps."""
+    from repro_torch.runtime.trainer import run_with_restart
+    run = build_model_lm(args)
+    out = run_with_restart(model_lm_trainers(args, run))
+    summary = {"arch": args.arch, "device": str(run["device"]),
+               "final_step": out["final_step"], "restarts": out["restarts"],
+               "stragglers": out["stragglers"],
+               **_loss_fields(out["metrics"]),
+               "median_step_ms": _median_ms(out["steps"])}
+    obs = telemetry_from_args(args, arch=args.arch)
+    finish_run(obs, f"train {args.arch}", summary)
+    print(json.dumps(summary))
+    out["summary"] = summary
+    return out
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.arch in LM_ARCHS:
         return train_lm_online(args)
+    if args.arch not in ARCHS:
+        return train_model_lm(args)
     return (train_egru_online if args.online else train_egru_offline)(args)
 
 

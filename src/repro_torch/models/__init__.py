@@ -7,9 +7,9 @@
   decode_step(cfg, params, token, cache, pos) -> (logits, cache)
   init_cache(cfg, B, S, device)  -> cache tree
 
-Ported: the RWKV6 family's serving path.  Its `loss_fn` and the other
-families (decoder, encdec, rglru) are ROADMAP Queue 1 item 14's remaining
-work and raise.
+Ported: the dense decoder family (`transformer`) and RWKV6 (`rwkv`), for
+training and serving.  A config with ``moe=True`` and the other families
+(encdec, rglru) are ROADMAP Queue 1 item 14's remaining work and raise.
 """
 from __future__ import annotations
 
@@ -29,19 +29,17 @@ class ModelAPI:
     init_cache: Callable
 
 
-def _rwkv_loss_fn(*args, **kwargs):
-    raise NotImplementedError(
-        "RWKV6 training (loss_fn, the chunked CE loss and a backward through "
-        "WKV) is not ported yet: ROADMAP Queue 1 item 14")
-
-
 def get_model(cfg: ModelConfig) -> ModelAPI:
+    if cfg.family == "decoder":
+        from repro_torch.models import transformer as m
+        m.check_dense(cfg)
+        return ModelAPI("decoder", m.decoder_specs, m.loss_fn, m.prefill,
+                        m.decode_step, m.init_cache)
     if cfg.family == "rwkv6":
         from repro_torch.models import rwkv as m
-        return ModelAPI("rwkv6", m.rwkv_model_specs, _rwkv_loss_fn, m.prefill,
+        return ModelAPI("rwkv6", m.rwkv_model_specs, m.loss_fn, m.prefill,
                         m.decode_step, m.init_cache)
-    if cfg.family in ("decoder", "encdec", "rglru"):
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet: ROADMAP Queue 1 "
-            "item 14 (LM substrate, other families)")
+    if cfg.family in ("encdec", "rglru"):
+        from repro_torch.configs import not_ported
+        raise not_ported(f"model family {cfg.family!r}")
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,7 +1,6 @@
 """RWKV6 "Finch": data-dependent decay linear recurrence (attention-free).
 
-Counterpart of `repro.models.rwkv` (the serving part: `loss_fn` comes with
-the training slice, ROADMAP Queue 1 item 14).  Time-mix state per head:
+Counterpart of `repro.models.rwkv`.  Time-mix state per head:
 
     S_t = diag(w_t) S_{t-1} + k_t (x) v_t,
     o_t = r_t^T (diag(u) k_t (x) v_t + S_{t-1})
@@ -9,11 +8,16 @@ the training slice, ROADMAP Queue 1 item 14).  Time-mix state per head:
 with per-channel decay w_t = exp(-exp(ww_t)) from a data-dependent LoRA,
 plus data-dependent token-shift lerps (ddlerp) for r/k/v/w/g.  A prompt goes
 through the chunked WKV (`wkv_full`, kernel K4 on CUDA tensors); decoding
-steps the recurrence one token at a time (`wkv_step`).
+steps the recurrence one token at a time (`wkv_step`).  Training
+(`loss_fn`) differentiates through the plain chunked WKV
+(`kernels.wkv.wkv_reference`), chosen explicitly by `plain=True`: the
+reference trains through its plain `wkv_chunk` scan under autodiff, never
+through the Pallas kernel, and K4 has no backward.
 
 Parameters keep the reference's tree: with ``cfg.scan_layers`` the layers'
 ``units`` are stacked ``[L, ...]`` tensors (looped over in Python, as
-``lax.scan`` does), otherwise a list of per-layer dicts.
+``lax.scan`` does), otherwise a list of per-layer dicts.  The remat policy
+wraps the layer.
 """
 from __future__ import annotations
 
@@ -29,8 +33,8 @@ from repro_torch.models.layers import (embed_tokens, embedding_specs, lm_logits,
                                        rmsnorm_spec)
 from repro_torch.models.module import (ParamSpec, constant_init, fan_in_normal,
                                        normal, ones_init, stack_specs, zeros_init)
-from repro_torch.models.transformer import _norm
-from repro_torch.tree import tree_map
+from repro_torch.models.transformer import _maybe_remat, _norm, chunked_ce_loss
+from repro_torch.tree import stack, unstack
 
 LORA_R = 32      # ddlerp LoRA rank
 LORA_W = 64      # decay LoRA rank
@@ -100,17 +104,12 @@ def rwkv_model_specs(cfg: ModelConfig) -> dict:
 
 def _layers(cfg: ModelConfig, tree):
     """Per-layer views of `units` (or of a stacked cache)."""
-    if cfg.scan_layers:
-        return [tree_map(lambda t, i=i: t[i], tree) for i in range(cfg.n_layers)]
-    return list(tree)
+    return unstack(tree, cfg.n_layers) if cfg.scan_layers else list(tree)
 
 
 def _stack_layers(cfg: ModelConfig, per_layer: list):
     """The per-layer states as the cache layout: stacked [L, ...] or a list."""
-    if cfg.scan_layers:
-        return {key: torch.stack([st[key] for st in per_layer])
-                for key in per_layer[0]}
-    return per_layer
+    return stack(per_layer) if cfg.scan_layers else per_layer
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +150,7 @@ def group_norm_heads(cfg: ModelConfig, p: dict, o: torch.Tensor) -> torch.Tensor
     """Per-head LayerNorm (GroupNorm with H groups) on [B,T,H,D]."""
     of = o.float()
     mu = of.mean(dim=-1, keepdim=True)
-    var = of.var(dim=-1, keepdim=True, correction=0)     # jnp.var: ddof 0
+    var = (of - mu).square().mean(dim=-1, keepdim=True)   # jnp.var, ddof 0
     of = (of - mu) * torch.rsqrt(var + 64e-5)
     flat = of.reshape(*o.shape[:-2], -1)
     return (flat * p["ln_x_scale"].float()
@@ -162,15 +161,18 @@ def group_norm_heads(cfg: ModelConfig, p: dict, o: torch.Tensor) -> torch.Tensor
 # Chunked WKV
 # ---------------------------------------------------------------------------
 
-def wkv_full(cfg: ModelConfig, r, k, v, logw, u, S0=None):
+def wkv_full(cfg: ModelConfig, r, k, v, logw, u, S0=None, *, plain=False):
     """Chunked WKV over the full sequence. r/k/v/logw: [B,T,H,D].  The
     chunk length is min(cfg.rwkv_chunk, T); T must be a multiple of it
     (the reference's reshape fails otherwise; nothing is padded here).
+    `plain` runs the plain PyTorch version (`wkv_reference`, which autograd
+    differentiates) in place of the kernel wrapper (K4 on the card).
     Returns (o [B,T,H,D] in the compute dtype, S [B,H,D,D] f32)."""
     T = r.shape[1]
     L = min(cfg.rwkv_chunk, T)
     tr = lambda x: x.transpose(1, 2).contiguous()        # [B,H,T,D]
-    o, S = WK.wkv(tr(r), tr(k), tr(v), tr(logw.float()), u, S0, chunk=L)
+    fn = WK.wkv_reference if plain else WK.wkv
+    o, S = fn(tr(r), tr(k), tr(v), tr(logw.float()), u, S0, chunk=L)
     return o.transpose(1, 2).to(cfg.compute_dtype), S
 
 
@@ -211,12 +213,13 @@ def time_mix_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor, prev=None):
     return r, k, v, logw, F.silu(proj[:, :, 3])
 
 
-def time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, state=None):
+def time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, state=None, *,
+             plain=False):
     """x: [B,T,d] -> (out [B,T,d], {"S": S_final, "x_tm": x_last})."""
     prev = None if state is None else state["x_tm"]
     r, k, v, logw, g = time_mix_inputs(cfg, p, x, prev)
     S0 = None if state is None else state["S"]
-    o, S = wkv_full(cfg, r, k, v, logw, p["u"], S0)
+    o, S = wkv_full(cfg, r, k, v, logw, p["u"], S0, plain=plain)
     o = group_norm_heads(cfg, p, o)
     out = torch.einsum("btd,de->bte", o * g, p["Wo"].to(cfg.compute_dtype))
     return out, {"S": S, "x_tm": x[:, -1]}
@@ -234,18 +237,28 @@ def channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, state=None):
     return rr * vv, {"x_cm": x[:, -1]}
 
 
-def run_layer(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    h, _ = time_mix(cfg, p["tm"], _norm(cfg, p["ln1"], x))
+def run_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, plain=False):
+    h, _ = time_mix(cfg, p["tm"], _norm(cfg, p["ln1"], x), plain=plain)
     x = x + h
     h, _ = channel_mix(cfg, p["cm"], _norm(cfg, p["ln2"], x))
     return x + h
 
 
-def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor):
+def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor, *, plain=False):
     x = _norm(cfg, params["ln0"], x)
+    layer_fn = _maybe_remat(cfg, lambda lp, x: run_layer(cfg, lp, x, plain))
     for lp in _layers(cfg, params["units"]):
-        x = run_layer(cfg, lp, x)
+        x = layer_fn(lp, x)
     return _norm(cfg, params["ln_f"], x)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+    """batch: tokens [B,S], labels [B,S] (-1 masked) -> the scalar chunked
+    CE loss, through the plain WKV (`plain=True`: the kernel has no
+    backward)."""
+    x = embed_tokens(cfg, params["emb"], batch["tokens"])
+    h = backbone(cfg, params, x, plain=True)
+    return chunked_ce_loss(cfg, params, h, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,18 @@
 """Optimizers as pure tree transforms on parameter dicts, in PyTorch.
 
-Counterpart of `repro.optim.optimizers` (adamw, the fixed-mask wrapper
-and the dynamic one whose mask rewire events swap; lion, adafactor and sgdm
-are ROADMAP Queue 1 item 14).  An :class:`Optimizer` is (init, update):
+Counterpart of `repro.optim.optimizers`: adamw, lion, adafactor and sgdm,
+the fixed-mask wrapper and the dynamic one whose mask rewire events swap.
+An :class:`Optimizer` is (init, update):
 
     state            = opt.init(params)
     params', state'  = opt.update(grads, state, params, step)
 
 Updates return new tensors; nothing is modified in place.  ``step`` is the
 integer update count, or, for a batch of slots updated under
-`torch.func.vmap` (the stream fleet), what ``opt.slot_steps(counts,
-device)`` makes of the slots' counts: each slot may stand at another count.
+`torch.func.vmap` (the stream fleet, adamw only), what
+``opt.slot_steps(counts, device)`` makes of the slots' counts: each slot may
+stand at another count.  ``lr`` may be a number or a schedule, host step ->
+lr (`optim.schedules`).
 """
 from __future__ import annotations
 
@@ -31,7 +33,21 @@ class Optimizer:
     update: Callable[[Tree, Tree, Tree, int], tuple[Tree, Tree]]
     # ([S] host update counts, device) -> the step argument of a vmapped
     # update, one entry a slot along axis 0
-    slot_steps: Callable[[Any, Any], Tree]
+    slot_steps: Callable[[Any, Any], Tree] = None
+
+    def __post_init__(self):
+        if self.slot_steps is None:
+            object.__setattr__(self, "slot_steps", _no_slot_steps)
+
+
+def _no_slot_steps(counts, device):
+    raise NotImplementedError("per-slot update counts (the stream fleet) "
+                              "are adamw's only")
+
+
+def _sched(lr) -> Callable:
+    """A schedule from `lr`: a callable is one, a number is constant."""
+    return lr if callable(lr) else (lambda step: lr)
 
 
 def _ipow1(base: float, step: int) -> np.float32:
@@ -50,13 +66,17 @@ def _ipow1(base: float, step: int) -> np.float32:
     return acc
 
 
-def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
+def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
+          moment_dtype=torch.float32) -> Optimizer:
     """`step` is the host integer update count, or the pair (c1, c2) of
     bias corrections that `slot_steps` computes on the host for every
-    slot's count (the same float32 rounding).  Either way the moments are
-    divided by a float32 tensor, so that a slot's m / c1 is bitwise the
-    unbatched update's on every device (CUDA would take a host scalar
-    divisor as a product with its reciprocal)."""
+    slot's count (the same float32 rounding; `lr` a number then).  Either
+    way the moments are divided by a float32 tensor, so that a slot's
+    m / c1 is bitwise the unbatched update's on every device (CUDA would
+    take a host scalar divisor as a product with its reciprocal).  The
+    moments are stored in `moment_dtype` and updated in float32."""
+    lr_fn = _sched(lr)
+
     def bias(step: int) -> tuple[float, float]:
         return (float(np.float32(1.0) - _ipow1(b1, step)),
                 float(np.float32(1.0) - _ipow1(b2, step)))
@@ -67,33 +87,142 @@ def adamw(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0) -> Optimizer:
         return c[:, 0], c[:, 1]
 
     def init(params):
-        return {"m": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+        return {"m": tree_map(lambda p: torch.zeros_like(p, dtype=moment_dtype),
                               params),
-                "v": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                "v": tree_map(lambda p: torch.zeros_like(p, dtype=moment_dtype),
                               params)}
 
     def update(grads, state, params, step):
         if isinstance(step, tuple):
             c1, c2 = step
+            lr_t = lr
         else:
             dev = tree_leaves(state["m"])[0].device
             c1, c2 = (torch.full((), c, dtype=torch.float32, device=dev)
                       for c in bias(step))
+            lr_t = lr_fn(step)
 
         def leaf(g, m, v, p):
             g = g.float()
-            m_new = b1 * m + (1 - b1) * g
-            v_new = b2 * v + (1 - b2) * g.square()
+            m_new = b1 * m.float() + (1 - b1) * g
+            v_new = b2 * v.float() + (1 - b2) * g.square()
             upd = (m_new / c1) / ((v_new / c2).sqrt() + eps)
             if weight_decay:
                 upd = upd + weight_decay * p.float()
-            p_new = p.float() - lr * upd
-            return p_new.to(p.dtype), m_new, v_new
+            p_new = p.float() - lr_t * upd
+            return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
 
         out = tree_map(leaf, grads, state["m"], state["v"], params)
         return _pick(out, 0), {"m": _pick(out, 1), "v": _pick(out, 2)}
 
     return Optimizer(init, update, slot_steps)
+
+
+def lion(lr=1e-4, b1=0.9, b2=0.99, weight_decay=0.0,
+         moment_dtype=torch.bfloat16) -> Optimizer:
+    """Momentum only, in `moment_dtype` (bf16: 2 bytes a parameter); the
+    update is sign(b1 m + (1 - b1) g)."""
+    lr_fn = _sched(lr)
+
+    def init(params):
+        return {"m": tree_map(lambda p: torch.zeros_like(p, dtype=moment_dtype),
+                              params)}
+
+    def update(grads, state, params, step):
+        lr_t = lr_fn(step)
+
+        def leaf(g, m, p):
+            g, mf = g.float(), m.float()
+            upd = torch.sign(b1 * mf + (1 - b1) * g)
+            if weight_decay:
+                upd = upd + weight_decay * p.float()
+            p_new = p.float() - lr_t * upd
+            return p_new.to(p.dtype), (b2 * mf + (1 - b2) * g).to(m.dtype)
+
+        out = tree_map(leaf, grads, state["m"], params)
+        return _pick(out, 0), {"m": _pick(out, 1)}
+
+    return Optimizer(init, update)
+
+
+def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0) -> Optimizer:
+    """Factored second moment for a leaf of rank >= 2 (row and column
+    means of g^2 + eps: O(n + m) state for [n, m]), a full one below; the
+    update is clipped to RMS <= clip_threshold.  beta = 1 - t^-decay with
+    t = step + 1, float32 on the host."""
+    lr_fn = _sched(lr)
+
+    def init(params):
+        def leaf(p):
+            z = lambda shape: torch.zeros(shape, dtype=torch.float32,
+                                          device=p.device)
+            if p.dim() >= 2:
+                return {"vr": z(p.shape[:-1]),
+                        "vc": z(p.shape[:-2] + p.shape[-1:])}
+            return {"v": z(p.shape)}
+        return {"f": tree_map(leaf, params)}
+
+    def update(grads, state, params, step):
+        t = np.float32(step) + np.float32(1.0)
+        beta = np.float32(1.0) - t ** np.float32(-decay)
+        b, nb = float(beta), float(np.float32(1.0) - beta)
+        lr_t = lr_fn(step)
+
+        def leaf(g, p, s):
+            g = g.float()
+            g2 = g.square() + eps
+            if g.dim() >= 2:
+                vr = b * s["vr"] + nb * g2.mean(dim=-1)
+                vc = b * s["vc"] + nb * g2.mean(dim=-2)
+                denom = (vr[..., None] * vc[..., None, :]
+                         / vr.mean(dim=-1, keepdim=True)[..., None].clamp(min=eps))
+                upd = g * torch.rsqrt(denom.clamp(min=eps))
+                new_s = {"vr": vr, "vc": vc}
+            else:
+                v = b * s["v"] + nb * g2
+                upd = g * torch.rsqrt(v.clamp(min=eps))
+                new_s = {"v": v}
+            rms = torch.sqrt(upd.square().mean() + 1e-12)
+            upd = upd / torch.clamp(rms / clip_threshold, min=1.0)
+            return (p.float() - lr_t * upd).to(p.dtype), new_s
+
+        flat_g, flat_p = tree_leaves(grads), tree_leaves(params)
+        flat_s = _state_leaves(state["f"], params)
+        outs = iter([leaf(g, p, st) for g, p, st in zip(flat_g, flat_p, flat_s)])
+        pairs = tree_map(lambda _: next(outs), params)
+        return _pick(pairs, 0), {"f": _pick(pairs, 1)}
+
+    return Optimizer(init, update)
+
+
+def _state_leaves(state, params) -> list:
+    """The per-parameter state dicts of `state` (a tree shaped like params
+    whose leaves are dicts), in params' leaf order."""
+    if isinstance(params, dict):
+        return [x for k in params for x in _state_leaves(state[k], params[k])]
+    if isinstance(params, (list, tuple)):
+        return [x for s, p in zip(state, params) for x in _state_leaves(s, p)]
+    return [state]
+
+
+def sgdm(lr=1e-2, momentum=0.9) -> Optimizer:
+    lr_fn = _sched(lr)
+
+    def init(params):
+        return {"m": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                              params)}
+
+    def update(grads, state, params, step):
+        lr_t = lr_fn(step)
+
+        def leaf(g, m, p):
+            m_new = momentum * m + g.float()
+            return (p.float() - lr_t * m_new).to(p.dtype), m_new
+
+        out = tree_map(leaf, grads, state["m"], params)
+        return _pick(out, 0), {"m": _pick(out, 1)}
+
+    return Optimizer(init, update)
 
 
 def _pick(tree, i):
@@ -152,6 +281,10 @@ def set_opt_mask(state: Tree, new_mask: Tree) -> Tree:
 def make_optimizer(name: str, lr=None, **kw) -> Optimizer:
     if name == "adamw":
         return adamw(lr if lr is not None else 1e-3, **kw)
-    raise NotImplementedError(
-        f"optimizer {name!r} is not ported yet (ROADMAP Queue 1 item 14); "
-        "the port has 'adamw'")
+    if name == "lion":
+        return lion(lr if lr is not None else 1e-4, **kw)
+    if name == "adafactor":
+        return adafactor(lr if lr is not None else 1e-2, **kw)
+    if name == "sgdm":
+        return sgdm(lr if lr is not None else 1e-2, **kw)
+    raise ValueError(name)

@@ -4,7 +4,12 @@ Counterpart of `repro.runtime.serving`.  The decode step is
 position-vectorised ([B] positions), so slots can hold sequences of
 different lengths; a finished slot is refilled from the queue with the
 batch shape unchanged.  Prompts are fed token by token through the decode
-path (teacher-forced), as in the reference.
+path (teacher-forced), as in the reference.  A slot admitted to a new
+request starts from a zero state: `add_request` zeroes the slot's row of
+every cache leaf.  The reference resets only the slot's position, so a
+recurrent family (RWKV6's S, x_tm, x_cm) carries the last request's state
+into the next one (ROADMAP Queue 3, fault 6); a decoder's stale KV entries
+are masked by the positions either way.
 
 Sampling stays on the device: only the [B] sampled token ids cross to the
 host each step, never the [B, V] logits.  With temperature > 0 the gumbel
@@ -23,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import get_model
 from repro_torch.models.module import materialize
+from repro_torch.tree import tree_leaves
 
 
 @dataclasses.dataclass
@@ -73,11 +79,17 @@ class Engine:
     # -- slot management ------------------------------------------------------
 
     def add_request(self, prompt_tokens: list[int]) -> int | None:
-        """Claim a free slot; the prompt is consumed token by token."""
+        """Claim a free slot, zero its state; the prompt is consumed token
+        by token."""
         free = np.where(~self.live)[0]
         if len(free) == 0:
             return None
         slot = int(free[0])
+        # the cache layout's batch axis: 1 under a stacked [L or U, B, ...]
+        # cache, 0 in a per-layer list
+        axis = 1 if self.cfg.scan_layers else 0
+        for leaf in tree_leaves(self.cache):
+            leaf.select(axis, slot).zero_()
         self.live[slot] = True
         self.pos[slot] = 0
         self.slot_steps[slot] = 0

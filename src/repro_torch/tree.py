@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import torch
+
 Tree = Any
 
 
@@ -79,3 +81,22 @@ def leaf_name(path: tuple) -> str:
     """Keys and indices joined by '__'; 'leaf' for a bare leaf (the JAX
     package's `checkpoint.ckpt._leaf_name`)."""
     return "__".join(str(p) for p in path) or "leaf"
+
+
+def unstack(tree: Tree, n: int) -> list:
+    """A tree of stacked [n, ...] tensors -> n trees of its slices along
+    axis 0 (one `unbind` a leaf, whose backward stacks the n gradients in
+    one op)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def stack(trees: list) -> Tree:
+    """`unstack`'s inverse: n trees of one structure -> one tree of
+    [n, ...] tensors."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)

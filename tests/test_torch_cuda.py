@@ -1089,3 +1089,70 @@ def test_lm_launcher_on_cuda_launches_once_a_stream_step(cuda, backend):
     assert out["final_step"] == 24 and out["summary"]["device"] == "cuda"
     assert launched == ((24, 0) if backend == "compact_fused" else (0, 24))
     assert all(np.isfinite(w["loss"]) for w in out["windows"])
+
+
+# ---------------------------------------------------------------------------
+# the dense decoders and LM training (smoke configs): the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _lm_models(arch, device):
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.models.module import materialize
+    from repro_torch.tree import tree_map
+    cfg = smoke_config(get_config(arch))
+    cpu = materialize(get_model(cfg).specs(cfg), torch.Generator().manual_seed(0))
+    return cfg, cpu, tree_map(lambda t: t.to(device), cpu)
+
+
+def _lm_batch(cfg, device, B=2, S=24):
+    from repro_torch.data.tokens import synthetic_token_batches
+    b = next(synthetic_token_batches(B, S, cfg.vocab_size,
+                                     n_patches=cfg.n_patches))
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-8b", "rwkv6-3b"])
+def test_lm_loss_and_gradients_on_cuda_match_cpu(cuda, arch):
+    from repro_torch.models import get_model
+    from repro_torch.optim import microbatch_grads
+    from repro_torch.tree import tree_leaves
+    cfg, cpu, dev = _lm_models(arch, cuda)
+    loss = lambda p, b: get_model(cfg).loss_fn(cfg, p, b)
+    lc, gc = microbatch_grads(loss, cpu, _lm_batch(cfg, "cpu"), 1)
+    ld, gd = microbatch_grads(loss, dev, _lm_batch(cfg, cuda), 1)
+    assert abs(float(ld) - float(lc)) <= F32_REL * abs(float(lc))
+    for a, b in zip(tree_leaves(gd), tree_leaves(gc)):
+        assert float((a.cpu() - b).abs().max()) <= F32_REL * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-2b", "yi-6b"])
+def test_prefill_and_decode_on_cuda_match_cpu_and_the_full_forward(cuda, arch):
+    from repro_torch.models import transformer as T
+    cfg, cpu, dev = _lm_models(arch, cuda)
+    S, n = 24, 8
+    toks = torch.randint(0, cfg.vocab_size, (2, S + n),
+                         generator=torch.Generator().manual_seed(1))
+    full = T.forward_logits(cfg, dev, toks.to(cuda), start=S - 1)
+    lg, cache = T.prefill(cfg, dev, toks[:, :S].to(cuda), max_seq=S + n)
+    lc, _ = T.prefill(cfg, cpu, toks[:, :S], max_seq=S + n)
+    scale = float(full.abs().max())
+    assert float((lg.cpu() - lc).abs().max()) <= F32_REL * scale
+    for i in range(n + 1):
+        assert float((lg - full[:, i]).abs().max()) <= F32_REL * scale, i
+        if i < n:
+            lg, cache = T.decode_step(cfg, dev, toks[:, S + i:S + i + 1].to(cuda),
+                                      cache, torch.full((2,), S + i, device=cuda))
+
+
+@pytest.mark.cuda
+def test_rwkv_training_on_cuda_launches_no_wkv_kernel(cuda, tmp_path):
+    from repro_torch.launch import train as TRAIN
+    before = WK.wkv.launches
+    out = TRAIN.main(["--arch", "rwkv6-3b", "--smoke", "--steps", "3",
+                      "--ckpt-every", "0", "--ckpt-dir", str(tmp_path)])
+    assert WK.wkv.launches == before and out["final_step"] == 3
+    assert out["summary"]["device"] == "cuda"
+    assert all(np.isfinite(s["loss"]) for s in out["steps"])

@@ -13,6 +13,9 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 # every module the port has so far
 EXPECTED = {
     "configs", "configs.base", "configs.egru_spiral", "configs.rwkv6_3b",
+    "configs.gemma2_2b", "configs.qwen3_8b", "configs.yi_6b",
+    "configs.minitron_8b", "configs.internvl2_2b", "models.attention",
+    "optim.grad", "optim.schedules", "launch.steps",
     "cells", "cells.egru", "cells.rglru", "cells.snn", "checkpoint",
     "checkpoint.ckpt", "core.bptt", "core.cells", "core.costs",
     "core.diag_rtrl", "core.learner", "core.rtrl", "core.snap",
