@@ -255,7 +255,37 @@ checkout, it exits non-zero and prints no result.  Phases:
      step ms and peak allocation of both training runs, and traces of a
      prefill, a decode step and a train step (device ops, idle share,
      attention's and the GEMMs' share of device time);
- 14. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
+ 14. the MoE decoders and the Griffin RG-LRU LM, every launch with the
+     counts set to 0 just before and read just after, K1-K4 0 in every
+     run: (m1) olmoe-1b-7b at full size (6,919,100,416 parameters, bf16,
+     drawn on the card), `transformer.prefill` of 4 x 2048 with max_seq
+     2064 and 16 greedy decodes, `launch.serve.main(["--arch",
+     "olmoe-1b-7b"])` with every request completed, kimi-k2-1t-a32b at
+     full width and 1 of its 61 layers (19,395,138,560 parameters: 384
+     experts, top-8), a prefill of 2 x 1024 and 4 decodes with finite
+     logits; (m2) olmoe at full width, 2 layers, f32: prefill against the
+     full forward, prefill then 16 decodes against the full forward over
+     S + 16 at a capacity with no drop, 1e-4 of the largest logit; one
+     block's dispatch against the dense oracle (1e-5); two dispatch
+     forward+backward runs bitwise; loss and gradients card against CPU
+     (as in phase 13); (m3) recurrentgemma-9b at full size
+     (9,396,195,328 parameters), prefill 4 x 2048 and 16 decodes,
+     `launch.serve.main(["--arch", "recurrentgemma-9b"])` at its 4 slots;
+     (m4) recurrentgemma at full width, 5 layers (one unit and 2 rem
+     layers), f32: prefill then 16 decodes against the full forward at S
+     2048 and 4096 (the 2048-slot ring wraps), 1e-4; the scan against a
+     sequential loop (1e-5); loss and gradients card against CPU; (m5)
+     `launch.train` as the launcher builds it, at full width and cut
+     depth (olmoe 4 of 16 layers, recurrentgemma 5 of 38; 20 steps of
+     4 x 64, bf16), finite losses, peak allocation, and crash and resume
+     (`--smoke --ckpt-every 5 --fail-at 7`) for both, final checkpoints
+     bitwise; (c) the costs as in phase 13 (prefill tokens/s and its
+     share of the bf16 peak, the MoE's counting only the active experts'
+     FLOPs; decode ms a step; the Engine's tok/s; train ms a step) and
+     traces of each model's prefill and decode step with the shares of
+     kernel time in the MoE dispatch (its routing, and the experts'
+     products inside it) and in the RG-LRU scan;
+ 15. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
      K1's and K2's with a "stacked" entry for phase 8's path, K1's with a
      "guard" and K2's with a "rewire" entry for phase 9's, both with a
      "telemetry" entry for phase 10's, a "fleet" entry for phase 11's and
@@ -3591,49 +3621,50 @@ GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma")
 
 
 @contextlib.contextmanager
-def attention_ranges(A):
-    """Each flash/decode attention call inside a profiler range named
-    "attention" (phase 13's traces attribute device time to it)."""
+def named_ranges(ranges):
+    """Each call of the functions in `ranges` {name: [(module, attr), ...]}
+    inside a profiler range of that name (the traces attribute device time
+    to it); the module attributes are restored on exit."""
     from torch.profiler import record_function
-    saved = A.flash_attention, A.decode_attention
+    saved = [(m, a, getattr(m, a)) for fns in ranges.values() for m, a in fns]
 
-    def ranged(fn):
+    def ranged(name, fn):
         def call(*args, **kw):
-            with record_function("attention"):
+            with record_function(name):
                 return fn(*args, **kw)
         return call
-    A.flash_attention, A.decode_attention = map(ranged, saved)
+    for name, fns in ranges.items():
+        for m, a in fns:
+            setattr(m, a, ranged(name, getattr(m, a)))
     try:
         yield
     finally:
-        A.flash_attention, A.decode_attention = saved
+        for m, a, fn in saved:
+            setattr(m, a, fn)
 
 
-def profile_split(torch, A, fn, label):
+def profile_ranges(torch, fn, label, ranges):
     """torch.profiler over one call of fn: device ops, the idle share of the
     wall time, and the shares of the kernel time taken by the kernels
-    inside the attention ranges (a forward's flash/decode attention; a
-    backward's attention kernels run outside them) and by GEMM kernels (by
-    name: the projections, the MLP, the logits and attention's f32
-    products).  Returns the numbers (None where the profiler recorded no
-    device event)."""
+    inside each named range of `ranges` (`named_ranges`; a forward's
+    calls: a backward's kernels run outside them) and by GEMM kernels (by
+    name).  Returns the numbers (None where the profiler recorded no device
+    event)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with attention_ranges(A), profile(activities=[ProfilerActivity.CPU,
-                                                  ProfilerActivity.CUDA]) as prof:
+    with named_ranges(ranges), profile(activities=[ProfilerActivity.CPU,
+                                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
-    # the attention ranges show on the device timeline too, as annotations
-    # spanning their kernels
-    spans = [e for e in events if e.device_type == DeviceType.CUDA
-             and e.name == "attention"]
+    # the ranges show on the device timeline too, as annotations spanning
+    # their kernels
     dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and e.name != "attention"]
+           and e.name not in ranges]
     if not dev:
         log(f"trace {label}: the profiler recorded no device events: shares "
             "not measured")
@@ -3645,21 +3676,24 @@ def profile_split(torch, A, fn, label):
     kern = sum(e.time_range.elapsed_us() for e in dev)
     gemm = sum(e.time_range.elapsed_us() for e in dev
                if any(g in e.name.lower() for g in GEMM_NAMES))
-    windows = sorted((e.time_range.start, e.time_range.end) for e in spans)
-    starts = [w[0] for w in windows]
-
-    def in_attention(e):
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        return i >= 0 and e.time_range.end <= windows[i][1]
-    attn = sum(e.time_range.elapsed_us() for e in dev if in_attention(e))
     out = {"ops": len(dev), "busy_us": busy, "wall_us": wall_us,
-           "idle": 1 - busy / wall_us, "attention": attn / kern,
-           "gemm": gemm / kern}
+           "idle": 1 - busy / wall_us, "gemm": gemm / kern}
+    shares = []
+    for name in ranges:
+        windows = sorted((e.time_range.start, e.time_range.end) for e in events
+                         if e.device_type == DeviceType.CUDA and e.name == name)
+        starts = [w[0] for w in windows]
+
+        def inside(e):
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            return i >= 0 and e.time_range.end <= windows[i][1]
+        us = sum(e.time_range.elapsed_us() for e in dev if inside(e))
+        out[name] = us / kern
+        shares.append(f"{name}'s kernels {us:.0f} us ({out[name]:.3f})")
     log(f"trace {label} (profiler on): {len(dev)} device ops, device busy "
         f"{busy:.0f} us of {wall_us:.0f} us wall (idle share "
-        f"{out['idle']:.3f}); of {kern:.0f} us kernel time, attention's "
-        f"kernels {attn:.0f} us ({out['attention']:.3f}), GEMM kernels "
-        f"{gemm:.0f} us ({out['gemm']:.3f})")
+        f"{out['idle']:.3f}); of {kern:.0f} us kernel time, "
+        f"{', '.join(shares)}, GEMM kernels {gemm:.0f} us ({out['gemm']:.3f})")
     by_name = {}
     for e in dev:
         tot, cnt = by_name.get(e.name, (0.0, 0))
@@ -3669,22 +3703,52 @@ def profile_split(torch, A, fn, label):
     return out
 
 
+def attention(A):
+    """The ranges of flash and decode attention (phase 13's split)."""
+    return {"attention": [(A, "flash_attention"), (A, "decode_attention")]}
+
+
+def profile_split(torch, A, fn, label):
+    """`profile_ranges` with attention's range."""
+    return profile_ranges(torch, fn, label, attention(A))
+
+
+def matmul_flops(cfg, leaves):
+    """2 a multiply-add of every weight matrix a token passes through: the
+    2-D leaves whole (a depthwise conv's [K, w] taps too: K multiply-adds a
+    channel), a MoE layer's [E, d, f] expert leaves at top_k of their E
+    experts (the active experts only)."""
+    n = 0
+    for t in leaves:
+        if t.dim() == 2:
+            n += t.numel()
+        elif t.dim() == 3:
+            n += t.numel() * cfg.top_k // cfg.n_experts
+    return 2 * n
+
+
+def attention_flops(cfg, B, S, windows):
+    """Causal attention's QK^T and P.V over the pairs each query needs, for
+    one layer of each window in `windows` (0: global)."""
+    pairs = 0
+    for w in windows:
+        pairs += sum(min(q + 1, w) if w else q + 1 for q in range(S))
+    return 4 * B * cfg.n_heads * cfg.head_dim * pairs
+
+
 def decoder_flops(cfg, params, B, S):
-    """The prefill's FLOPs, counted from the shapes: 2 a multiply-add of
-    every unit weight matrix for each of the B*S tokens, the logits at the
-    last position (B x d x V), and causal attention's QK^T and P.V over
-    the pairs each query needs (a local layer's window included)."""
+    """The prefill's FLOPs, counted from the shapes: every unit weight
+    matrix for each of the B*S tokens (`matmul_flops`), the logits at the
+    last position (B x d x V), and causal attention (a local layer's window
+    included)."""
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_leaves
-    mm = sum(t.numel() for unit in T._units(cfg, params["units"])
-             for t in tree_leaves(unit) if t.dim() == 2)
-    pairs = 0
-    for kind in T.unit_layout(cfg):
-        w = cfg.local_window if kind == "local" else 0
-        per = sum(min(q + 1, w) if w else q + 1 for q in range(S))
-        pairs += per * T.n_units(cfg)
-    attn = 4 * B * cfg.n_heads * cfg.head_dim * pairs
-    return 2 * mm * B * S + 2 * B * cfg.d_model * cfg.vocab_size + attn
+    mm = sum(matmul_flops(cfg, tree_leaves(unit))
+             for unit in T._units(cfg, params["units"]))
+    windows = [cfg.local_window if kind == "local" else 0
+               for kind in T.unit_layout(cfg)] * T.n_units(cfg)
+    return (mm * B * S + 2 * B * cfg.d_model * cfg.vocab_size
+            + attention_flops(cfg, B, S, windows))
 
 
 def flash_checks(torch, dev, A, REF, cfg_g, cfg_q):
@@ -4063,6 +4127,429 @@ def decoder_phase(torch, dev):
                                          "training": training}))
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the MoE decoders and the Griffin RG-LRU LM
+# ---------------------------------------------------------------------------
+
+def moe_ranges(M):
+    """The MoE block's dispatch (router output to combine, the experts'
+    products inside it) and the experts' products alone."""
+    return {"dispatch": [(M, "_dispatch")], "experts": [(M, "_expert_ffn")]}
+
+
+def rglru_flops(cfg, params, R, B, S):
+    """The rglru prefill's FLOPs from the shapes: every weight matrix of
+    the units and the rem layers for each token (`matmul_flops`), the
+    last position's logits, the local attention layers' pairs (the scan is
+    elementwise and not counted)."""
+    from repro_torch.tree import tree_leaves
+    U, _ = R.n_units(cfg)
+    mm = matmul_flops(cfg, [t for unit in R._units(cfg, params["units"])
+                            for t in tree_leaves(unit)]
+                      + tree_leaves(params["rem"]))
+    return (mm * B * S + 2 * B * cfg.d_model * cfg.vocab_size
+            + attention_flops(cfg, B, S, [cfg.local_window] * U))
+
+
+def draw(torch, dev, specs, seed, label, want):
+    """The parameters of `specs` drawn on the card from a seeded generator;
+    checks the count against `want`."""
+    from repro_torch.models.module import count_params, materialize
+    t0 = time.perf_counter()
+    params = materialize(specs, torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    n = count_params(specs)
+    check(n == want, f"{label}: {n:,} parameters, expected {want:,}")
+    log(f"{label}: {n:,} parameters, drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    return params
+
+
+def prefill_decode(torch, dev, mod, cfg, params, B, S, n_dec, label):
+    """Prefill of B x S with room for n_dec more, then n_dec greedy decodes
+    from its cache, K1-K4 counted; every logit finite.  Returns
+    (tokens, the cache after the prefill, the last token, decode ms)."""
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    reset_counts()
+    logits, cache = mod.prefill(cfg, params, tokens, max_seq=S + n_dec)
+    check(logits.shape == (B, cfg.vocab_size) and bool(logits.isfinite().all()),
+          f"{label} prefill logits {tuple(logits.shape)}")
+    tok, step_ms, dcache = logits.argmax(-1)[:, None], [], cache
+    for i in range(n_dec):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dl, dcache = mod.decode_step(cfg, params, tok, dcache,
+                                     torch.full((B,), S + i, device=dev))
+        tok = dl.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        check(bool(dl.isfinite().all()), f"{label} decode: non-finite logits")
+    check_counts(read_counts(), {}, f"{label} prefill and decode")
+    log(f"{label}: prefill {B} x {S} (max_seq {S + n_dec}) and {n_dec} greedy "
+        f"decode steps from its cache, every logit finite, launches K1-K4 0")
+    return tokens, cache, tok, step_ms
+
+
+def serve_full(torch, SERVE, arch):
+    """`launch.serve.main(["--arch", arch])` at its defaults (6 requests, 4
+    slots, 12 new tokens), K1-K4 counted; every request completed."""
+    reset_counts()
+    out = SERVE.main(["--arch", arch])
+    check_counts(read_counts(), {}, f"launch.serve --arch {arch}")
+    s = out["summary"]
+    check(s["requests"] == 6 and s["failed"] == 0
+          and out["failed_requests"] == []
+          and all(len(o) == 12 for o in out["outputs"]),
+          f"launch.serve --arch {arch}: {s}, failed {out['failed_requests']}")
+    log(f"launch.serve --arch {arch}: at full size, {s['requests']} requests "
+        f"over {s['slots']} slots, {s['tokens']} tokens in {s['wall_s']} s, "
+        f"{s['tok_per_s']} tok/s, every request completed")
+    del out
+    torch.cuda.empty_cache()
+    return s["tok_per_s"]
+
+
+def serving_costs(torch, dev, mod, cfg, params, tokens, cache, tok, step_ms,
+                  flops, ranges, label):
+    """The prefill's best of 3 (CUDA events, after a warm run), its tokens/s
+    and share of the bf16 peak, decode's median ms, and traces of a prefill
+    and a decode step with `ranges`."""
+    B, S = tokens.shape
+    n_dec = len(step_ms)
+    prefill = lambda: mod.prefill(cfg, params, tokens, max_seq=S + n_dec)
+    runs = [time_ms(torch, prefill, 1, warmup=1 if i == 0 else 0)
+            for i in range(3)]
+    best = min(runs)
+    rate = flops / (best / 1e3)
+    med = statistics.median(step_ms)
+    log(f"(c) {label} prefill {B} x {S}: {best:.2f} ms (runs "
+        f"{', '.join(f'{x:.2f}' for x in runs)}), {B * S * 1e3 / best:.0f} "
+        f"tokens/s; {flops:.4g} FLOP -> {rate / 1e12:.1f} TFLOP/s, "
+        f"{rate / BF16_FLOP_S:.3f} of the 989 TFLOP/s bf16 peak")
+    log(f"(c) {label} decode: {n_dec} greedy steps of batch {B}, median "
+        f"{med:.2f} ms a step (min {min(step_ms):.2f}, max {max(step_ms):.2f})")
+    pos = torch.full((B,), S, device=dev)
+    tr_p = profile_ranges(torch, prefill, f"{label} prefill {B} x {S}", ranges)
+    tr_d = profile_ranges(torch, lambda: mod.decode_step(cfg, params, tok,
+                                                         cache, pos),
+                          f"{label} decode step (batch {B})", ranges)
+    return {"prefill_ms": best, "prefill_tok_s": B * S * 1e3 / best,
+            "prefill_flop_share": rate / BF16_FLOP_S, "decode_ms": med,
+            "trace_prefill": tr_p, "trace_decode": tr_d}
+
+
+def moe_serving(torch, dev, A, M, SERVE, T):
+    """(m1) olmoe-1b-7b at full size and kimi-k2 at full width, 1 layer;
+    (c)'s serving costs."""
+    from repro_torch.configs import get_config
+    cfg = get_config("olmoe-1b-7b")
+    params = draw(torch, dev, T.decoder_specs(cfg), 0, "(m1) olmoe-1b-7b",
+                  6_919_100_416)
+    B, S, n_dec = 4, 2048, 16
+    tokens, cache, tok, step_ms = prefill_decode(
+        torch, dev, T, cfg, params, B, S, n_dec, "(m1) olmoe-1b-7b")
+    ranges = {**attention(A), **moe_ranges(M)}
+    costs = serving_costs(torch, dev, T, cfg, params, tokens, cache, tok,
+                          step_ms, decoder_flops(cfg, params, B, S), ranges,
+                          "olmoe-1b-7b")
+    del params, cache
+    torch.cuda.empty_cache()
+    costs["engine_tok_s"] = serve_full(torch, SERVE, "olmoe-1b-7b")
+
+    kimi = get_config("kimi-k2-1t-a32b")
+    # one unit, listed: stacking it would hold a second copy of each 11.3 GB
+    # expert leaf while it is drawn
+    cut = kimi.replace(n_layers=1, scan_layers=False)
+    params = draw(torch, dev, T.decoder_specs(cut), 0,
+                  f"(m1) kimi-k2-1t-a32b at full width, depth cut from "
+                  f"{kimi.n_layers} to 1 layer", 19_395_138_560)
+    log(f"(m1) kimi-k2: d {cut.d_model}, {cut.n_heads} x {cut.head_dim} heads, "
+        f"{cut.n_kv_heads} KV heads, {cut.n_experts} experts top-{cut.top_k}, "
+        f"d_ff {cut.d_ff}, vocab {cut.vocab_size}; 1 of its {kimi.n_layers} "
+        f"layers (its 1.03 T parameters do not fit one card)")
+    t0 = time.perf_counter()
+    _, _, _, kms = prefill_decode(torch, dev, T, cut, params, 2, 1024, 4,
+                                  "(m1) kimi-k2 1 layer")
+    costs["kimi_s"] = time.perf_counter() - t0
+    costs["kimi_decode_ms"] = statistics.median(kms)
+    log(f"(m1) kimi-k2 1 layer: prefill 2 x 1024 and 4 decodes in "
+        f"{costs['kimi_s']:.2f} s (the first calls), decode median "
+        f"{costs['kimi_decode_ms']:.2f} ms a step")
+    del params
+    torch.cuda.empty_cache()
+    return costs
+
+
+def rglru_serving(torch, dev, A, R, SERVE):
+    """(m3) recurrentgemma-9b at full size; (c)'s serving costs."""
+    from repro_torch.configs import get_config
+    cfg = get_config("recurrentgemma-9b")
+    params = draw(torch, dev, R.rglru_model_specs(cfg), 0,
+                  "(m3) recurrentgemma-9b", 9_396_195_328)
+    B, S, n_dec = 4, 2048, 16
+    tokens, cache, tok, step_ms = prefill_decode(
+        torch, dev, R, cfg, params, B, S, n_dec, "(m3) recurrentgemma-9b")
+    ranges = {**attention(A), "scan": [(R, "rglru_scan")]}
+    costs = serving_costs(torch, dev, R, cfg, params, tokens, cache, tok,
+                          step_ms, rglru_flops(cfg, params, R, B, S), ranges,
+                          "recurrentgemma-9b")
+    del params, cache
+    torch.cuda.empty_cache()
+    costs["engine_tok_s"] = serve_full(torch, SERVE, "recurrentgemma-9b")
+    return costs
+
+
+def full_vs_decode(torch, mod, cfg, params, toks, S, n):
+    """Prefill of S tokens with room for n more, then n teacher-forced
+    decode steps, against `mod.forward_logits` over S + n: the largest
+    difference over the n + 1 logit rows, relative to the largest logit."""
+    B = toks.shape[0]
+    full = mod.forward_logits(cfg, params, toks[:, :S + n], start=S - 1)
+    lg, cache = mod.prefill(cfg, params, toks[:, :S], max_seq=S + n)
+    errs = [float((lg - full[:, 0]).abs().max())]
+    for i in range(n):
+        pos = torch.full((B,), S + i, device=toks.device)
+        lg, cache = mod.decode_step(cfg, params, toks[:, S + i:S + i + 1],
+                                    cache, pos)
+        errs.append(float((lg - full[:, i + 1]).abs().max()))
+    return max(errs) / float(full.abs().max())
+
+
+def block_grads(torch, M, cfg, p, x, w):
+    """Gradients of sum(y * w) + aux through one MoE block, w.r.t. x and
+    every parameter."""
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+    x = x.detach().clone().requires_grad_(True)
+    y, aux = M.moe_block(cfg, p, x)
+    ((y * w).sum() + aux).backward()
+    return [x.grad] + [p[k].grad for k in sorted(p)]
+
+
+def moe_correctness(torch, dev, M, T):
+    """(m2) olmoe at full width, 2 layers, f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.module import materialize
+    cfg = get_config("olmoe-1b-7b").replace(n_layers=2,
+                                            param_dtype=torch.float32,
+                                            compute_dtype=torch.float32)
+    params = materialize(T.decoder_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(3))
+    toks = torch.randint(0, cfg.vocab_size, (2, 2048 + 16),
+                         generator=torch.Generator().manual_seed(4)).to(dev)
+    reset_counts()
+    S = 2048
+    lg, _ = T.prefill(cfg, params, toks[:, :S])
+    full = T.forward_logits(cfg, params, toks[:, :S], start=S - 1)[:, 0]
+    err_p = float((lg - full).abs().max()) / float(full.abs().max())
+    # decode over S + 16 tokens against the full forward: the capacity is
+    # computed over a call's tokens, so the comparison runs at a capacity
+    # where no pair is dropped (C >= T)
+    ample = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+    err_d = full_vs_decode(torch, T, ample, params, toks, S, 16)
+    check(err_p <= 1e-4 and err_d <= 1e-4,
+          f"(m2) olmoe prefill vs full {err_p:.3e}, prefill + 16 decodes vs "
+          f"full {err_d:.3e}")
+    log(f"(m2) olmoe-1b-7b full width, 2 layers, f32: prefill of 2 x {S} vs "
+        f"the full forward at capacity_factor {cfg.capacity_factor} "
+        f"{err_p:.2e}; prefill then 16 decodes vs the full forward over "
+        f"{S + 16} at capacity_factor {ample.capacity_factor} (no drop) "
+        f"{err_d:.2e} of the largest logit (bound 1e-4)")
+    # one block: dispatch vs the dense oracle, and bitwise run to run
+    lp = T._units(cfg, params["units"])[0]["global"]["mlp"]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((2, 512, cfg.d_model), generator=gen, device=dev)
+    w = torch.randn((2, 512, cfg.d_model), generator=gen, device=dev)
+    y, aux = M.moe_block(ample, lp, x)
+    yd, auxd = M.moe_block(ample.replace(moe_impl="dense"), lp, x)
+    err_o = float((y - yd).abs().max()) / float(yd.abs().max())
+    check(err_o <= F32_REL and float(abs(aux - auxd)) <= F32_REL * float(auxd),
+          f"(m2) dispatch vs dense oracle {err_o:.3e}")
+    g1 = block_grads(torch, M, cfg, lp, x, w)
+    g2 = block_grads(torch, M, cfg, lp, x, w)
+    same = all(torch.equal(a, b) for a, b in zip(g1, g2))
+    check(same, "(m2) two dispatch forward+backward runs differ")
+    log(f"(m2) one MoE block, 2 x 512 tokens: dispatch vs the dense oracle at "
+        f"ample capacity {err_o:.2e} of the largest output (bound 1e-5); two "
+        f"dispatch forward+backward runs at capacity_factor "
+        f"{cfg.capacity_factor} bitwise on x and all {len(g1) - 1} parameter "
+        f"gradients")
+    check_counts(read_counts(), {}, "(m2) the 2-layer olmoe")
+    batch = {"tokens": toks[:1, :64], "labels": toks[:1, 1:65]}
+    grads = grads_card_vs_cpu(torch, T.loss_fn, cfg, params, batch,
+                              "(m2) olmoe-1b-7b full width, 2 layers, f32, "
+                              "B 1 S 64, card vs CPU")
+    del params
+    torch.cuda.empty_cache()
+    return {"prefill_vs_full": err_p, "decode_vs_full": err_d,
+            "dispatch_vs_dense": err_o, "bitwise": same, "grads": grads}
+
+
+def rglru_correctness(torch, dev, R):
+    """(m4) recurrentgemma at full width, 5 layers (one unit and 2 rem
+    layers), f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.module import materialize
+    cfg = get_config("recurrentgemma-9b").replace(
+        n_layers=5, param_dtype=torch.float32, compute_dtype=torch.float32)
+    params = materialize(R.rglru_model_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(3))
+    toks = torch.randint(0, cfg.vocab_size, (2, 4096 + 16),
+                         generator=torch.Generator().manual_seed(4)).to(dev)
+    reset_counts()
+    errs = {}
+    for S, B in ((2048, 2), (4096, 1)):
+        errs[S] = full_vs_decode(torch, R, cfg, params, toks[:B], S, 16)
+        check(errs[S] <= 1e-4, f"(m4) prefill {S} + 16 decode steps vs the "
+                               f"full forward: {errs[S]:.3e}")
+        log(f"(m4) recurrentgemma full width, 5 layers, f32: prefill of {B} x "
+            f"{S} (max_seq {S + 16}) then 16 decode steps vs the full forward "
+            f"over {S + 16}: {errs[S]:.2e} of the largest logit (bound 1e-4; "
+            f"window {cfg.local_window}"
+            f"{', the ring wraps' if S + 16 > cfg.local_window else ''})")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    la = -3.0 * torch.rand((2, 2048, cfg.lru_width), generator=gen, device=dev)
+    xi = torch.randn((2, 2048, cfg.lru_width), generator=gen, device=dev)
+    h0 = torch.randn((2, cfg.lru_width), generator=gen, device=dev)
+    h, loop = h0, []
+    for t in range(la.shape[1]):
+        h = torch.exp(la[:, t]) * h + xi[:, t]
+        loop.append(h)
+    loop = torch.stack(loop, 1)
+    err_s = float((R.rglru_scan(la, xi, h0) - loop).abs().max()) / float(
+        loop.abs().max())
+    check(err_s <= F32_REL, f"(m4) scan vs loop {err_s:.3e}")
+    log(f"(m4) rglru_scan [2, 2048, {cfg.lru_width}] with h0 vs a sequential "
+        f"loop on the card: {err_s:.2e} of the largest state (bound 1e-5)")
+    check_counts(read_counts(), {}, "(m4) the 5-layer rglru model")
+    batch = {"tokens": toks[:1, :64], "labels": toks[:1, 1:65]}
+    grads = grads_card_vs_cpu(torch, R.loss_fn, cfg, params, batch,
+                              "(m4) recurrentgemma full width, 5 layers, f32, "
+                              "B 1 S 64, card vs CPU")
+    del params
+    torch.cuda.empty_cache()
+    return {"decode_vs_full": errs, "scan_vs_loop": err_s, "grads": grads}
+
+
+def cut_training(torch, TRAIN, STEPS, arch, layers, ck):
+    """`launch.train --arch arch --steps 20 --batch 4 --seq 64` with the
+    depth cut to `layers`: the launcher's own run (`build_model_lm`), its
+    config's depth replaced before the step is built, through
+    `model_lm_trainers` and `run_with_restart`, K1-K4 counted."""
+    from repro_torch.runtime.trainer import run_with_restart
+    args = TRAIN.parse_args(["--arch", arch, "--steps", "20", "--batch", "4",
+                             "--seq", "64", "--ckpt-every", "0",
+                             "--ckpt-dir", str(ck)])
+    run = TRAIN.build_model_lm(args)
+    full = run["cfg"].n_layers
+    run["cfg"] = run["cfg"].replace(n_layers=layers)
+    run["step_fn"] = STEPS.make_train_step(run["cfg"], run["opt"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = run_with_restart(TRAIN.model_lm_trainers(args, run))
+    check_counts(read_counts(), {}, f"(m5) launch.train --arch {arch}")
+    peak = torch.cuda.max_memory_allocated()
+    steps = out["steps"]
+    check(len(steps) == 20 and out["final_step"] == 20
+          and all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                  for s in steps), f"(m5) {arch}: {len(steps)} steps")
+    med = statistics.median(s["ms"] for s in steps[1:])
+    log(f"(m5) launch.train --arch {arch} --steps 20 --batch 4 --seq 64, full "
+        f"width, depth cut from {full} to {layers} layers, bf16, "
+        f"{run['cfg'].optimizer}: "
+        f"losses {steps[0]['loss']:.4f} -> {steps[-1]['loss']:.4f}, all 20 "
+        f"finite; median step {med:.1f} ms (steps 2-20, first "
+        f"{steps[0]['ms']:.1f} ms), peak allocated {peak / 1e9:.2f} GB; "
+        f"K1-K4 launches 0")
+    return {"layers": layers, "median_step_ms": med, "peak_bytes": peak}
+
+
+def moe_rglru_training(torch, TRAIN, STEPS, root):
+    """(m5) full-width training at cut depth, and crash and resume."""
+    import shutil
+    costs = {}
+    for arch, layers in (("olmoe-1b-7b", 4), ("recurrentgemma-9b", 5)):
+        ck = Path(root) / arch
+        costs[arch] = cut_training(torch, TRAIN, STEPS, arch, layers, ck)
+        shutil.rmtree(ck, ignore_errors=True)
+        torch.cuda.empty_cache()
+    for arch in ("olmoe-1b-7b", "recurrentgemma-9b"):
+        argv = ["--arch", arch, "--smoke", "--ckpt-every", "5"]
+        reset_counts()
+        a = TRAIN.main([*argv, "--fail-at", "7", "--ckpt-dir",
+                        str(Path(root) / f"{arch}_a")])
+        b = TRAIN.main([*argv, "--ckpt-dir", str(Path(root) / f"{arch}_b")])
+        check_counts(read_counts(), {}, f"(m5) crash and resume {arch}")
+        check((a["restarts"], b["restarts"]) == (1, 0)
+              and a["final_step"] == b["final_step"] == 20,
+              f"(m5) crash and resume {arch}: restarts {a['restarts']} / "
+              f"{b['restarts']}, steps {a['final_step']} / {b['final_step']}")
+        fa = final_files(Path(root) / f"{arch}_a", 20)
+        fb = final_files(Path(root) / f"{arch}_b", 20)
+        check(fa.keys() == fb.keys() and fa and all(fa[k] == fb[k] for k in fa),
+              f"(m5) crash and resume {arch}: the final checkpoints differ")
+        log(f"(m5) crash and resume {arch} --smoke --ckpt-every 5 --fail-at 7:"
+            f" restarts 1 / 0, the final checkpoints' {len(fa)} leaves bitwise")
+    return costs
+
+
+def moe_rglru_phase(torch, dev):
+    """Phase 14: the MoE decoders and the Griffin RG-LRU LM (module
+    docstring)."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import serve as SERVE, steps as STEPS
+    from repro_torch.launch import train as TRAIN
+    from repro_torch.models import attention as A, moe as M, rglru as R
+    from repro_torch.models import transformer as T
+    parts, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    moe = moe_serving(torch, dev, A, M, SERVE, T)
+    lap("m1")
+    rglru = rglru_serving(torch, dev, A, R, SERVE)
+    lap("m3")
+    correct = {"moe": moe_correctness(torch, dev, M, T)}
+    lap("m2")
+    correct["rglru"] = rglru_correctness(torch, dev, R)
+    lap("m4")
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_moe_"))
+    try:
+        training = moe_rglru_training(torch, TRAIN, STEPS, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lap("m5")
+    log("phase 14 seconds by part: " + ", ".join(f"{k} {v:.1f}"
+                                                  for k, v in parts.items()))
+    for label, c in (("olmoe-1b-7b", moe), ("recurrentgemma-9b", rglru)):
+        shares = []
+        for k in ("trace_prefill", "trace_decode"):
+            tr = c[k]
+            if tr is None:
+                continue
+            if "dispatch" in tr:
+                shares.append(f"{k[6:]}: MoE routing (dispatch less the "
+                              f"experts' products) {tr['dispatch'] - tr['experts']:.3f}, "
+                              f"the experts' products {tr['experts']:.3f}")
+            if "scan" in tr:
+                shares.append(f"{k[6:]}: the RG-LRU scan {tr['scan']:.3f}")
+        log(f"(c) {label}: prefill {c['prefill_tok_s']:.0f} tokens/s "
+            f"({c['prefill_flop_share']:.3f} of the bf16 peak), decode "
+            f"{c['decode_ms']:.2f} ms a step, the Engine "
+            f"{c['engine_tok_s']} tok/s, train "
+            f"{training[label]['median_step_ms']:.1f} ms a step at "
+            f"{training[label]['layers']} layers, peak "
+            f"{training[label]['peak_bytes'] / 1e9:.2f} GB; shares of kernel "
+            f"time: {'; '.join(shares) or 'not measured'}")
+    log("phase 14 json: " + json.dumps({"moe": moe, "rglru": rglru,
+                                         "correctness": correct,
+                                         "training": training}))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4269,7 +4756,13 @@ def main():
     log(f"phase 13 (the dense decoders and LM training): "
         f"{time.perf_counter() - t13:.1f} s")
 
-    # -- phase 14: the kernels line and the result --------------------------
+    # -- phase 14: the MoE decoders and the Griffin RG-LRU LM ---------------
+    t14 = time.perf_counter()
+    moe_rglru_phase(torch, dev)
+    log(f"phase 14 (the MoE decoders and the RG-LRU LM): "
+        f"{time.perf_counter() - t14:.1f} s")
+
+    # -- phase 15: the kernels line and the result --------------------------
     t1, t2 = times["(a) f32"], k2_times["(a) column-compact"]
     kernels = [{"name": "compact_fused", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/compact_fused.cu",

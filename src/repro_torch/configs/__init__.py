@@ -1,10 +1,11 @@
 """Model configurations of the port (counterpart of `repro.configs`):
 ``get_config(<id>)`` resolves ``--arch <id>``.
 
-Ported: the paper's own ``egru-spiral``, ``rwkv6-3b`` and the dense
-decoders (gemma2-2b, qwen3-8b, yi-6b, minitron-8b, internvl2-2b).  The
-architectures in ``NOT_PORTED`` raise: their model families (MoE, the
-encoder-decoder, the rglru LM) are ROADMAP Queue 1 item 14's remaining
+Ported: the paper's own ``egru-spiral``, ``rwkv6-3b``, the dense
+decoders (gemma2-2b, qwen3-8b, yi-6b, minitron-8b, internvl2-2b), the MoE
+decoders (olmoe-1b-7b, kimi-k2-1t-a32b) and the Griffin RG-LRU LM
+(recurrentgemma-9b).  The architecture in ``NOT_PORTED`` raises: its
+model family (the encoder-decoder) is ROADMAP Queue 1 item 14's remaining
 work.
 """
 from __future__ import annotations
@@ -26,15 +27,14 @@ ARCHS = {
     "rwkv6-3b": "rwkv6_3b",
 }
 
-NOT_PORTED = frozenset({"olmoe-1b-7b", "kimi-k2-1t-a32b", "whisper-large-v3",
-                        "recurrentgemma-9b"})
+NOT_PORTED = frozenset({"whisper-large-v3"})
 
 
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP Queue 1 item 14 (the LM "
-        "substrate: MoE, encdec and the rglru model); the port has "
-        "egru-spiral, rwkv6-3b and the dense decoders")
+        "substrate: the encoder-decoder); the port has egru-spiral, "
+        "rwkv6-3b, the dense and MoE decoders and the rglru model")
 
 
 def get_config(name: str) -> ModelConfig:

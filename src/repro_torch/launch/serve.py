@@ -34,10 +34,13 @@ summary with the reference's fields.
     PYTHONPATH=src python -m repro_torch.launch.serve --fleet --smoke \
         --device cpu
 
-Serving runs rwkv6-3b and the dense decoders (gemma2-2b, the default,
+Serving runs rwkv6-3b, the dense decoders (gemma2-2b, the default,
 qwen3-8b, yi-6b, minitron-8b, internvl2-2b; the VLM decodes text tokens
-only, as the reference's Engine does).  The MoE, encdec and rglru archs
-raise (ROADMAP Queue 1 item 14).
+only, as the reference's Engine does), the MoE decoders (olmoe-1b-7b,
+kimi-k2-1t-a32b, whose 1.03 T parameters fit one card only at reduced
+depth) and the RG-LRU LM (recurrentgemma-9b).  whisper-large-v3 (the
+encoder-decoder) raises before anything is written (ROADMAP Queue 1 item
+14).
 """
 from __future__ import annotations
 

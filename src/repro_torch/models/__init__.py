@@ -7,9 +7,10 @@
   decode_step(cfg, params, token, cache, pos) -> (logits, cache)
   init_cache(cfg, B, S, device)  -> cache tree
 
-Ported: the dense decoder family (`transformer`) and RWKV6 (`rwkv`), for
-training and serving.  A config with ``moe=True`` and the other families
-(encdec, rglru) are ROADMAP Queue 1 item 14's remaining work and raise.
+Ported, for training and serving: the decoder family (`transformer`,
+dense and MoE), the Griffin RG-LRU LM (`rglru`) and RWKV6 (`rwkv`).  The
+encoder-decoder family is ROADMAP Queue 1 item 14's remaining work and
+raises.
 """
 from __future__ import annotations
 
@@ -32,14 +33,17 @@ class ModelAPI:
 def get_model(cfg: ModelConfig) -> ModelAPI:
     if cfg.family == "decoder":
         from repro_torch.models import transformer as m
-        m.check_dense(cfg)
         return ModelAPI("decoder", m.decoder_specs, m.loss_fn, m.prefill,
                         m.decode_step, m.init_cache)
     if cfg.family == "rwkv6":
         from repro_torch.models import rwkv as m
         return ModelAPI("rwkv6", m.rwkv_model_specs, m.loss_fn, m.prefill,
                         m.decode_step, m.init_cache)
-    if cfg.family in ("encdec", "rglru"):
+    if cfg.family == "rglru":
+        from repro_torch.models import rglru as m
+        return ModelAPI("rglru", m.rglru_model_specs, m.loss_fn, m.prefill,
+                        m.decode_step, m.init_cache)
+    if cfg.family == "encdec":
         from repro_torch.configs import not_ported
         raise not_ported(f"model family {cfg.family!r}")
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -33,7 +33,7 @@ def _randn(gen: torch.Generator, shape) -> torch.Tensor:
 
 def normal(stddev: float = 0.02) -> Callable:
     def init(gen, shape, dtype):
-        return (stddev * _randn(gen, shape)).to(dtype)
+        return _randn(gen, shape).mul_(stddev).to(dtype)
     return init
 
 
@@ -42,7 +42,7 @@ def fan_in_normal(axis: int = -2) -> Callable:
     def init(gen, shape, dtype):
         fan_in = shape[axis] if len(shape) >= 2 else shape[0]
         std = 1.0 / math.sqrt(max(1, fan_in))
-        return (std * _randn(gen, shape)).to(dtype)
+        return _randn(gen, shape).mul_(std).to(dtype)
     return init
 
 
@@ -59,6 +59,15 @@ def ones_init() -> Callable:
 def constant_init(value: float) -> Callable:
     return lambda gen, shape, dtype: torch.full(tuple(shape), value,
                                                 dtype=dtype, device=gen.device)
+
+
+def uniform_init(lo: float, hi: float) -> Callable:
+    """U[lo, hi) drawn in float32, then cast."""
+    def init(gen, shape, dtype):
+        u = torch.rand(tuple(shape), generator=gen, device=gen.device,
+                       dtype=torch.float32)
+        return (lo + (hi - lo) * u).to(dtype)
+    return init
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +93,10 @@ class ParamSpec:
 
 
 def materialize(tree: Tree, gen: torch.Generator) -> Tree:
-    """Instantiate every ParamSpec, in tree order, from `gen` on its device."""
+    """Instantiate every ParamSpec, in tree order, from `gen` on its device.
+    A leaf's transient memory is its float32 draw and its cast (scaled in
+    place), and a stacked leaf is filled slice by slice: a full-size
+    model draws on one card beside the leaves already drawn."""
     return tree_map(lambda s: s.init(gen, s.shape, s.dtype), tree)
 
 
@@ -94,7 +106,10 @@ def stack_specs(tree: Tree, n: int, axis_name: str = "layers") -> Tree:
         axes = (axis_name,) + (tuple(s.axes) if s.axes else (None,) * len(s.shape))
 
         def init(gen, shape, dtype, _inner=s.init, _n=n):
-            return torch.stack([_inner(gen, shape[1:], dtype) for _ in range(_n)])
+            out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+            for i in range(_n):
+                out[i] = _inner(gen, shape[1:], dtype)
+            return out
         return ParamSpec((n,) + tuple(s.shape), s.dtype, init, axes)
     return tree_map(stack, tree)
 

@@ -1,10 +1,11 @@
 """Decoder-only transformer LM family, in PyTorch.
 
-Counterpart of `repro.models.transformer` for the dense decoders:
-qwen3-8b, gemma2-2b (local/global alternating, softcaps), minitron-8b,
-yi-6b and internvl2-2b (the VLM backbone with stubbed patch embeddings
-prepended).  A config with ``moe=True`` (olmoe-1b-7b, kimi-k2) raises: the
-MoE block is ROADMAP Queue 1 item 14's remaining work.
+Counterpart of `repro.models.transformer`: olmoe-1b-7b and kimi-k2
+(MoE, `models/moe.py`), qwen3-8b, gemma2-2b (local/global alternating,
+softcaps), minitron-8b, yi-6b (dense) and internvl2-2b (the VLM backbone
+with stubbed patch embeddings prepended).  A MoE layer adds its
+load-balance loss, summed over the layers, to the training loss (CE +
+0.01 * aux); serving drops it.
 
 Layers are grouped into a repeating *unit* (1 layer, or a (local, global)
 pair for gemma2).  With ``cfg.scan_layers`` the units' parameters (and the
@@ -30,9 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from repro_torch.configs import not_ported
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (embed_tokens, embedding_specs, lm_logits,
                                        mlp, mlp_specs, rmsnorm, rmsnorm_spec)
 from repro_torch.models.module import ParamSpec, fan_in_normal, stack_specs
@@ -48,18 +49,12 @@ _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 # Specs
 # ---------------------------------------------------------------------------
 
-def check_dense(cfg: ModelConfig) -> None:
-    if cfg.moe:
-        raise not_ported(f"the MoE block of {cfg.name} (models/moe.py)")
-
-
 def layer_specs(cfg: ModelConfig) -> dict:
-    check_dense(cfg)
     specs = {
         "ln_attn": rmsnorm_spec(cfg.d_model, cfg.param_dtype),
         "attn": attn.attn_specs(cfg),
         "ln_mlp": rmsnorm_spec(cfg.d_model, cfg.param_dtype),
-        "mlp": mlp_specs(cfg),
+        "mlp": moe_lib.moe_specs(cfg) if cfg.moe else mlp_specs(cfg),
     }
     if cfg.sandwich_norm:
         specs["ln_attn_post"] = rmsnorm_spec(cfg.d_model, cfg.param_dtype)
@@ -121,13 +116,21 @@ def _norm(cfg, scale, x):
     return rmsnorm(x, scale, cfg.norm_eps, cfg.zero_centered_norm)
 
 
-def _ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
-    """The block's second half: x + [post-norm] mlp(norm(x))."""
-    check_dense(cfg)
-    h = mlp(cfg, lp["mlp"], _norm(cfg, lp["ln_mlp"], x))
+def _zero_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor):
+    """The block's second half: (x + [post-norm] mlp(norm(x)), the MoE aux
+    loss, 0 for a dense MLP)."""
+    hin = _norm(cfg, lp["ln_mlp"], x)
+    if cfg.moe:
+        h, aux = moe_lib.moe_block(cfg, lp["mlp"], hin)
+    else:
+        h, aux = mlp(cfg, lp["mlp"], hin), _zero_aux(x)
     if cfg.sandwich_norm:
         h = _norm(cfg, lp["ln_mlp_post"], h)
-    return x + h
+    return x + h, aux
 
 
 def _attn_residual(cfg: ModelConfig, lp: dict, x, h):
@@ -137,7 +140,7 @@ def _attn_residual(cfg: ModelConfig, lp: dict, x, h):
 
 
 def run_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, kind: str):
-    """Pre-norm block."""
+    """Pre-norm block; returns (x, aux_loss)."""
     window = cfg.local_window if kind == "local" else 0
     h = attn.self_attention(cfg, p["attn"], _norm(cfg, p["ln_attn"], x),
                             positions, causal=True, window=window)
@@ -145,9 +148,11 @@ def run_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, kind: str):
 
 
 def run_unit(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
+    aux = _zero_aux(x)
     for kind in unit_layout(cfg):
-        x = run_layer(cfg, p[kind], x, positions, kind)
-    return x
+        x, a = run_layer(cfg, p[kind], x, positions, kind)
+        aux = aux + a
+    return x, aux
 
 
 def _maybe_remat(cfg: ModelConfig, fn, policy: str | None = None):
@@ -174,11 +179,13 @@ def _maybe_remat(cfg: ModelConfig, fn, policy: str | None = None):
 
 
 def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor, positions):
-    """Embedded input -> final-norm hidden states."""
+    """Embedded input -> (final-norm hidden states, aux_loss)."""
     unit_fn = _maybe_remat(cfg, functools.partial(run_unit, cfg))
+    aux = _zero_aux(x)
     for up in _units(cfg, params["units"]):
-        x = unit_fn(up, x, positions)
-    return _norm(cfg, params["ln_f"], x)
+        x, a = unit_fn(up, x, positions)
+        aux = aux + a
+    return _norm(cfg, params["ln_f"], x), aux
 
 
 def embed_inputs(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -201,7 +208,7 @@ def forward_logits(cfg: ModelConfig, params: dict, tokens, patch_embeds=None,
     (the yardstick of prefill and decode)."""
     x = embed_inputs(cfg, params, tokens, patch_embeds)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h = backbone(cfg, params, x, positions)
+    h, _ = backbone(cfg, params, x, positions)
     return lm_logits(cfg, params["emb"], h[:, start:])
 
 
@@ -244,13 +251,13 @@ def chunked_ce_loss(cfg: ModelConfig, params: dict, h: torch.Tensor, labels,
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     """batch: tokens [B,S] int, labels [B,S] int (-1 masked), optional
-    patch_embeds [B,P,4096].  Returns the scalar loss (CE + z; a dense
-    model has no MoE auxiliary loss)."""
+    patch_embeds [B,P,4096].  Returns the scalar loss (CE + z + 0.01 * the
+    MoE aux loss, which is 0 for a dense model)."""
     tokens, labels = batch["tokens"], batch["labels"]
     x = embed_inputs(cfg, params, tokens, batch.get("patch_embeds"))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h = backbone(cfg, params, x, positions)
-    return chunked_ce_loss(cfg, params, h, labels)
+    h, aux = backbone(cfg, params, x, positions)
+    return chunked_ce_loss(cfg, params, h, labels) + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +283,7 @@ def unit_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos):
         h, new_cache[kind] = attn.self_attention_decode(
             cfg, lp["attn"], _norm(cfg, lp["ln_attn"], x), cache[kind], pos,
             window=window)
-        x = _ffn(cfg, lp, _attn_residual(cfg, lp, x, h))
+        x, _ = _ffn(cfg, lp, _attn_residual(cfg, lp, x, h))
     return x, new_cache
 
 
@@ -315,8 +322,8 @@ def unit_prefill(cfg: ModelConfig, p: dict, x, positions, cache):
         new_cache[kind] = {"k": _fill(cache[kind]["k"], k),
                            "v": _fill(cache[kind]["v"], v)}
         o = attn.flash_attention(cfg, q, k, v, causal=True, window=window)
-        x = _ffn(cfg, lp, _attn_residual(cfg, lp, x,
-                                         attn.out_proj(cfg, lp["attn"], o)))
+        x, _ = _ffn(cfg, lp, _attn_residual(cfg, lp, x,
+                                            attn.out_proj(cfg, lp["attn"], o)))
     return x, new_cache
 
 

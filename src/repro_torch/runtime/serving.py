@@ -6,10 +6,13 @@ different lengths; a finished slot is refilled from the queue with the
 batch shape unchanged.  Prompts are fed token by token through the decode
 path (teacher-forced), as in the reference.  A slot admitted to a new
 request starts from a zero state: `add_request` zeroes the slot's row of
-every cache leaf.  The reference resets only the slot's position, so a
-recurrent family (RWKV6's S, x_tm, x_cm) carries the last request's state
-into the next one (ROADMAP Queue 3, fault 6); a decoder's stale KV entries
-are masked by the positions either way.
+every cache leaf, along that leaf's own batch axis: 1 in the stacked
+``[U, B, ...]`` units, 0 in a per-layer list and in the rglru model's
+``rem`` layers (`_batch_axes`).  The reference resets only the slot's
+position, so a recurrent family (RWKV6's S, x_tm, x_cm; the RG-LRU's h
+and conv) carries the last request's state into the next one (ROADMAP
+Queue 3, fault 6); a decoder's stale KV entries are masked by the
+positions either way.
 
 Sampling stays on the device: only the [B] sampled token ids cross to the
 host each step, never the [B, V] logits.  With temperature > 0 the gumbel
@@ -28,7 +31,23 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import get_model
 from repro_torch.models.module import materialize
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_flatten_with_path
+
+
+def _batch_axes(api, cfg: ModelConfig, seq: int) -> dict[tuple, int]:
+    """Each cache leaf's batch axis, by the leaf's path: the one axis where
+    a batch-2 and a batch-1 cache of the model's own `init_cache` differ
+    (shapes only, on the meta device)."""
+    one, two = (dict(tree_flatten_with_path(api.init_cache(cfg, b, seq, "meta")))
+                for b in (1, 2))
+    axes = {}
+    for path, leaf in two.items():
+        diff = [i for i, (m, n) in enumerate(zip(one[path].shape, leaf.shape))
+                if m != n]
+        if len(diff) != 1:
+            raise ValueError(f"cache leaf {path}: no single batch axis")
+        axes[path] = diff[0]
+    return axes
 
 
 @dataclasses.dataclass
@@ -61,6 +80,7 @@ class Engine:
         self.params = params
         B, S = scfg.batch_slots, scfg.max_seq
         self.cache = self.api.init_cache(self.cfg, B, S, self.device)
+        self.batch_axes = _batch_axes(self.api, self.cfg, S)
         self.pos = np.zeros((B,), np.int32)
         self.live = np.zeros((B,), bool)
         self.tokens: list[list[int]] = [[] for _ in range(B)]
@@ -85,11 +105,8 @@ class Engine:
         if len(free) == 0:
             return None
         slot = int(free[0])
-        # the cache layout's batch axis: 1 under a stacked [L or U, B, ...]
-        # cache, 0 in a per-layer list
-        axis = 1 if self.cfg.scan_layers else 0
-        for leaf in tree_leaves(self.cache):
-            leaf.select(axis, slot).zero_()
+        for path, leaf in tree_flatten_with_path(self.cache):
+            leaf.select(self.batch_axes[path], slot).zero_()
         self.live[slot] = True
         self.pos[slot] = 0
         self.slot_steps[slot] = 0

@@ -328,7 +328,9 @@ def test_launcher_raises_without_cuda_unless_cpu_asked(monkeypatch):
      "0.5"],
     # yi-6b is ported: the flags its path does not read are refused
     ["--rewire", "set", "--rtrl-backend", "dense", "--arch", "yi-6b"],
-    ["--arch", "olmoe-1b-7b"]])
+    # olmoe-1b-7b is ported and trains offline: --online is refused beside
+    # it; whisper-large-v3 is not ported
+    ["--arch", "olmoe-1b-7b"], ["--arch", "whisper-large-v3"]])
 def test_launcher_rejects_later_slices(extra, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit,

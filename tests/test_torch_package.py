@@ -15,6 +15,8 @@ EXPECTED = {
     "configs", "configs.base", "configs.egru_spiral", "configs.rwkv6_3b",
     "configs.gemma2_2b", "configs.qwen3_8b", "configs.yi_6b",
     "configs.minitron_8b", "configs.internvl2_2b", "models.attention",
+    "configs.olmoe_1b_7b", "configs.kimi_k2_1t_a32b",
+    "configs.recurrentgemma_9b", "models.moe", "models.rglru",
     "optim.grad", "optim.schedules", "launch.steps",
     "cells", "cells.egru", "cells.rglru", "cells.snn", "checkpoint",
     "checkpoint.ckpt", "core.bptt", "core.cells", "core.costs",

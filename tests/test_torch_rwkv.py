@@ -256,19 +256,19 @@ def test_model_api_and_unported_families_raise():
     cfg = smoke_config(get_config("rwkv6-3b"))
     api = get_model(cfg)
     assert api.family == "rwkv6" and api.prefill is RW.prefill
-    # RWKV6 training and the decoder family are ported; MoE, encdec and
-    # the rglru model still raise
+    # RWKV6 training, the decoder family (dense and MoE) and the rglru
+    # model are ported; the encoder-decoder still raises
     assert api.loss_fn is RW.loss_fn
+    assert get_model(get_config("yi-6b").replace(moe=True)).family == "decoder"
+    assert get_model(cfg.replace(family="rglru")).family == "rglru"
     with pytest.raises(NotImplementedError, match="item 14"):
-        get_model(get_config("yi-6b").replace(moe=True))
-    for family in ("encdec", "rglru"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            get_model(cfg.replace(family=family))
+        get_model(cfg.replace(family="encdec"))
     with pytest.raises(ValueError, match="unknown family"):
         get_model(cfg.replace(family="nope"))
-    for arch in ("olmoe-1b-7b", "whisper-large-v3", "recurrentgemma-9b"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            get_config(arch)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        get_config("whisper-large-v3")
+    for arch in ("olmoe-1b-7b", "recurrentgemma-9b"):
+        assert get_config(arch).name == arch
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     assert get_config("egru-spiral").n_hidden == 16
