@@ -285,12 +285,48 @@ checkout, it exits non-zero and prints no result.  Phases:
      traces of each model's prefill and decode step with the shares of
      kernel time in the MoE dispatch (its routing, and the experts'
      products inside it) and in the RG-LRU scan;
- 15. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
+ 15. the scaled sparse-RTRL engine (`core.scaled_rtrl`, the
+     `ScaledLearner`) at the reference config's full width (n 1024, n_in
+     128, n_out 8, batch 8, kind rnn, sparsity 0.9 in 8 x 8 blocks, eps
+     0.3), every run with the counts set to 0 just before and read just
+     after: (s1) capacity 1 (K 1024): `rtrl_grads` over 8 steps of N(0, 1)
+     inputs with compact_fused (K1 8 launches) and compact, overflow 0 on
+     every step, each against the card's BPTT on the surviving parameters
+     (1e-5 of each leaf's largest entry, or twice the CPU's own 1- vs
+     default-thread BPTT spread) and against each other; (s2) the default
+     capacity 0.5 (K 512): each step's active rows, K_b and overflow, as
+     they are; K1 against its plain version on a real step's operands (f32
+     and bf16), its time against baddbmm on pre-gathered tiles (in turn
+     too), device µs, the bound and its launch shape; (s3) an
+     OnlineTrainer with masked adamw, k 8, 4 windows, compact_fused (K1
+     32) and compact: the median window, peak allocation, carry bytes
+     (allocated and live), device ops a stream step and idle share from a
+     trace; (s4) L = 2: (s1)'s checks at n 512, capacity 1 (K1 16), and
+     at n 1024, capacity 0.5 the reckoned peak, then (s3)'s measures over
+     2 windows (K1 2 a stream step, 32); (s5) one RigL event on a
+     rewirable compact scaled learner at n 256: the next 4 steps bitwise a
+     fresh engine on the new masks with the migrated state, the event's
+     ms;
+ 16. whisper-large-v3 (`models.encdec`), K1-K4 0 in every run: (w1) at
+     full size (1,600,990,720 parameters, bf16, drawn on the card):
+     encode 4 x 1500 frames, prefill 4 x 448 tokens with max_seq 464 and
+     16 greedy decodes, every logit finite; (w2) full width, 2 encoder and
+     2 decoder layers, f32: prefill against the full forward, prefill then
+     16 decodes against the full forward over S + 16 (1e-4 of the largest
+     logit), loss and gradients card against CPU (as in phase 13); (w3)
+     `launch.train --arch whisper-large-v3` as the launcher builds it, full
+     size, 20 steps of 4 x 64 tokens with 4 x 1500 frames (finite losses,
+     median step ms, peak allocation), crash and resume at --smoke, final
+     checkpoints bitwise; (c) prefill tokens/s and its share of the bf16
+     peak (the encoder's and the decoder's FLOPs from the shapes), decode
+     ms a step, and traces of a prefill and a decode step with
+     attention's, the encoder's and the GEMMs' shares of kernel time;
+ 17. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
      K1's and K2's with a "stacked" entry for phase 8's path, K1's with a
      "guard" and K2's with a "rewire" entry for phase 9's, both with a
      "telemetry" entry for phase 10's, a "fleet" entry for phase 11's and
-     an "lm" entry for phase 12's, then the result line {"ok": true,
-     "device": {...}}.
+     an "lm" entry for phase 12's, K1's with a "scaled" entry for phase
+     15's, then the result line {"ok": true, "device": {...}}.
 
 Tolerances: a float32 kernel result is within 1e-5 of the largest
 magnitude of the plain version's (the sums associate differently); a bf16
@@ -3693,7 +3729,8 @@ def profile_ranges(torch, fn, label, ranges):
     log(f"trace {label} (profiler on): {len(dev)} device ops, device busy "
         f"{busy:.0f} us of {wall_us:.0f} us wall (idle share "
         f"{out['idle']:.3f}); of {kern:.0f} us kernel time, "
-        f"{', '.join(shares)}, GEMM kernels {gemm:.0f} us ({out['gemm']:.3f})")
+        + ", ".join(shares + [f"GEMM kernels {gemm:.0f} us "
+                              f"({out['gemm']:.3f})"]))
     by_name = {}
     for e in dev:
         tot, cnt = by_name.get(e.name, (0.0, 0))
@@ -4432,7 +4469,7 @@ def rglru_correctness(torch, dev, R):
     return {"decode_vs_full": errs, "scan_vs_loop": err_s, "grads": grads}
 
 
-def cut_training(torch, TRAIN, STEPS, arch, layers, ck):
+def cut_training(torch, TRAIN, STEPS, arch, layers, ck, label="(m5)"):
     """`launch.train --arch arch --steps 20 --batch 4 --seq 64` with the
     depth cut to `layers`: the launcher's own run (`build_model_lm`), its
     config's depth replaced before the step is built, through
@@ -4448,15 +4485,15 @@ def cut_training(torch, TRAIN, STEPS, arch, layers, ck):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     out = run_with_restart(TRAIN.model_lm_trainers(args, run))
-    check_counts(read_counts(), {}, f"(m5) launch.train --arch {arch}")
+    check_counts(read_counts(), {}, f"{label} launch.train --arch {arch}")
     peak = torch.cuda.max_memory_allocated()
     steps = out["steps"]
     check(len(steps) == 20 and out["final_step"] == 20
           and all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
-                  for s in steps), f"(m5) {arch}: {len(steps)} steps")
+                  for s in steps), f"{label} {arch}: {len(steps)} steps")
     med = statistics.median(s["ms"] for s in steps[1:])
-    log(f"(m5) launch.train --arch {arch} --steps 20 --batch 4 --seq 64, full "
-        f"width, depth cut from {full} to {layers} layers, bf16, "
+    log(f"{label} launch.train --arch {arch} --steps 20 --batch 4 --seq 64, full "
+        f"width, depth {layers} of {full} layers, bf16, "
         f"{run['cfg'].optimizer}: "
         f"losses {steps[0]['loss']:.4f} -> {steps[-1]['loss']:.4f}, all 20 "
         f"finite; median step {med:.1f} ms (steps 2-20, first "
@@ -4546,6 +4583,539 @@ def moe_rglru_phase(torch, dev):
             f"{training[label]['peak_bytes'] / 1e9:.2f} GB; shares of kernel "
             f"time: {'; '.join(shares) or 'not measured'}")
     log("phase 14 json: " + json.dumps({"moe": moe, "rglru": rglru,
+                                         "correctness": correct,
+                                         "training": training}))
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the scaled sparse-RTRL engine at the reference's n = 1024
+# ---------------------------------------------------------------------------
+
+def scaled_setup(torch, SR, dev, n=1024, L=1, capacity=1.0, T=8, seed=0):
+    """The reference's `ScaledRTRLConfig` defaults (n_in 128, n_out 8,
+    batch 8, kind rnn, sparsity 0.9 in 8 x 8 blocks, eps 0.3) at width n,
+    depth L and capacity: parameters and masks drawn from a seeded
+    generator, T steps of N(0, 1) inputs drawn on the card, labels
+    b % n_out."""
+    cfg = SR.ScaledRTRLConfig(n=n, n_layers=L, beta_capacity=capacity)
+    params, masks = SR.init_params(cfg, torch.Generator().manual_seed(seed),
+                                   device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    xs = torch.randn((T, cfg.batch, cfg.n_in), generator=gen, device=dev)
+    labels = torch.arange(cfg.batch, device=dev) % cfg.n_out
+    return cfg, params, masks, xs, labels
+
+
+def scaled_sizes(cfg, cl):
+    """One line of the carry's sizes: K, m, the full and compact widths,
+    and the f32 bytes of one layer's [B, K, Pc_pad] buffer."""
+    P_pad = (cfg.slayout().P_pad if cfg.n_layers > 1
+             else cfg.layout().P_pad)
+    one = cfg.batch * cfg.K * cl.Pc_pad * 4
+    return (f"n {cfg.n}, L {cfg.n_layers}, K {cfg.K}, m {cfg.m}, P_pad "
+            f"{P_pad:,}, Pc {cl.Pc:,} (Pc_pad {cl.Pc_pad:,}), f32 carry "
+            f"{one / 1e9:.3f} GB a layer"), one
+
+
+def masked_grads(SP, ST, cfg, grads, masks):
+    if cfg.n_layers > 1:
+        return ST.apply_stacked_masks(grads, masks)
+    return SP.apply_masks(grads, masks)
+
+
+def leaf_gap(a, b):
+    """The worst leaf of a against b, each relative to b's leaf's largest
+    entry: (error, leaf name)."""
+    from repro_torch.tree import leaf_name, tree_flatten_with_path
+    return max((float((x.cpu() - y.cpu()).abs().max())
+                / max(float(y.abs().max()), 1e-30), leaf_name(p))
+               for (p, x), (_, y) in zip(tree_flatten_with_path(a),
+                                         tree_flatten_with_path(b)))
+
+
+def scaled_exactness(torch, SR, BP, SP, ST, dev, n, L, label):
+    """rtrl_grads over 8 steps at capacity 1 (nothing can overflow) with
+    compact_fused and compact, K1 counted (8 a layer); each backend's
+    gradients on the surviving parameters against the card's BPTT within
+    1e-5 of each leaf's largest entry, or twice the CPU's own BPTT spread
+    between one thread and its default (phase 13's rule), and against each
+    other."""
+    cfg, params, masks, xs, labels = scaled_setup(torch, SR, dev, n=n, L=L)
+    sizes, _ = scaled_sizes(cfg, cfg.col_layout(masks, device=dev))
+    log(f"{label}: {sizes}")
+    T = xs.shape[0]
+    got = {}
+    for backend in ("compact_fused", "compact"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        loss, grads, stats = SR.rtrl_grads(cfg, params, xs, labels, masks,
+                                           backend=backend)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+        want = T * L if backend == "compact_fused" else 0
+        check_counts(counts, {"compact_fused": want}, f"{label} {backend}")
+        ov = stats["overflow"]
+        check(int(ov.max()) == 0, f"{label} {backend}: overflow {ov.tolist()}")
+        got[backend] = (float(loss), masked_grads(SP, ST, cfg, grads, masks))
+        log(f"{label} {backend}: rtrl_grads over {T} steps in {sec:.2f} s "
+            f"(the first call), K1 launches {counts['compact_fused']}, "
+            f"overflow 0 on every step, peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del grads, stats
+    bptt = BP.bptt_loss_and_grads if L == 1 else BP.stacked_bptt_loss_and_grads
+    bcfg = cfg.cell_cfg() if L == 1 else cfg.stacked_cfg()
+    lb, gb, _ = bptt(bcfg, params, xs, labels)
+    gb = masked_grads(SP, ST, cfg, gb, masks)
+    from repro_torch.tree import tree_map
+    cpu = tree_map(lambda t: t.detach().cpu(), params)
+    cmasks = tree_map(lambda t: None if t is None else t.cpu(), masks)
+    _, gc, _ = bptt(bcfg, cpu, xs.cpu(), labels.cpu())
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _, g1, _ = bptt(bcfg, cpu, xs.cpu(), labels.cpu())
+    finally:
+        torch.set_num_threads(threads)
+    spread, _ = leaf_gap(masked_grads(SP, ST, cfg, g1, cmasks),
+                         masked_grads(SP, ST, cfg, gc, cmasks))
+    bound = max(F32_REL, 2 * spread)
+    errs = {}
+    for backend, (loss, grads) in got.items():
+        lerr = abs(loss - float(lb)) / abs(float(lb))
+        errs[backend] = leaf_gap(grads, gb)
+        check(lerr <= F32_REL and errs[backend][0] <= bound,
+              f"{label} {backend} vs BPTT: loss {lerr:.3e}, gradients "
+              f"{errs[backend]} (bound {bound:.3e})")
+        log(f"{label} {backend} vs the card's BPTT on the surviving "
+            f"parameters: loss {lerr:.2e}, gradients {errs[backend][0]:.2e} "
+            f"({errs[backend][1]}) of the leaf's largest entry (bound "
+            f"{bound:.2e}: the larger of 1e-5 and twice the CPU's BPTT "
+            f"spread, 1 thread against {threads}, {spread:.2e})")
+    fvc = leaf_gap(got["compact_fused"][1], got["compact"][1])
+    check(fvc[0] <= bound, f"{label} fused vs compact {fvc}")
+    log(f"{label} compact_fused vs compact: gradients {fvc[0]:.2e} ({fvc[1]})")
+    return {"vs_bptt": {k: v[0] for k, v in errs.items()},
+            "fused_vs_compact": fvc[0], "cpu_spread": spread,
+            "launches": T * L}
+
+
+def scaled_k1(torch, SR, SP, CF, CK, dev):
+    """(s2) the default capacity 0.5 (K 512): the overflow and K_b of each
+    of 8 steps of N(0, 1) inputs, as they are; K1 against its plain
+    version on the operands of step 5, f32 and bf16; its time against
+    baddbmm on pre-gathered tiles (in turn too), device µs, the bound and
+    its launch shape."""
+    cfg, params, masks, xs, _ = scaled_setup(torch, SR, dev, capacity=0.5)
+    cl = cfg.col_layout(masks, device=dev)
+    w = {k: v for k, v in params.items() if k != "out"}
+    state = SR.init_state(cfg, cl, device=dev)
+    trace, ops = [], None
+    for t in range(xs.shape[0]):
+        if t == 4:
+            ops = list(SP.fused_step_operands(
+                cfg.cell_cfg(), w, cfg.layout(), state["a"], state["vals"],
+                state["idx"], xs[t], cl=cl)[2])
+        state, ov = SR.compact_step(cfg, w, state, xs[t], cl=cl,
+                                    backend="compact_fused")
+        kb = (state["idx"] >= 0).sum(dim=1)
+        trace.append({"overflow": ov.tolist(), "k_b": kb.tolist(),
+                      "active": (kb + ov).tolist()})
+    for t, s in enumerate(trace):
+        log(f"(s2) step {t}: active rows an example {s['active']} (beta~ "
+            f"{sum(s['active']) / (cfg.batch * cfg.n):.3f}), K_b {s['k_b']}, "
+            f"overflow {s['overflow']} (K {cfg.K})")
+    del state
+    err = compare_k1(torch, CF, ops, "(s2) n=1024 step 5 f32")
+    compare_k1(torch, CF, with_carry_dtype(torch, ops, torch.bfloat16),
+               "(s2) n=1024 step 5 bf16")
+    t = time_k1(torch, CF, CK, ops, 5, 3)
+    shape = k1_launch_shape(CF, ops)
+    log(f"K1 time (s2) n=1024: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, baddbmm on pre-gathered tiles "
+        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}: {t['bytes']:.0f} B, {t['flops']:.0f} FLOP; "
+        f"{t['flops'] / (t['ms'] * 1e9):.1f} TFLOP/s achieved)")
+    log(f"K1 in turn (s2) n=1024: kernel {t['alt_ms']:.4f} ms, baddbmm "
+        f"{t['alt_library_ms']:.4f} ms (median of 5 rounds); device: kernel "
+        f"{t['device_us']} us, baddbmm {t['library_device_us']} us")
+    log(f"K1 launch shape (s2) n=1024: {shape}")
+    return {**t, "max_abs_err": err, "launch_shape": shape,
+            "count_new": ops[6].tolist(), "count_prev": ops[7].tolist(),
+            "steps": trace}
+
+
+def scaled_trainer(torch, SR, ON, O, dev, backend, L=1, windows=4, k=8):
+    """An OnlineTrainer of the scaled learner at the default capacity 0.5:
+    masked adamw (lr 1e-3), an update every k steps, `windows` windows of
+    the seeded N(0, 1) stream."""
+    from repro_torch.core.learner import LearnerSpec, make_learner
+    import numpy as np
+    cfg, params, masks, _, _ = scaled_setup(torch, SR, dev, L=L,
+                                            capacity=0.5)
+    learner = make_learner(LearnerSpec(engine="scaled", cfg=cfg,
+                                       backend=backend))
+    mask_tree = {"layers": masks, "out": None} if L > 1 else masks
+    opt = O.masked(O.adamw(lr=1e-3), mask_tree)
+    ys = (np.arange(cfg.batch) % cfg.n_out).astype(np.int32)
+
+    def stream(t):
+        rng = np.random.default_rng(1000 + t)
+        return (rng.standard_normal((cfg.batch, cfg.n_in)).astype(np.float32),
+                ys)
+
+    tr = ON.OnlineTrainer(
+        ON.OnlineTrainerConfig(total_steps=windows * k, update_every=k,
+                               ckpt_every=0, log_every=1),
+        learner, opt, params, masks, stream, device=dev)
+    return cfg, tr
+
+
+def scaled_windows(torch, SR, ON, O, CO, dev, backend, label, L=1,
+                   windows=4):
+    """(s3)/(s4) the online windows: median window ms (the trainer's own
+    clock, one readback a window), K1 launches, peak allocation, the
+    carry's bytes (allocated, and live: the compact columns Pc of
+    Pc_pad), and a trace of one more window (device ops a stream step,
+    idle share)."""
+    cfg, tr = scaled_trainer(torch, SR, ON, O, dev, backend, L, windows)
+    k = tr.cfg.update_every
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = tr.run()
+    counts = read_counts()
+    steps = windows * k
+    want = steps * L if backend == "compact_fused" else 0
+    check_counts(counts, {"compact_fused": want},
+                 f"{label} {backend} L {L} windows")
+    peak = torch.cuda.max_memory_allocated()
+    ms = [w["ms"] for w in tr.windows]
+    losses = [w["loss"] for w in tr.windows]
+    check(out["updates"] == windows and all(math.isfinite(v) for v in losses),
+          f"{label} {backend} L {L}: {out['updates']} updates, {losses}")
+    alloc = ON.carry_nbytes(tr.carry)
+    cl = tr.learner._cl
+    vals = tr.carry["state"]["vals"]
+    vals = vals if isinstance(vals, tuple) else (vals,)
+    dead = sum(CO.carry_footprint(v.shape[0], v.shape[1], cl.Pc_pad, cl.Pc,
+                                  v.element_size())["alloc_bytes"]
+               - CO.carry_footprint(v.shape[0], v.shape[1], cl.Pc_pad, cl.Pc,
+                                    v.element_size())["live_bytes"]
+               for v in vals)
+    rows = tr.row_stats()
+    xs = torch.randn((k, cfg.batch, cfg.n_in), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(9))
+    ys = torch.zeros((k, cfg.batch), dtype=torch.long, device=dev)
+    upd = tr.update + 1
+    tr_out = profile_ranges(
+        torch, lambda: ON.online_update_chunk(tr.learner, tr.opt, tr.carry,
+                                              tr.opt_state, xs, ys, upd),
+        f"{label} scaled {backend} L {L} window of {k} steps", {})
+    med = statistics.median(ms)
+    log(f"{label} scaled {backend} L {L} n {cfg.n} K {cfg.K}: {windows} "
+        f"windows of {k} steps, K1 launches {counts['compact_fused']}, "
+        f"median window {med:.2f} ms (windows "
+        f"{', '.join(f'{x:.2f}' for x in ms)}), losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}, overflow "
+        f"{[w.get('overflow') for w in tr.windows]}, peak allocated "
+        f"{peak / 1e9:.2f} GB, carry {alloc / 1e9:.3f} GB allocated, "
+        f"{(alloc - dead) / 1e9:.3f} GB live, K_b {rows}")
+    res = {"median_window_ms": med, "windows_ms": ms, "peak_bytes": peak,
+           "carry_bytes": alloc, "carry_live_bytes": alloc - dead,
+           "launches": counts["compact_fused"], "row_stats": rows}
+    if tr_out is not None:
+        res["ops_per_step"] = tr_out["ops"] / k
+        res["idle"] = tr_out["idle"]
+        log(f"{label} scaled {backend} L {L}: {res['ops_per_step']:.1f} "
+            f"device ops a stream step, idle share {tr_out['idle']:.3f}")
+    del tr
+    torch.cuda.empty_cache()
+    return res
+
+
+def scaled_rewire(torch, SR, dev):
+    """(s5) one RigL event on a rewirable compact scaled learner at n 256
+    (capacity 1): the rewired carry continues bit for bit as a fresh
+    engine built on the new masks with the migrated state; the event's ms
+    (host clock, synchronised; median of 3 events from the same carry)."""
+    from repro_torch.core.learner import LearnerSpec, make_learner
+    cfg, params, masks, xs, labels = scaled_setup(torch, SR, dev, n=256)
+    spec = LearnerSpec(engine="scaled", cfg=cfg, backend="compact",
+                       col_compact=True, rewirable=True)
+    learner = make_learner(spec)
+    carry = learner.init(params, masks, (xs[0], labels), t_total=8.0)
+    for t in range(4):
+        carry, _ = learner.step(carry, xs[t], labels)
+    carry = learner.reset_grads(carry)
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mid = learner.rewire(carry, (0, 1), frac=0.3, method="rigl",
+                             block=cfg.mask_block)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    from repro_torch.tree import tree_leaves
+    moved = sum(int((a != b).sum()) for a, b in
+                zip(tree_leaves(mid["rw"]["masks"]), tree_leaves(masks)))
+    fresh = make_learner(LearnerSpec(engine="scaled", cfg=cfg,
+                                     backend="compact", col_compact=True))
+    fc = fresh.init(mid["params"], mid["rw"]["masks"], (xs[0], labels),
+                    t_total=8.0)
+    fc["state"] = mid["state"]
+    c2 = mid
+    for t in range(4, 8):
+        c2, _ = learner.step(c2, xs[t], labels)
+        fc, _ = fresh.step(fc, xs[t], labels)
+    same = all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(learner.grads(c2)) + tree_leaves(c2["state"]),
+                   tree_leaves(fresh.grads(fc)) + tree_leaves(fc["state"])))
+    check(same and moved > 0, f"(s5) rewired carry vs fresh engine: bitwise "
+                              f"{same}, {moved} mask entries moved")
+    med = statistics.median(ms)
+    log(f"(s5) one RigL event (frac 0.3, 8 x 8 blocks) on the rewirable "
+        f"compact scaled learner at n 256: {moved} mask entries moved, the "
+        f"next 4 steps bitwise a fresh engine on the new masks with the "
+        f"migrated state; the event {med:.2f} ms (events "
+        f"{', '.join(f'{x:.2f}' for x in ms)})")
+    return {"event_ms": med, "bitwise": same}
+
+
+def scaled_phase(torch, dev, BP, SP, ST, CF, CK, ON, CO):
+    """Phase 15: the scaled sparse-RTRL engine (module docstring).
+    Returns K1's "scaled" entry of the kernels line."""
+    from repro_torch.core import scaled_rtrl as SR
+    from repro_torch.optim import optimizers as O
+    parts, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    s1 = scaled_exactness(torch, SR, BP, SP, ST, dev, 1024, 1,
+                          "(s1) n=1024 capacity 1")
+    torch.cuda.empty_cache()
+    lap("s1")
+    s2 = scaled_k1(torch, SR, SP, CF, CK, dev)
+    torch.cuda.empty_cache()
+    lap("s2")
+    s3 = {b: scaled_windows(torch, SR, ON, O, CO, dev, b, "(s3)")
+          for b in ("compact_fused", "compact")}
+    lap("s3")
+    s4 = {"exact": scaled_exactness(torch, SR, BP, SP, ST, dev, 512, 2,
+                                    "(s4) n=512 L=2 capacity 1")}
+    torch.cuda.empty_cache()
+    # reckon the peak before the card runs it: the masks as the trainer
+    # draws them, their compact axis, and 7 buffers of [B, K, Pc_pad] f32 at
+    # layer 1's update (the 2 carried, layer 0's new one, layer 1's M-bar
+    # rows, its cross term and their sum, K1's output)
+    cfg2 = SR.ScaledRTRLConfig(n_layers=2, beta_capacity=0.5)
+    _, masks2 = SR.init_params(cfg2, torch.Generator().manual_seed(0),
+                               device="cpu")
+    sizes, one = scaled_sizes(cfg2, cfg2.col_layout(masks2, device="cpu"))
+    log(f"(s4) n=1024 L=2 capacity 0.5: {sizes}; reckoned peak of a step "
+        f"~ 7 such buffers = {7 * one / 1e9:.1f} GB")
+    s4["window"] = scaled_windows(torch, SR, ON, O, CO, dev, "compact_fused",
+                                  "(s4)", L=2, windows=2)
+    lap("s4")
+    s5 = scaled_rewire(torch, SR, dev)
+    lap("s5")
+    log("phase 15 seconds by part: " + ", ".join(f"{k} {v:.1f}"
+                                                  for k, v in parts.items()))
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "alt_ms",
+            "alt_library_ms", "device_us", "library_device_us",
+            "max_abs_err", "launch_shape")
+    entry = {k: s2[k] for k in keys}
+    entry["launches"] = {"s1": s1["launches"],
+                         "s3": s3["compact_fused"]["launches"],
+                         "s4_per_step": s4["window"]["launches"] // 16}
+    log("phase 15 json: " + json.dumps({
+        "s1": s1, "s2": {k: v for k, v in s2.items() if k != "steps"},
+        "s2_steps": s2["steps"], "s3": s3, "s4": s4, "s5": s5}))
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# phase 16: whisper-large-v3, the encoder-decoder
+# ---------------------------------------------------------------------------
+
+class _WithFrames:
+    """`encdec`'s serving functions with the audio frames bound, in the
+    (prefill, decode_step) form of the other families (`prefill_decode`,
+    `serving_costs`)."""
+
+    def __init__(self, E, frames):
+        self.E, self.frames = E, frames
+        self.decode_step = E.decode_step
+
+    def prefill(self, cfg, params, tokens, max_seq=None):
+        return self.E.prefill(cfg, params, tokens, self.frames,
+                              max_seq=max_seq)
+
+
+def encdec_flops(cfg, params, E, B, S):
+    """The prefill's FLOPs from the shapes: the encoder's weight matrices
+    for each of the B x enc_seq frames and its full attention; the
+    decoder's for each of the B x S tokens but the cross K/V projections,
+    which run over the frames; causal self-attention, cross-attention over
+    the frames, and the last position's logits."""
+    from repro_torch.tree import tree_leaves
+    Se = cfg.enc_seq
+    enc = sum(matmul_flops(cfg, tree_leaves(lp))
+              for lp in E._layers(cfg, params["enc"], cfg.enc_layers))
+    dec = kv = 0
+    for lp in E._layers(cfg, params["dec"], cfg.n_layers):
+        dec += matmul_flops(cfg, tree_leaves(lp))
+        kv += matmul_flops(cfg, [lp["cross_attn"]["wk"], lp["cross_attn"]["wv"]])
+    att = 4 * B * cfg.n_heads * cfg.head_dim
+    return (enc * B * Se + att * Se * Se * cfg.enc_layers
+            + (dec - kv) * B * S + kv * B * Se
+            + attention_flops(cfg, B, S, [0] * cfg.n_layers)
+            + att * S * Se * cfg.n_layers
+            + 2 * B * cfg.d_model * cfg.vocab_size)
+
+
+def whisper_serving(torch, dev, A, E):
+    """(w1) whisper-large-v3 at full size, bf16: encode 4 x 1500 frames,
+    prefill 4 x 448 tokens with max_seq 464 and 16 greedy decodes, every
+    logit finite; (c) its serving costs and traces."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-large-v3")
+    params = draw(torch, dev, E.encdec_specs(cfg), 0, "(w1) whisper-large-v3",
+                  1_600_990_720)
+    B, S, n_dec = 4, 448, 16
+    gen = torch.Generator(device=dev).manual_seed(2)
+    frames = 0.02 * torch.randn((B, cfg.enc_seq, cfg.d_model), generator=gen,
+                                device=dev)
+    mod = _WithFrames(E, frames)
+    tokens, cache, tok, step_ms = prefill_decode(
+        torch, dev, mod, cfg, params, B, S, n_dec, "(w1) whisper-large-v3")
+    ranges = {**attention(A), "encoder": [(E, "encode")]}
+    costs = serving_costs(torch, dev, mod, cfg, params, tokens, cache, tok,
+                          step_ms, encdec_flops(cfg, params, E, B, S), ranges,
+                          "whisper-large-v3")
+    del params, cache
+    torch.cuda.empty_cache()
+    return costs
+
+
+def whisper_correctness(torch, dev, E):
+    """(w2) whisper at full width, 2 encoder and 2 decoder layers, f32:
+    prefill against the full forward; prefill then 16 decodes against the
+    full forward over S + 16 (1e-4 of the largest logit); loss and
+    gradients card against CPU (phase 13's rule)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.module import materialize
+    cfg = get_config("whisper-large-v3").replace(
+        n_layers=2, enc_layers=2, param_dtype=torch.float32,
+        compute_dtype=torch.float32)
+    params = materialize(E.encdec_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(3))
+    B, S, n = 2, 448, 16
+    toks = torch.randint(0, cfg.vocab_size, (B, S + n + 1),
+                         generator=torch.Generator().manual_seed(4)).to(dev)
+    frames = 0.02 * torch.randn((B, cfg.enc_seq, cfg.d_model),
+                                generator=torch.Generator(device=dev)
+                                .manual_seed(5), device=dev)
+    reset_counts()
+    full = E.forward_logits(cfg, params, toks[:, :S + n], frames, start=S - 1)
+    scale = float(full.abs().max())
+    lg, _ = E.prefill(cfg, params, toks[:, :S], frames)
+    err_p = float((lg - full[:, 0]).abs().max()) / scale
+    lg, cache = E.prefill(cfg, params, toks[:, :S], frames, max_seq=S + n)
+    errs = [float((lg - full[:, 0]).abs().max())]
+    for i in range(n):
+        lg, cache = E.decode_step(cfg, params, toks[:, S + i:S + i + 1], cache,
+                                  torch.full((B,), S + i, device=dev))
+        errs.append(float((lg - full[:, i + 1]).abs().max()))
+    err_d = max(errs) / scale
+    check(err_p <= 1e-4 and err_d <= 1e-4,
+          f"(w2) whisper prefill vs full {err_p:.3e}, prefill + {n} decodes "
+          f"vs full {err_d:.3e}")
+    log(f"(w2) whisper full width, 2 + 2 layers, f32, {cfg.enc_seq} frames: "
+        f"prefill of {B} x {S} vs the full forward {err_p:.2e}; prefill "
+        f"(max_seq {S + n}) then {n} decodes vs the full forward over "
+        f"{S + n} {err_d:.2e} of the largest logit (bound 1e-4)")
+    check_counts(read_counts(), {}, "(w2) the 2 + 2 layer whisper")
+    batch = {"tokens": toks[:1, :64], "labels": toks[:1, 1:65],
+             "frames": frames[:1]}
+    grads = grads_card_vs_cpu(torch, E.loss_fn, cfg, params, batch,
+                              "(w2) whisper full width, 2 + 2 layers, f32, "
+                              "B 1 S 64, card vs CPU")
+    del params
+    torch.cuda.empty_cache()
+    return {"prefill_vs_full": err_p, "decode_vs_full": err_d,
+            "grads": grads}
+
+
+def whisper_training(torch, TRAIN, STEPS, root):
+    """(w3) `launch.train --arch whisper-large-v3` as the launcher builds
+    it, full size, 20 steps of 4 x 64 tokens with 1500 frames; crash and
+    resume at --smoke, the final checkpoints bitwise."""
+    import shutil
+    arch = "whisper-large-v3"
+    ck = Path(root) / arch
+    cost = cut_training(torch, TRAIN, STEPS, arch, 32, ck, "(w3)")
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+    argv = ["--arch", arch, "--smoke", "--ckpt-every", "5"]
+    reset_counts()
+    a = TRAIN.main([*argv, "--fail-at", "7", "--ckpt-dir",
+                    str(Path(root) / "a")])
+    b = TRAIN.main([*argv, "--ckpt-dir", str(Path(root) / "b")])
+    check_counts(read_counts(), {}, f"(w3) crash and resume {arch}")
+    check((a["restarts"], b["restarts"]) == (1, 0)
+          and a["final_step"] == b["final_step"] == 20,
+          f"(w3) crash and resume: restarts {a['restarts']} / "
+          f"{b['restarts']}, steps {a['final_step']} / {b['final_step']}")
+    fa, fb = final_files(Path(root) / "a", 20), final_files(Path(root) / "b", 20)
+    check(fa.keys() == fb.keys() and fa and all(fa[k] == fb[k] for k in fa),
+          "(w3) crash and resume: the final checkpoints differ")
+    log(f"(w3) crash and resume {arch} --smoke --ckpt-every 5 --fail-at 7: "
+        f"restarts 1 / 0, the final checkpoints' {len(fa)} leaves bitwise")
+    return cost
+
+
+def whisper_phase(torch, dev):
+    """Phase 16: whisper-large-v3 (module docstring)."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import steps as STEPS, train as TRAIN
+    from repro_torch.models import attention as A, encdec as E
+    parts, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    serving = whisper_serving(torch, dev, A, E)
+    lap("w1")
+    correct = whisper_correctness(torch, dev, E)
+    lap("w2")
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_whisper_"))
+    try:
+        training = whisper_training(torch, TRAIN, STEPS, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lap("w3")
+    log("phase 16 seconds by part: " + ", ".join(f"{k} {v:.1f}"
+                                                  for k, v in parts.items()))
+    shares = []
+    for k in ("trace_prefill", "trace_decode"):
+        tr = serving[k]
+        if tr is not None:
+            shares.append(f"{k[6:]}: attention {tr['attention']:.3f}, GEMMs "
+                          f"{tr['gemm']:.3f}, encoder {tr['encoder']:.3f}")
+    log(f"(c) whisper-large-v3: prefill {serving['prefill_tok_s']:.0f} "
+        f"tokens/s ({serving['prefill_flop_share']:.3f} of the bf16 peak), "
+        f"decode {serving['decode_ms']:.2f} ms a step, train "
+        f"{training['median_step_ms']:.1f} ms a step, peak "
+        f"{training['peak_bytes'] / 1e9:.2f} GB; shares of kernel time: "
+        f"{'; '.join(shares) or 'not measured'}")
+    log("phase 16 json: " + json.dumps({"serving": serving,
                                          "correctness": correct,
                                          "training": training}))
 
@@ -4762,7 +5332,17 @@ def main():
     log(f"phase 14 (the MoE decoders and the RG-LRU LM): "
         f"{time.perf_counter() - t14:.1f} s")
 
-    # -- phase 15: the kernels line and the result --------------------------
+    # -- phase 15: the scaled sparse-RTRL engine at n = 1024 ---------------
+    t15 = time.perf_counter()
+    scaled = scaled_phase(torch, dev, BP, SP, ST, CF, CK, ON, CO)
+    log(f"phase 15 (the scaled engine): {time.perf_counter() - t15:.1f} s")
+
+    # -- phase 16: whisper-large-v3 -----------------------------------------
+    t16 = time.perf_counter()
+    whisper_phase(torch, dev)
+    log(f"phase 16 (whisper-large-v3): {time.perf_counter() - t16:.1f} s")
+
+    # -- phase 17: the kernels line and the result --------------------------
     t1, t2 = times["(a) f32"], k2_times["(a) column-compact"]
     kernels = [{"name": "compact_fused", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/compact_fused.cu",
@@ -4790,6 +5370,7 @@ def main():
     kernels[1]["fleet"] = fleet["influence"]
     kernels[0]["lm"] = lm["compact_fused"]
     kernels[1]["lm"] = lm["influence"]
+    kernels[0]["scaled"] = scaled
     kernels += [k3_entry, k4_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

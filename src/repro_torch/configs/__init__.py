@@ -1,12 +1,12 @@
 """Model configurations of the port (counterpart of `repro.configs`):
 ``get_config(<id>)`` resolves ``--arch <id>``.
 
-Ported: the paper's own ``egru-spiral``, ``rwkv6-3b``, the dense
-decoders (gemma2-2b, qwen3-8b, yi-6b, minitron-8b, internvl2-2b), the MoE
-decoders (olmoe-1b-7b, kimi-k2-1t-a32b) and the Griffin RG-LRU LM
-(recurrentgemma-9b).  The architecture in ``NOT_PORTED`` raises: its
-model family (the encoder-decoder) is ROADMAP Queue 1 item 14's remaining
-work.
+Ported: every architecture of the JAX package: the paper's own
+``egru-spiral``, ``rwkv6-3b``, the dense decoders (gemma2-2b, qwen3-8b,
+yi-6b, minitron-8b, internvl2-2b), the MoE decoders (olmoe-1b-7b,
+kimi-k2-1t-a32b), the Griffin RG-LRU LM (recurrentgemma-9b) and the
+encoder-decoder (whisper-large-v3).  ``NOT_PORTED`` is empty; an id put
+there raises naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -27,14 +27,13 @@ ARCHS = {
     "rwkv6-3b": "rwkv6_3b",
 }
 
-NOT_PORTED = frozenset({"whisper-large-v3"})
+NOT_PORTED: frozenset = frozenset()
 
 
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP Queue 1 item 14 (the LM "
-        "substrate: the encoder-decoder); the port has egru-spiral, "
-        "rwkv6-3b, the dense and MoE decoders and the rglru model")
+        "substrate)")
 
 
 def get_config(name: str) -> ModelConfig:

@@ -23,11 +23,12 @@ ones); engine "stacked" at any depth (one layer delegates to "sparse", as
 the JAX package does); the cell zoo's engines "diag_exact" (exact
 diagonal traces for any jac_kind "diagonal" cell, "diag" its alias),
 "eprop" (the SNN) and "snap" (SnAp-1/2 on the dense per-gate backend); and
-engine "bptt", the streaming BPTT oracle.  The sparse and stacked learners
-are rewirable (``LearnerSpec(rewirable=True)``, every backend but
-compact_fused): ``learner.rewire(carry, event_key)`` prunes and regrows
-the masks between windows with exact carry migration.  Engine "scaled"
-raises NotImplementedError naming the ROADMAP item that brings it.
+engine "bptt", the streaming BPTT oracle; and engine "scaled"
+(`core.scaled_rtrl`: the compact carry of a wide RNN, single layer or
+stacked, backends "compact" and "compact_fused").  The sparse, stacked and
+scaled learners are rewirable (``LearnerSpec(rewirable=True)``, every
+backend but compact_fused): ``learner.rewire(carry, event_key)`` prunes
+and regrows the masks between windows with exact carry migration.
 """
 from __future__ import annotations
 
@@ -814,6 +815,216 @@ class StackedLearner(_LearnerBase):
 
 
 # ---------------------------------------------------------------------------
+# Scaled compact RTRL (n in the thousands)
+# ---------------------------------------------------------------------------
+
+class ScaledLearner(_LearnerBase):
+    """`core.scaled_rtrl` as a streaming learner: the row-compact
+    (optionally dual-compact) carry of a wide thresholded RNN, single layer
+    or stacked, under ``carry["state"] = {"a", "vals", "idx"}`` (a tuple a
+    layer each when stacked).  Exact up to row-capacity overflow, reported
+    every step in ``stats["overflow"]``.
+
+    The scaled engine is compact by construction: backend "compact_fused"
+    runs one K1 launch a layer a step, every other backend string the
+    "compact" step (as in the JAX package, whose scaled specs carry the
+    LearnerSpec default "dense").  Rewirable on "compact" with masks and a
+    column-compact carry; the ColLayout follows the carry's masks as in
+    `SparseLearner._bind`."""
+
+    def __init__(self, spec: LearnerSpec):
+        self.fused = spec.backend == "compact_fused"
+        if self.fused and spec.rewirable:
+            raise ValueError(_FUSED_REWIRE)
+        SP.influence_carry_dtype(spec.influence_dtype)   # validate early
+        self.spec = spec
+        self.cfg = spec.cfg                 # scaled_rtrl.ScaledRTRLConfig
+        self.stacked = self.cfg.n_layers > 1
+
+    def init(self, params, masks, batch, t_total: float = 1.0):
+        from repro_torch.core import scaled_rtrl as SC
+        cfg = self.cfg
+        x0, y0 = batch
+        device = params["out"]["W"].device
+        col_compact = self.spec.col_compact
+        if self.fused:
+            if col_compact is False:
+                raise ValueError("compact_fused always carries the "
+                                 "parameter axis column-compact")
+            col_compact = True
+        elif col_compact is None:
+            col_compact = masks is not None
+        if self.spec.rewirable and not (masks is not None and col_compact):
+            raise ValueError(
+                "rewirable ScaledLearner requires masks and col_compact "
+                "(the full-width scaled carry tracks dead columns, so "
+                "grow-at-zero exactness only holds on the compact carry)")
+        self._freeze_static(masks=masks, col_compact=col_compact)
+        self._cl = cfg.col_layout(masks, device=device) if col_compact \
+            else None
+        if self.fused:
+            from repro_torch.kernels import compact_fused as CF
+            # checks the fused layout contract: gate columns contiguous
+            lays = cfg.slayout().layers if self.stacked else (cfg.layout(),)
+            for l, lay in enumerate(lays):
+                CF.fused_segments(lay, self._cl, layer=l)
+        if self._cl is not None:
+            P_carry = self._cl.Pc_pad
+        else:
+            P_carry = (cfg.slayout().P_pad if self.stacked
+                       else cfg.layout().P_pad)
+        carry = self._base_carry(params, t_total, device)
+        carry["state"] = SC.init_state(cfg, self._cl,
+                                       self.spec.influence_dtype,
+                                       device=device)
+        carry["gw"] = torch.zeros((P_carry,), dtype=torch.float32,
+                                  device=device)
+        carry["gout"] = tree_map(
+            lambda x: torch.zeros_like(x, dtype=torch.float32), params["out"])
+        # the mask-derived state, under carry["rw"]'s keys
+        rw = {"masks": tuple(masks) if self.stacked and masks is not None
+              else masks}
+        if self._cl is not None:
+            rw["cl"] = _cl_arrays(self._cl)
+        self._bind(rw)
+        return self._attach_rw(carry, rw if self.spec.rewirable else None,
+                               x0, y0)
+
+    def _bind(self, rw: dict) -> None:
+        """Derive the ColLayout's arrays from rw (the carry's "rw", or
+        init's own)."""
+        self._bound = rw
+        if self._cl is not None:
+            self._cl = dataclasses.replace(self._cl, **rw["cl"])
+
+    def step(self, carry, x_t, y_t):
+        from repro_torch.core import scaled_rtrl as SC
+        self._sync(carry)
+        cfg, params = self.cfg, carry["params"]
+        w = params["layers"] if self.stacked else cells.rec_param_tree(params)
+        state, overflow = SC.compact_step(
+            cfg, w, carry["state"], x_t, cl=self._cl,
+            backend="compact_fused" if self.fused else "compact")
+        # the readout and the gradient read the top layer
+        a, vals, idx = ((state[k][-1] for k in ("a", "vals", "idx"))
+                        if self.stacked else
+                        (state["a"], state["vals"], state["idx"]))
+        lt, logits, gout_t, cbar = self._inst_loss_and_grads(
+            params["out"], a, y_t, carry["t_total"])
+        gw_t = CK.compact_grads(vals, idx, cbar)
+        new = dict(carry)
+        new["state"] = state
+        new["gw"] = carry["gw"] + gw_t
+        new["gout"] = tree_map(torch.add, carry["gout"], gout_t)
+        new["loss"] = carry["loss"] + lt
+        if "rw" in carry:
+            new["last"] = {"x": x_t.float(), "y": y_t.int()}
+        stats = {"overflow": overflow if self.stacked else overflow.max()}
+        step_grads = None
+        if self.spec.per_step_grads:
+            step_grads = self._finish_gw(gw_t)
+            step_grads["out"] = gout_t
+        return new, StepOut(lt, logits, stats, step_grads)
+
+    def _finish_gw(self, gw):
+        cfg = self.cfg
+        if self._cl is not None:
+            gw = SP.cols_to_flat(self._cl, gw)
+        if self.stacked:
+            return ST.unflatten_stacked_grads(cfg.stacked_cfg(),
+                                              cfg.slayout(), gw)
+        return SP.unflatten_flat_grads(cfg.cell_cfg(), cfg.layout(), gw)
+
+    def grads(self, carry):
+        self._sync(carry)
+        grads = self._finish_gw(carry["gw"])
+        grads["out"] = carry["gout"]
+        return grads
+
+    # -- dynamic sparsity ---------------------------------------------------
+
+    def _rigl_scores(self, carry):
+        cfg, last, a = self.cfg, carry["last"], carry["state"]["a"]
+        if self.stacked:
+            scfg = cfg.stacked_cfg()
+
+            def loss_of(params):
+                a_new = cells.stacked_step_straight_through(
+                    scfg, params["layers"], a, last["x"])
+                return cells.xent(cells.readout(params, a_new[-1]),
+                                  last["y"])
+
+            return self._dense_scores(loss_of, carry["params"])["layers"]
+        ccfg = cfg.cell_cfg()
+
+        def loss_of(params):
+            a_new = cells.step_straight_through(
+                ccfg, cells.rec_param_tree(params), a, last["x"])
+            return cells.xent(cells.readout(params, a_new), last["y"])
+
+        return cells.rec_param_tree(self._dense_scores(loss_of,
+                                                       carry["params"]))
+
+    @torch.no_grad()
+    def rewire(self, carry, event_key, *, frac: float = 0.1,
+               method: str = "rigl", block: int = 1, scores=None):
+        """Prune-and-regrow event on the dual-compact carry, single layer
+        or stacked (one migration plan for every layer's buffer): see
+        SparseLearner.rewire for the exactness contract."""
+        from repro_torch import sparsity as DS
+        self._check_rewirable(carry)
+        self._sync(carry)
+        cfg = self.cfg
+        carry = dict(carry)
+        rw = dict(carry["rw"])
+        grads = self._rigl_scores(carry) if method == "rigl" else None
+        params = dict(carry["params"])
+        if self.stacked:
+            old_masks = list(rw["masks"])
+            new_masks = DS.rewire_stacked_masks(
+                old_masks, params["layers"], grads, frac=frac, key=event_key,
+                method=method, block=block, scores=scores)
+            params["layers"] = [
+                SP.apply_masks(SP.apply_masks(p, om), nm)
+                for p, om, nm in zip(params["layers"], old_masks, new_masks)]
+            rw["masks"] = tuple(new_masks)
+        else:
+            old_masks = rw["masks"]
+            new_masks = DS.rewire_masks(
+                old_masks, cells.rec_param_tree(params), grads, frac=frac,
+                key=event_key, method=method, block=block, scores=scores)
+            params = SP.apply_masks(SP.apply_masks(params, old_masks),
+                                    new_masks)
+            rw["masks"] = new_masks
+        carry["params"] = params
+        new_cl = cfg.col_layout(new_masks, device=carry["gw"].device)
+        plan = DS.migration_plan(self._cl, new_cl)
+        state = dict(carry["state"])
+        if self.stacked:
+            state["vals"] = tuple(
+                DS.migrate_influence(self._cl, new_cl, v, plan)
+                for v in state["vals"])
+        else:
+            state["vals"] = DS.migrate_influence(self._cl, new_cl,
+                                                 state["vals"], plan)
+        carry["state"] = state
+        carry["gw"] = DS.migrate_influence(self._cl, new_cl, carry["gw"],
+                                           plan)
+        rw["cl"] = _cl_arrays(new_cl)
+        carry["rw"] = rw
+        self._bind(rw)
+        return carry
+
+    def opt_mask_of(self, carry):
+        masks = carry["rw"]["masks"]
+        if self.stacked:
+            return {"layers": list(masks), "out": None}
+        masks = dict(masks)
+        masks.setdefault("out", None)
+        return masks
+
+
+# ---------------------------------------------------------------------------
 # Diagonal-recurrence eligibility traces (exact) and e-prop (approximate)
 # ---------------------------------------------------------------------------
 
@@ -1086,11 +1297,12 @@ class BPTTLearner(_LearnerBase):
         return carry
 
 
-_NOT_PORTED_ENGINES = {"scaled": "ROADMAP Queue 1 item 13"}
+_NOT_PORTED_ENGINES: dict = {}
 
 ENGINES = {
     "sparse": SparseLearner,
     "stacked": StackedLearner,
+    "scaled": ScaledLearner,
     "diag": DiagExactLearner,        # the historical name, same engine
     "diag_exact": DiagExactLearner,
     "eprop": EpropLearner,

@@ -39,8 +39,9 @@ qwen3-8b, yi-6b, minitron-8b, internvl2-2b; the VLM decodes text tokens
 only, as the reference's Engine does), the MoE decoders (olmoe-1b-7b,
 kimi-k2-1t-a32b, whose 1.03 T parameters fit one card only at reduced
 depth) and the RG-LRU LM (recurrentgemma-9b).  whisper-large-v3 (the
-encoder-decoder) raises before anything is written (ROADMAP Queue 1 item
-14).
+encoder-decoder) is refused before anything is written, with the
+reference's reason: its prefill takes audio frames, which the Engine's
+token prompts do not carry (`models.encdec.prefill` serves it directly).
 """
 from __future__ import annotations
 
@@ -173,6 +174,11 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
+    if cfg.family == "encdec":
+        raise SystemExit("whisper serving needs audio prefill; the Engine's "
+                         "prompts are tokens only: serve it through "
+                         "repro_torch.models.encdec.prefill(cfg, params, "
+                         "tokens, frames) and decode_step")
     eng = Engine(cfg, ServeConfig(batch_slots=args.slots, max_seq=args.max_seq,
                                   temperature=args.temperature),
                  device=args.device)

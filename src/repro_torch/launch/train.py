@@ -103,7 +103,8 @@ The LM families (counterpart of the reference's LM path, its `main`):
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch {gemma2-2b,qwen3-8b,yi-6b,minitron-8b,internvl2-2b,rwkv6-3b,
-                olmoe-1b-7b,kimi-k2-1t-a32b,recurrentgemma-9b} \
+                olmoe-1b-7b,kimi-k2-1t-a32b,recurrentgemma-9b,
+                whisper-large-v3} \
         [--smoke] [--steps 20] [--batch 4] [--seq 64] [--seed 0] \
         [--device cpu] [--ckpt-every 10] [--ckpt-dir DIR] [--fail-at K] \
         [--metrics FILE] [--metrics-dir DIR [--trace]]
@@ -113,13 +114,12 @@ cfg.n_microbatches slices, the global norm clipped to 1.0, the config's
 optimizer at lr 3e-4: lion for kimi-k2, adamw otherwise) and the same
 Trainer, checkpoints and restart supervisor.  `--smoke` takes the reduced same-family config.  The batch of
 step s is `data.tokens.synthetic_token_batches(batch, seq, vocab, seed=1234
-+ s)` (with internvl2's patch embeddings), so a restart replays it; the
-parameters are drawn from torch.Generator(--seed) on the device.  RWKV6
-trains through the plain WKV (`models.rwkv.loss_fn`); a MoE decoder's
-loss adds 0.01 x its load-balance loss.  The flags this path does not read
-(the spiral's and the online LM's) are refused before anything is
-written, and so is whisper-large-v3 (the encoder-decoder, ROADMAP Queue 1
-item 14).
++ s)` (with internvl2's patch embeddings, and whisper's [enc_seq,
+d_model] frames), so a restart replays it; the parameters are drawn from
+torch.Generator(--seed) on the device.  RWKV6 trains through the plain WKV
+(`models.rwkv.loss_fn`); a MoE decoder's loss adds 0.01 x its
+load-balance loss.  The flags this path does not read (the spiral's and
+the online LM's) are refused before anything is written.
 """
 from __future__ import annotations
 
@@ -656,7 +656,7 @@ def build_model_lm(args) -> dict:
         raise SystemExit(f"unknown --arch {args.arch}")
     if args.arch in NOT_PORTED:
         raise SystemExit(f"not ported yet: --arch {args.arch} (ROADMAP Queue "
-                         "1 item 14: the encoder-decoder)")
+                         "1 item 14)")
     _refuse_unread(args, {**_SPIRAL_FLAGS, **_EGRU_FLAGS, "online": False,
                           "sparsity": 0.0, "update_every": 8,
                           **{k: v for k, v in _LM_FLAGS.items()
@@ -667,6 +667,8 @@ def build_model_lm(args) -> dict:
     device = resolve_device(args.device)
     opt = steps_lib.default_optimizer(cfg)
     batches = {"n_patches": cfg.n_patches} if cfg.n_patches else {}
+    if cfg.family == "encdec":       # the stub audio frontend's frames
+        batches["frames"] = (cfg.enc_seq, cfg.d_model)
 
     def data_at(step):                   # step-keyed: replay-exact
         from repro_torch.data.tokens import synthetic_token_batches

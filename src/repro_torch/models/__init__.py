@@ -4,13 +4,14 @@
   specs(cfg)                      -> ParamSpec tree
   loss_fn(cfg, params, batch)    -> scalar training loss
   prefill(cfg, params, tokens)   -> (logits, cache)
+                                    (encdec: prefill(cfg, params, tokens,
+                                    frames))
   decode_step(cfg, params, token, cache, pos) -> (logits, cache)
   init_cache(cfg, B, S, device)  -> cache tree
 
-Ported, for training and serving: the decoder family (`transformer`,
-dense and MoE), the Griffin RG-LRU LM (`rglru`) and RWKV6 (`rwkv`).  The
-encoder-decoder family is ROADMAP Queue 1 item 14's remaining work and
-raises.
+Ported, for training and serving: every family of the JAX package: the
+decoder family (`transformer`, dense and MoE), the Griffin RG-LRU LM
+(`rglru`), RWKV6 (`rwkv`) and the encoder-decoder (`encdec`, whisper).
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         return ModelAPI("rglru", m.rglru_model_specs, m.loss_fn, m.prefill,
                         m.decode_step, m.init_cache)
     if cfg.family == "encdec":
-        from repro_torch.configs import not_ported
-        raise not_ported(f"model family {cfg.family!r}")
+        from repro_torch.models import encdec as m
+        return ModelAPI("encdec", m.encdec_specs, m.loss_fn, m.prefill,
+                        m.decode_step, m.init_cache)
     raise ValueError(f"unknown family {cfg.family!r}")

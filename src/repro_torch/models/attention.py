@@ -1,9 +1,8 @@
 """GQA attention: chunked flash attention (training and prefill) and
 cached decode, in PyTorch.
 
-Counterpart of `repro.models.attention` (self-attention; the whisper
-cross-attention waits for the encoder-decoder family, ROADMAP Queue 1
-item 14).  The chunked path is the reference's algorithm in torch ops: an
+Counterpart of `repro.models.attention`: self-attention and the whisper
+decoder's cross-attention (no rope, every key valid).  The chunked path is the reference's algorithm in torch ops: an
 online softmax over KV blocks with the logit softcap, for one query chunk
 at a time.  Whether a (query chunk, KV block) pair is skipped (wholly
 above the diagonal or left of the window) or needs no mask (every pair
@@ -30,7 +29,9 @@ from repro_torch.models.module import ParamSpec, fan_in_normal, ones_init
 NEG_INF = -1e30
 
 
-def attn_specs(cfg: ModelConfig) -> dict:
+def attn_specs(cfg: ModelConfig, cross: bool = False) -> dict:
+    """wq/wk/wv/wo, plus the qk-norm scales unless `cross` (the
+    cross-attention drops qk-norm, as in the reference)."""
     d, dh, pd = cfg.d_model, cfg.head_dim, cfg.param_dtype
     specs = {
         "wq": ParamSpec((d, cfg.n_heads * dh), pd, fan_in_normal(), ("embed_tp", "q_out")),
@@ -38,7 +39,7 @@ def attn_specs(cfg: ModelConfig) -> dict:
         "wv": ParamSpec((d, cfg.n_kv_heads * dh), pd, fan_in_normal(), ("embed_tp", "kv_out")),
         "wo": ParamSpec((cfg.n_heads * dh, d), pd, fan_in_normal(), ("q_out", "embed_tp")),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         specs["q_norm"] = ParamSpec((dh,), pd, ones_init(), ("head_dim",))
         specs["k_norm"] = ParamSpec((dh,), pd, ones_init(), ("head_dim",))
     return specs
@@ -217,6 +218,27 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, *,
     k, v = project_kv(cfg, p, x, positions)
     return out_proj(cfg, p, flash_attention(cfg, q, k, v, causal=causal,
                                             window=window))
+
+
+def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    enc: torch.Tensor):
+    """The decoder's cross-attention (whisper): queries from x [B,S,d],
+    keys and values from the encoder output enc [B,Se,d]; no rope, no
+    mask."""
+    q = project_q(cfg, p, x, None, rope=False)
+    k, v = project_kv(cfg, p, enc, None, rope=False)
+    return out_proj(cfg, p, flash_attention(cfg, q, k, v, causal=False,
+                                            window=0))
+
+
+def cross_attention_decode(cfg: ModelConfig, p: dict, x, enc_kv: dict):
+    """Cross-attention of one decode token x [B,1,d] over the encoder K/V
+    projected once at prefill ({'k','v': [B,Se,KV,Dh]})."""
+    B, Se = x.shape[0], enc_kv["k"].shape[1]
+    q = project_q(cfg, p, x, None, rope=False)
+    o = decode_attention(cfg, q, enc_kv["k"], enc_kv["v"],
+                         torch.full((B,), Se - 1, device=x.device))
+    return out_proj(cfg, p, o)
 
 
 def ring_slot_pos(pos: torch.Tensor, smax: int) -> torch.Tensor:

@@ -55,11 +55,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def sinusoidal_pos_emb(seq: int, dim: int, dtype=torch.float32,
                        device=None) -> torch.Tensor:
-    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    """[seq, dim]: the sinusoid of positions 0..seq-1."""
+    return sinusoid_at(torch.arange(seq, device=device), dim, dtype)
+
+
+def sinusoid_at(positions: torch.Tensor, dim: int,
+                dtype=torch.float32) -> torch.Tensor:
+    """[..., dim]: the sinusoid of each (integer) position, the same values
+    as the rows of `sinusoidal_pos_emb` at those positions."""
+    device = positions.device
     inv = torch.exp(-math.log(10_000.0)
                     * torch.arange(0, dim, 2, dtype=torch.float32,
                                    device=device) / dim)
-    ang = pos * inv[None, :]
+    ang = positions.float()[..., None] * inv
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 

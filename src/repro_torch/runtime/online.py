@@ -314,12 +314,14 @@ class OnlineTrainer:
         else:
             return out
         bufs = []                                    # (buffer, layer-or-None)
-        for k in ("vals", "M"):
-            src = c.get(k)
-            if src is None:
-                continue
-            bufs += ([(b, l) for l, b in enumerate(src)]
-                     if isinstance(src, tuple) else [(src, None)])
+        # the scaled learner nests its buffers under carry["state"]
+        for holder in (c, c.get("state") or {}):
+            for k in ("vals", "M"):
+                src = holder.get(k)
+                if src is None:
+                    continue
+                bufs += ([(b, l) for l, b in enumerate(src)]
+                         if isinstance(src, tuple) else [(src, None)])
         live_total = total
         for b, l in bufs:
             if isinstance(b, torch.Tensor) and b.shape[-1] == n_cols:
@@ -336,8 +338,10 @@ class OnlineTrainer:
         None off the compact backends: K_b = live rows of example b;
         'ragged_utilization' = Sigma_b K_b / (B * K_max), pooled over the
         layers of a stacked carry as in the JAX package, whose per-layer
-        stats follow under 'layers'.  Also reports the carry dtype."""
-        idx, vals = self.carry.get("idx"), self.carry.get("vals")
+        stats follow under 'layers'.  Also reports the carry dtype.  The
+        scaled learner's buffers are read under carry["state"]."""
+        holder = self.carry.get("state") or self.carry
+        idx, vals = holder.get("idx"), holder.get("vals")
         if idx is None:
             return None
         stacked = isinstance(idx, tuple)

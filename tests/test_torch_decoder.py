@@ -83,19 +83,23 @@ def test_configs_equal_the_reference_field_for_field(arch):
 
 
 def test_unported_archs_and_families_raise_naming_item_14():
-    """Only whisper-large-v3 and the encdec family are left: a MoE decoder
-    (models/moe.py) and the rglru family (models/rglru.py) resolve."""
-    assert NOT_PORTED == {"whisper-large-v3"}
-    for arch in sorted(NOT_PORTED):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            get_config(arch)
+    """Nothing is left unported: every arch resolves (whisper-large-v3 too),
+    and so do a MoE decoder (models/moe.py), the rglru family
+    (models/rglru.py) and the encoder-decoder (models/encdec.py); an
+    unknown family still raises."""
+    from repro_torch.configs import ARCHS
+    assert NOT_PORTED == frozenset()
+    for arch in sorted(ARCHS):
+        assert get_config(arch).name == arch
+    assert get_config("whisper-large-v3").family == "encdec"
     cfg = smoke_config(get_config("yi-6b"))
     moe = cfg.replace(moe=True, n_experts=4, top_k=2)
     assert get_model(moe).family == "decoder"
     assert "router" in T.decoder_specs(moe)["units"][0]["global"]["mlp"]
     assert get_model(cfg.replace(family="rglru")).family == "rglru"
-    with pytest.raises(NotImplementedError, match="item 14"):
-        get_model(cfg.replace(family="encdec"))
+    assert get_model(cfg.replace(family="encdec")).family == "encdec"
+    with pytest.raises(ValueError, match="unknown family"):
+        get_model(cfg.replace(family="nope"))
 
 
 # ---------------------------------------------------------------------------

@@ -152,9 +152,24 @@ def test_scan_learner_is_the_stream_path_bitwise():
 
 def test_unported_engines_and_backends_raise():
     cfg = C.EGRUConfig()
-    # only the scaled carry is still to port; the cell zoo's engines build
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        make_learner(LearnerSpec(engine="scaled", cfg=cfg))
+    # every engine is ported: the scaled carry builds, and keeps the
+    # reference's refusals (compact_fused cannot rewire, and always carries
+    # the columns compact); the cell zoo's engines build
+    from repro_torch.core import scaled_rtrl as SC
+    from repro_torch.core.learner import _NOT_PORTED_ENGINES
+    assert _NOT_PORTED_ENGINES == {}
+    scfg = SC.ScaledRTRLConfig(n=16, n_in=4, n_out=2, batch=2)
+    assert make_learner(LearnerSpec(engine="scaled", cfg=scfg)) \
+        .spec.engine == "scaled"
+    with pytest.raises(ValueError, match="rewirable=True"):
+        make_learner(LearnerSpec(engine="scaled", cfg=scfg,
+                                 backend="compact_fused", rewirable=True))
+    sparams, smasks = SC.init_params(scfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
+    with pytest.raises(ValueError, match="column-compact"):
+        make_learner(LearnerSpec(engine="scaled", cfg=scfg,
+                                 backend="compact_fused", col_compact=False)) \
+            .init(sparams, smasks, (torch.zeros(2, 4), torch.zeros(2)))
     from repro_torch.cells.rglru import RGLRUCellConfig
     from repro_torch.cells.snn import SNNConfig
     from repro_torch.core.diag_rtrl import DiagCellConfig
@@ -328,8 +343,8 @@ def test_launcher_raises_without_cuda_unless_cpu_asked(monkeypatch):
      "0.5"],
     # yi-6b is ported: the flags its path does not read are refused
     ["--rewire", "set", "--rtrl-backend", "dense", "--arch", "yi-6b"],
-    # olmoe-1b-7b is ported and trains offline: --online is refused beside
-    # it; whisper-large-v3 is not ported
+    # olmoe-1b-7b and whisper-large-v3 are ported and train offline:
+    # --online is refused beside them
     ["--arch", "olmoe-1b-7b"], ["--arch", "whisper-large-v3"]])
 def test_launcher_rejects_later_slices(extra, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)

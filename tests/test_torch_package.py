@@ -17,6 +17,7 @@ EXPECTED = {
     "configs.minitron_8b", "configs.internvl2_2b", "models.attention",
     "configs.olmoe_1b_7b", "configs.kimi_k2_1t_a32b",
     "configs.recurrentgemma_9b", "models.moe", "models.rglru",
+    "configs.whisper_large_v3", "models.encdec", "core.scaled_rtrl",
     "optim.grad", "optim.schedules", "launch.steps",
     "cells", "cells.egru", "cells.rglru", "cells.snn", "checkpoint",
     "checkpoint.ckpt", "core.bptt", "core.cells", "core.costs",

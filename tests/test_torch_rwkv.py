@@ -256,17 +256,15 @@ def test_model_api_and_unported_families_raise():
     cfg = smoke_config(get_config("rwkv6-3b"))
     api = get_model(cfg)
     assert api.family == "rwkv6" and api.prefill is RW.prefill
-    # RWKV6 training, the decoder family (dense and MoE) and the rglru
-    # model are ported; the encoder-decoder still raises
+    # RWKV6 training and every other family are ported: the decoder
+    # family (dense and MoE), the rglru model and the encoder-decoder
     assert api.loss_fn is RW.loss_fn
     assert get_model(get_config("yi-6b").replace(moe=True)).family == "decoder"
     assert get_model(cfg.replace(family="rglru")).family == "rglru"
-    with pytest.raises(NotImplementedError, match="item 14"):
-        get_model(cfg.replace(family="encdec"))
+    assert get_model(cfg.replace(family="encdec")).family == "encdec"
     with pytest.raises(ValueError, match="unknown family"):
         get_model(cfg.replace(family="nope"))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        get_config("whisper-large-v3")
+    assert get_config("whisper-large-v3").family == "encdec"
     for arch in ("olmoe-1b-7b", "recurrentgemma-9b"):
         assert get_config(arch).name == arch
     with pytest.raises(KeyError):
