@@ -244,9 +244,10 @@ checkout, it exits non-zero and prints no result.  Phases:
      model's loss and gradients at B 1, S 64, card against CPU (the
      gradients within 1e-5 or twice the CPU's own spread between one
      thread and its default, whichever is larger); (p3)
-     `launch.train --arch gemma2-2b` and `--arch rwkv6-3b` at full width
-     and depth (20 steps, batch 4, seq 64, bf16): finite losses and
-     gradient norms, K4 0 while training and 32 in a prefill after; rwkv6-
+     `launch.train --arch gemma2-2b` and `--arch rwkv6-3b` as the launcher
+     builds them, at full width and depth cut to 8 layers (20 steps, batch
+     4, seq 64, bf16): finite losses and gradient norms, K4 0 while
+     training and 32 in a full-depth prefill after; rwkv6-
      3b at full width, 2 layers, f32, card against CPU; crash and resume
      (`--smoke --ckpt-every 5 --fail-at 7`) for both, final checkpoints
      bitwise; (p4) the costs: prefill tokens/s (CUDA events, best of 3
@@ -276,7 +277,7 @@ checkout, it exits non-zero and prints no result.  Phases:
      2048 and 4096 (the 2048-slot ring wraps), 1e-4; the scan against a
      sequential loop (1e-5); loss and gradients card against CPU; (m5)
      `launch.train` as the launcher builds it, at full width and cut
-     depth (olmoe 4 of 16 layers, recurrentgemma 5 of 38; 20 steps of
+     depth (olmoe 2 of 16 layers, recurrentgemma 4 of 38; 20 steps of
      4 x 64, bf16), finite losses, peak allocation, and crash and resume
      (`--smoke --ckpt-every 5 --fail-at 7`) for both, final checkpoints
      bitwise; (c) the costs as in phase 13 (prefill tokens/s and its
@@ -321,12 +322,43 @@ checkout, it exits non-zero and prints no result.  Phases:
      peak (the encoder's and the decoder's FLOPs from the shapes), decode
      ms a step, and traces of a prefill and a decode step with
      attention's, the encoder's and the GEMMs' shares of kernel time;
- 17. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
+ 17. the shape suite's long-context cells at full size, bf16, weights
+     drawn on the card, driven through `launch.steps.make_prefill_step` /
+     `make_decode_step`, each run with the counts set to 0 just before
+     and read just after, its dry-run record (`launch.dryrun_lib`, on the
+     meta device, in a helper process started at phase 1: FLOPs, argument
+     bytes, the reckoned peak) logged before it and
+     `max_memory_allocated` after: (L1) rwkv6-3b `long_500k`: a prefill of
+     524,256 tokens (16,383 chunks of 32), 32 greedy decodes to position
+     524,287, K4 32 launches, every logit and state finite; prefill ms,
+     tokens/s, the rate on the counted FLOPs, decode ms, and a trace of
+     the prefill (K4's share of the kernel time, device ops, idle share);
+     (L2) K4 on layer 0's operands of that prefill against its plain
+     version (1e-5 of the largest magnitude; the errors at T 2,048 and
+     65,536 beside it; the plain version's chunk replayed as a CUDA graph,
+     itself held to the eager plain version at T 2,048), its ms a launch
+     (CUDA events, 3 launches), its bound and its grid against the card's
+     SMs; (L3) the long-context
+     check in f32 at full width: rwkv6-3b at 2 layers, a prefill of S - 32
+     then 32 decodes against a prefill of S, and recurrentgemma-9b with
+     one (rec, rec, attention) unit, a prefill of S - 512 then 512
+     decodes against a prefill of S (the flash blocks need S - n a
+     multiple of 512), 1e-4 of the largest logit, S the longest up to
+     524,288 whose reckoned peak fits 72 GB (80 less room for the
+     allocator's fragmentation); (L4) recurrentgemma-9b `long_500k`:
+     (L1)'s measures on the longest prompt whose reckoned peak fits 72 GB,
+     the trace on its first 16,384 tokens, K1-K4 0; (D) rwkv6-3b and
+     recurrentgemma-9b `decode_32k`:
+     the caches filled by a prefill of 128 x 2,048 tokens (in row groups
+     where the reckoned peak of one does not fit), 16 decodes of batch
+     128, ms a step and tokens/s, K1-K4 0;
+ 18. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
      K1's and K2's with a "stacked" entry for phase 8's path, K1's with a
      "guard" and K2's with a "rewire" entry for phase 9's, both with a
      "telemetry" entry for phase 10's, a "fleet" entry for phase 11's and
      an "lm" entry for phase 12's, K1's with a "scaled" entry for phase
-     15's, then the result line {"ok": true, "device": {...}}.
+     15's, K4's with a "long" entry for phase 17's, then the result line
+     {"ok": true, "device": {...}}.
 
 Tolerances: a float32 kernel result is within 1e-5 of the largest
 magnitude of the plain version's (the sums associate differently); a bf16
@@ -340,6 +372,7 @@ import bisect
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3470,7 +3503,7 @@ def profile_device(torch, fn, label, kernel):
     if not dev:
         log(f"trace {label}: the profiler recorded no device events: device "
             "busy share not measured")
-        return
+        return None
     busy, end = 0.0, -math.inf
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
         busy += max(0.0, b - max(a, end))
@@ -3486,6 +3519,10 @@ def profile_device(torch, fn, label, kernel):
         f"({kern / max(busy, 1e-9):.3f} of busy)")
     for n, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
         log(f"  {tot:10.1f} us  x{cnt:5d}  {n[:90]}")
+    total = sum(v[0] for v in by_name.values())
+    return {"ops": len(dev), "busy_us": busy, "wall_us": wall_us,
+            "idle": 1 - busy / wall_us, "kernel_us": kern,
+            "kernel_share": kern / max(total, 1e-9)}
 
 
 def rwkv_serving(torch, dev, WK):
@@ -3679,16 +3716,17 @@ def named_ranges(ranges):
             setattr(m, a, fn)
 
 
-def profile_ranges(torch, fn, label, ranges):
-    """torch.profiler over one call of fn: device ops, the idle share of the
-    wall time, and the shares of the kernel time taken by the kernels
-    inside each named range of `ranges` (`named_ranges`; a forward's
-    calls: a backward's kernels run outside them) and by GEMM kernels (by
-    name).  Returns the numbers (None where the profiler recorded no device
-    event)."""
+def profile_ranges(torch, fn, label, ranges, warm=True):
+    """torch.profiler over one call of fn (after a warm call unless `warm`
+    is false): device ops, the idle share of the wall time, and the shares
+    of the kernel time taken by the kernels inside each named range of
+    `ranges` (`named_ranges`; a forward's calls: a backward's kernels run
+    outside them) and by GEMM kernels (by name).  Returns the numbers (None
+    where the profiler recorded no device event)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with named_ranges(ranges), profile(activities=[ProfilerActivity.CPU,
                                                    ProfilerActivity.CUDA]) as prof:
@@ -4041,7 +4079,7 @@ def final_files(root, step):
 
 
 def decoder_training(torch, dev, A, TRAIN, STEPS, T, RW, root):
-    """(p3) training at full width and depth, the f32 check, crash and
+    """(p3) training at full width and cut depth, the f32 check, crash and
     resume; (p4)'s training costs.  Checkpoints go under `root`."""
     import shutil
     from repro_torch.configs import get_config, smoke_config
@@ -4051,30 +4089,10 @@ def decoder_training(torch, dev, A, TRAIN, STEPS, T, RW, root):
     for arch in ("gemma2-2b", "rwkv6-3b"):
         ck = Path(root) / arch
         log(f"(p3) {arch}: {free_disk_gb(root):.1f} GB free under the "
-            f"checkpoint root before the full-size run writes its final "
-            f"checkpoint")
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        out = TRAIN.main(["--arch", arch, "--steps", "20", "--batch", "4",
-                          "--seq", "64", "--ckpt-every", "0", "--ckpt-dir",
-                          str(ck)])
-        check_counts(read_counts(), {}, f"(p3) launch.train --arch {arch}")
-        peak = torch.cuda.max_memory_allocated()
-        steps = out["steps"]
-        check(len(steps) == 20 and out["final_step"] == 20
-              and all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
-                      for s in steps),
-              f"(p3) {arch}: {len(steps)} steps, {out['summary']}")
-        med = statistics.median(s["ms"] for s in steps[1:])
-        log(f"(p3) launch.train --arch {arch} --steps 20 --batch 4 --seq 64 "
-            f"(full width and depth, bf16): losses {steps[0]['loss']:.4f} -> "
-            f"{steps[-1]['loss']:.4f}, grad norms {steps[0]['grad_norm']:.4f} "
-            f"-> {steps[-1]['grad_norm']:.4f}, all 20 finite; median step "
-            f"{med:.1f} ms (steps 2-20, first {steps[0]['ms']:.1f} ms), peak "
-            f"allocated {peak / 1e9:.2f} GB; K1-K4 launches 0")
-        costs[arch] = {"median_step_ms": med, "peak_bytes": peak}
+            f"checkpoint root before the run writes its final checkpoint")
+        # the depth cut to 8 layers keeps the script inside its time limit
+        costs[arch] = cut_training(torch, TRAIN, STEPS, arch, 8, ck, "(p3)")
         shutil.rmtree(ck, ignore_errors=True)
-        del out
         torch.cuda.empty_cache()
         cfg = get_config(arch)
         if arch == "rwkv6-3b":
@@ -4506,7 +4524,8 @@ def moe_rglru_training(torch, TRAIN, STEPS, root):
     """(m5) full-width training at cut depth, and crash and resume."""
     import shutil
     costs = {}
-    for arch, layers in (("olmoe-1b-7b", 4), ("recurrentgemma-9b", 5)):
+    # olmoe 2 of 16 layers, recurrentgemma one unit and one rem layer
+    for arch, layers in (("olmoe-1b-7b", 2), ("recurrentgemma-9b", 4)):
         ck = Path(root) / arch
         costs[arch] = cut_training(torch, TRAIN, STEPS, arch, layers, ck)
         shutil.rmtree(ck, ignore_errors=True)
@@ -5120,6 +5139,555 @@ def whisper_phase(torch, dev):
                                          "training": training}))
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the shape suite's long-context cells at full size
+# ---------------------------------------------------------------------------
+
+LONG_S = 524_288                 # long_500k's S
+CARD_BYTES = 80e9                # the card's memory, as the dry-run decides
+# where the phase picks a cut length: the card less room for the caching
+# allocator's fragmentation (an f32 recurrentgemma prefill reckoned at
+# 79.9 GB ran out with 6.63 GiB reserved but unallocated)
+FIT_BYTES = 72e9
+LONG_CELLS = (("rwkv6-3b", "long_500k"), ("recurrentgemma-9b", "long_500k"),
+              ("rwkv6-3b", "decode_32k"), ("recurrentgemma-9b", "decode_32k"))
+
+
+def prefill_jobs(torch):
+    """The prefills phase 17 runs, to reckon on meta: {key: (arch,
+    overrides, batch, T, max_seq, FLOP points, peak points, peak layers)}
+    (`dryrun_lib.reckon_prefill`: the FLOPs at full depth from two short
+    lengths, the peak from two long ones at a cut depth plus the cut
+    layers' exact bytes; two RWKV6 layers, one RG-LRU unit: counted at one
+    layer, the RWKV6 peak misses the residual stream beside the layer's
+    transients)."""
+    f32 = {"param_dtype": torch.float32, "compute_dtype": torch.float32}
+    rw, rg = "rwkv6-3b", "recurrentgemma-9b"
+    return {
+        "L1": (rw, {}, 1, LONG_S - 32, LONG_S, (32, 64), (8192, 16384), 2),
+        "L3 rwkv6-3b": (rw, {"n_layers": 2, **f32}, 1, LONG_S, LONG_S,
+                        (32, 64), (8192, 16384), 0),
+        "L3 recurrentgemma-9b": (rg, {"n_layers": 3, **f32}, 1, LONG_S,
+                                 LONG_S, (1024, 2048), (32768, 65536), 0),
+        "L4": (rg, {}, 1, LONG_S - 32, LONG_S, (1024, 2048), (32768, 65536), 3),
+        **{f"D {a} {b}": (a, {}, b, 2048, 32768, pts, (1024, 2048), cut)
+           for a, pts, cut in ((rw, (32, 64), 2), (rg, (1024, 2048), 3))
+           for b in (128, 64)},
+    }
+
+
+def reckon_main(path):
+    """`chip_smoke.py --reckon PATH` (started by phase 1 as a helper
+    process, on the CPU): the dry-run records of phase 17's cells
+    (`run_cell` on the meta device) and the reckoned prefills, written to
+    PATH as JSON."""
+    import shutil
+    import tempfile
+    sys.path.insert(0, str(ROOT / "src"))
+    os.nice(19)          # the card's phases keep the CPU they need
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun_lib as D
+    out = {"cells": {}, "prefill": {}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        for arch, cell in LONG_CELLS:
+            rec = D.run_cell(arch, cell, tmp)
+            out["cells"][f"{arch} {cell}"] = {
+                k: rec.get(k) for k in ("status", "error", "cost_analysis",
+                                        "memory", "roofline", "total_s")}
+        for key, (arch, over, B, T, max_seq, pts, ppts,
+                  cut) in prefill_jobs(torch).items():
+            whole = out["prefill"].get(key[:-3] + " 128")
+            if key.endswith(" 64") and whole["peak_bytes"] <= FIT_BYTES:
+                continue                # (D) fills in one group of 128 rows
+            t0 = time.time()
+            r = D.reckon_prefill(get_config(arch).replace(**over), B, T,
+                                 max_seq, pts, ppts, cut)
+            r["s"] = time.time() - t0
+            out["prefill"][key] = r
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    Path(path).write_text(json.dumps(out, default=str))
+    return 0
+
+
+def start_reckoning():
+    """Phase 1 starts `reckon_main` in a helper process, which phase 17
+    waits for: its counts are single-threaded CPU work (minutes) that
+    overlaps phases 2-16."""
+    import tempfile
+    fd, path = tempfile.mkstemp(prefix="chip_smoke_reckon_", suffix=".json")
+    os.close(fd)
+    log_path = path[:-5] + ".log"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                 "--reckon", path], stdout=logf,
+                                stderr=subprocess.STDOUT, env=env)
+    return {"proc": proc, "path": path, "log": log_path, "t0": time.time()}
+
+
+def stop_reckoning(job):
+    """Ends the helper if it still runs and removes its files."""
+    if job is None:
+        return
+    if job["proc"].poll() is None:
+        job["proc"].kill()
+        job["proc"].wait()
+    for p in (job["path"], job["log"]):
+        Path(p).unlink(missing_ok=True)
+
+
+def read_reckoning(job, timeout=900):
+    t0 = time.perf_counter()
+    try:
+        rc = job["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        rc = None
+    waited = time.perf_counter() - t0
+    check(rc == 0, f"phase 17: the dry-run helper ended with {rc}: "
+                   + Path(job["log"]).read_text()[-2000:])
+    out = json.loads(Path(job["path"]).read_text())
+    log(f"(dry-run) the helper's counts took {time.time() - job['t0']:.1f} s "
+        f"of wall time beside phases 2-16 (phase 17 waited {waited:.1f} s); "
+        + ", ".join(f"{k} {v['s']:.1f} s" for k, v in out["prefill"].items()))
+    return out
+
+
+def at_len(r, key, t):
+    a, b = r["lines"][key]
+    return a + b * t
+
+
+def longest_fit(r, step, cap):
+    """The longest S <= cap, a multiple of `step`, whose reckoned peak fits
+    FIT_BYTES."""
+    a, b = r["lines"]["peak_bytes"]
+    s = min(cap, int((FIT_BYTES - a) / b))
+    return s - s % step
+
+
+def plain_wkv_replayed(torch, WK, ops, chunk):
+    """`WK.wkv_reference`'s algebra, `wkv_chunk` chained over the T / chunk
+    chunks from a zero state, with one chunk captured as a CUDA graph and
+    replayed on each chunk's inputs copied into its buffers: the same
+    kernels on the same values without the host time of ~100 eager ops a
+    chunk (49.3 s at T 524,256 eager).  Returns (o, S_final)."""
+    r, k, v, logw, u, _ = ops
+    B, H, T, D = r.shape
+    cut = lambda x, c: x[:, :, c:c + chunk]
+    ins = [cut(x, 0).clone() for x in (r, k, v, logw)]
+    S = torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            WK.wkv_chunk(*ins, u, S)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o_c, S_c = WK.wkv_chunk(*ins, u, S)
+    o = torch.empty((B, H, T, D), dtype=torch.float32, device=r.device)
+    for c0 in range(0, T, chunk):
+        for dst, x in zip(ins, (r, k, v, logw)):
+            dst.copy_(cut(x, c0))
+        graph.replay()
+        o[:, :, c0:c0 + chunk].copy_(o_c)
+        S.copy_(S_c)
+    return o, S
+
+
+def log_cell(reck, name):
+    rec = reck["cells"][name]
+    check(rec["status"] == "ok", f"dry-run {name}: {rec.get('error')}")
+    m, ca, ro = rec["memory"], rec["cost_analysis"], rec["roofline"]
+    arg = m["argument_bytes"]
+    log(f"(dry-run) {name}, one decode step on meta: {ca['flops']:.4g} FLOP "
+        f"counted ({ro['model_flops_global']:.4g} model FLOPs), "
+        f"{ca['bytes']:.4g} bytes, arguments {arg['total'] / 1e9:.3f} GB "
+        f"(parameters {arg['params'] / 1e9:.3f}, cache "
+        f"{arg.get('cache', 0) / 1e9:.3f}), reckoned peak "
+        f"{m['peak_bytes'] / 1e9:.3f} GB, fits one card: {m['fits_one_card']}"
+        f"; reckoned least time {max(ro['compute_s'], ro['memory_s']) * 1e3:.3f}"
+        f" ms ({ro['dominant']})")
+    return rec
+
+
+def log_prefill_reckoning(r, label, B, T):
+    log(f"(dry-run) {label}: prefill {B} x {T} reckoned on meta "
+        f"({r['points']['peak_layers']} layers counted for the peak): "
+        f"{at_len(r, 'flops', T):.4g} FLOP, arguments "
+        f"{r['argument_bytes'] / 1e9:.3f} GB, peak "
+        f"{at_len(r, 'peak_bytes', T) / 1e9:.3f} GB "
+        f"({r['lines']['peak_bytes'][1] / 1e3:.1f} kB a token)")
+
+
+def measured_peak(torch, label, reckoned):
+    got = torch.cuda.max_memory_allocated()
+    log(f"{label}: peak allocated {got / 1e9:.3f} GB measured "
+        f"(max_memory_allocated), {reckoned / 1e9:.3f} GB reckoned on meta "
+        f"(ratio {got / reckoned:.3f})")
+    return got
+
+
+def finite_tree(torch, tree):
+    from repro_torch.tree import tree_leaves
+    return all(bool(t.float().isfinite().all()) for t in tree_leaves(tree)
+               if t.is_floating_point())
+
+
+def greedy_decodes(torch, dec, params, tok, cache, start, n, label, B=1):
+    """n greedy decode steps from position `start`; every logit finite.
+    Returns (last logits, cache, ms a step)."""
+    step_ms = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dl, cache = dec(params, tok, cache,
+                        torch.full((B,), start + i, dtype=torch.int32,
+                                   device=tok.device))
+        tok = dl.argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        check(bool(dl.isfinite().all()), f"{label} decode {i}: non-finite")
+    return dl, cache, step_ms
+
+
+def timed(torch, fn):
+    """(fn's result, its ms by CUDA events)."""
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def long_rwkv(torch, dev, WK, STEPS, reck):
+    """(L1) and (L2).  Returns (K4's "long" entry, the (L1) numbers)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import rwkv as RW
+    cfg, shape = get_config("rwkv6-3b"), SHAPES["long_500k"]
+    log_cell(reck, "rwkv6-3b long_500k")
+    r = reck["prefill"]["L1"]
+    T = LONG_S - 32
+    log_prefill_reckoning(r, "(L1) rwkv6-3b", 1, T)
+    check(r["peak_bytes"] <= CARD_BYTES,
+          f"(L1) the reckoned peak {r['peak_bytes'] / 1e9:.2f} GB does not fit")
+    params = draw(torch, dev, RW.rwkv_model_specs(cfg), 0, "(L1) rwkv6-3b",
+                  3_094_451_200)
+    tokens = torch.randint(0, cfg.vocab_size, (1, T), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    pre = STEPS.make_prefill_step(cfg, shape, dev).fn
+    dec = STEPS.make_decode_step(cfg, shape, dev).fn
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (logits, cache), ms = timed(torch, lambda: pre(params, {"tokens": tokens}))
+    counts = read_counts()
+    check_counts(counts, {"wkv": cfg.n_layers}, "(L1) prefill")
+    check(logits.shape == (1, cfg.vocab_size) and finite_tree(torch, cache)
+          and bool(logits.isfinite().all()), "(L1) prefill: non-finite")
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    dl, dcache, step_ms = greedy_decodes(torch, dec, params, tok, cache, T, 32,
+                                         "(L1)")
+    check_counts(read_counts(), {"wkv": cfg.n_layers}, "(L1) prefill + decodes")
+    check(finite_tree(torch, dcache), "(L1) decode state: non-finite")
+    peak = measured_peak(torch, "(L1) prefill + 32 decodes", r["peak_bytes"])
+    flops = r["flops"]
+    med = statistics.median(step_ms)
+    log(f"(L1) rwkv6-3b long_500k: prefill 1 x {T} ({T // 32} chunks of 32) "
+        f"{ms:.1f} ms, {T * 1e3 / ms:.0f} tokens/s, {flops:.4g} FLOP counted "
+        f"-> {flops / ms / 1e9:.1f} TFLOP/s, {flops / (ms / 1e3) / BF16_FLOP_S:.3f}"
+        f" of the 989 TFLOP/s bf16 peak; 32 greedy decodes to position "
+        f"{T + 31}: median {med:.2f} ms a step (min {min(step_ms):.2f}, max "
+        f"{max(step_ms):.2f}); K4 {counts['wkv']} launches; every logit and "
+        f"state finite")
+    del logits, cache, dl, dcache
+    torch.cuda.empty_cache()
+    trace = profile_device(torch, lambda: pre(params, {"tokens": tokens}),
+                           f"(L1) prefill 1 x {T}", "wkv_kernel")
+
+    # -- (L2): K4 on layer 0's operands --------------------------------------
+    ops = k4_layer0_operands(torch, RW, cfg, params, tokens)
+    del params
+    torch.cuda.empty_cache()
+    chunk = cfg.rwkv_chunk
+    small = [x[:, :, :2048].contiguous() for x in ops[:4]] + [ops[4], None]
+    o_e, S_e = WK.wkv_reference(*small, chunk=chunk)
+    o_g, S_g = plain_wkv_replayed(torch, WK, small, chunk)
+    gap = max(float((o_g - o_e).abs().max()) / float(o_e.abs().max()),
+              float((S_g - S_e).abs().max()) / float(S_e.abs().max()))
+    check(gap <= F32_REL, f"(L2) the replayed plain WKV against the eager one "
+                          f"at T 2048: {gap:.3e}")
+    log(f"(L2) the plain version replayed as a CUDA graph against it run "
+        f"eagerly, T 2048: {gap:.3e} of the largest magnitude")
+    del small, o_e, S_e, o_g, S_g
+    errs = {}
+    for t in (2048, 65536, T):
+        part = ops if t == T else (
+            [x[:, :, :t].contiguous() for x in ops[:4]] + [ops[4], None])
+        (o, S), k_ms = timed(torch, lambda: WK.wkv(*part, chunk=chunk))
+        (o_ref, S_ref), plain_ms = timed(
+            torch, lambda: plain_wkv_replayed(torch, WK, part, chunk))
+        errs[t] = {"o": (float((o - o_ref).abs().max()),
+                         float(o_ref.abs().max())),
+                   "S": (float((S - S_ref).abs().max()),
+                         float(S_ref.abs().max()))}
+        e = errs[t]
+        log(f"(L2) K4 vs its plain version on layer 0's operands at T {t}: o "
+            f"max abs err {e['o'][0]:.3e} of {e['o'][1]:.4g} "
+            f"({e['o'][0] / e['o'][1]:.3e}), S_final {e['S'][0]:.3e} of "
+            f"{e['S'][1]:.4g} ({e['S'][0] / e['S'][1]:.3e}); the plain "
+            f"version {plain_ms:.1f} ms (replayed)")
+        if t != T:
+            del part, o, S, o_ref, S_ref
+    err = within(o, o_ref, False, f"(L2) K4 o at T {T}")[0]
+    within(S, S_ref, False, f"(L2) K4 S_final at T {T}")
+    del o, S, o_ref, S_ref
+    ms3 = time_ms(torch, lambda: WK.wkv(*ops, chunk=chunk), 3, warmup=0)
+    bound, by, nbytes, kflops = k4_bound(torch, ops, cfg.rwkv_chunk)
+    geo = WK.geometry(1, RW.n_heads(cfg), cfg.head_dim, cfg.rwkv_chunk,
+                      ops[0].dtype, dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"(L2) K4 at T {T}: {ms3:.3f} ms a launch (CUDA events, 3 launches; "
+        f"the first of the comparison {k_ms:.3f} ms), plain version "
+        f"{plain_ms:.1f} ms (replayed), bound {bound:.3f} ms by {by} "
+        f"({nbytes:.4g} B, {kflops:.4g} FLOP; {bound / ms3:.3f} of it); grid "
+        f"{geo['grid']} CTAs "
+        f"on the card's {sms} SMs ({geo['ctas_per_sm']} CTAs an SM fit)")
+    del ops
+    torch.cuda.empty_cache()
+    entry = {"T": T, "launches": counts["wkv"], "ms": ms3,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+             "max_abs_err": err, "grid": geo["grid"], "sms": sms,
+             "errs": {str(t): e for t, e in errs.items()}}
+    return entry, {"prefill_ms": ms, "decode_ms": med, "peak": peak,
+                   "trace": trace}
+
+
+def teacher_forced(torch, STEPS, cfg, params, toks, n, label):
+    """A prefill of S - n then n decodes fed the prompt's own tokens,
+    against a prefill of all S (the last position's logits).  Returns the
+    max abs error over the largest logit."""
+    B, S = toks.shape
+    from repro_torch.configs import ShapeSuite
+    suite = ShapeSuite(label, S, B, "prefill")
+    pre = STEPS.make_prefill_step(cfg, suite, toks.device).fn
+    dec = STEPS.make_decode_step(cfg, suite, toks.device).fn
+    torch.cuda.empty_cache()
+    full, cache = pre(params, {"tokens": toks})
+    del cache
+    torch.cuda.empty_cache()
+    lg, cache = pre(params, {"tokens": toks[:, :S - n]})
+    for i in range(n):
+        pos = torch.full((B,), S - n + i, dtype=torch.int32, device=toks.device)
+        lg, cache = dec(params, toks[:, S - n + i:S - n + i + 1], cache, pos)
+    check(bool(lg.isfinite().all()) and finite_tree(torch, cache),
+          f"{label}: non-finite")
+    scale = float(full.abs().max())
+    err = float((lg - full).abs().max())
+    check(err <= 1e-4 * scale, f"{label}: {err:.3e} of the largest logit "
+                               f"{scale:.4g} (bound 1e-4 of it)")
+    return err, scale
+
+
+def long_f32_checks(torch, dev, STEPS, reck):
+    """(L3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.module import materialize
+    from repro_torch.models import get_model
+    out = {}
+    for arch, layers, n, step, label in (
+            ("rwkv6-3b", 2, 32, 32, "(L3) rwkv6-3b 2 layers f32"),
+            ("recurrentgemma-9b", 3, 512, 512,
+             "(L3) recurrentgemma-9b 1 unit f32")):
+        r = reck["prefill"][f"L3 {arch}"]
+        cfg = get_config(arch).replace(n_layers=layers,
+                                       param_dtype=torch.float32,
+                                       compute_dtype=torch.float32)
+        S = longest_fit(r, step, LONG_S)
+        log_prefill_reckoning(r, label, 1, S)
+        if S < LONG_S:
+            log(f"{label}: cut: S {S}, the longest multiple of {step} up to "
+                f"{LONG_S} whose reckoned peak fits {FIT_BYTES / 1e9:.0f} GB")
+        params = materialize(get_model(cfg).specs(cfg),
+                             torch.Generator(device=dev).manual_seed(2))
+        toks = torch.randint(0, cfg.vocab_size, (1, S), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(3)).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        err, scale = teacher_forced(torch, STEPS, cfg, params, toks, n, label)
+        counts = read_counts()
+        check_counts(counts, {"wkv": 2 * layers} if arch == "rwkv6-3b" else {},
+                     label)
+        peak = measured_peak(torch, label, at_len(r, "peak_bytes", S))
+        log(f"{label}: a prefill of {S - n} then {n} decodes fed its tokens "
+            f"against a prefill of {S}: last logits {err:.3e} of the largest "
+            f"{scale:.4g} ({err / scale:.3e}; bound 1e-4 of it), "
+            f"{time.perf_counter() - t0:.1f} s, launches {counts}")
+        out[arch] = {"S": S, "err": err, "scale": scale, "peak": peak}
+        del params, toks
+        torch.cuda.empty_cache()
+    return out
+
+
+def long_rglru(torch, dev, STEPS, A, reck):
+    """(L4)."""
+    from repro_torch.configs import ShapeSuite, get_config
+    from repro_torch.models import rglru as R
+    cfg = get_config("recurrentgemma-9b")
+    log_cell(reck, "recurrentgemma-9b long_500k")
+    r = reck["prefill"]["L4"]
+    T = longest_fit(r, 1024, LONG_S - 32)
+    log_prefill_reckoning(r, "(L4) recurrentgemma-9b", 1, T)
+    if T < LONG_S - 32:
+        log(f"(L4) cut: a prompt of {T} tokens, the longest multiple of 1024 "
+            f"whose reckoned peak fits {FIT_BYTES / 1e9:.0f} GB (the "
+            f"long_500k prompt of {LONG_S - 32} is reckoned at "
+            f"{r['peak_bytes'] / 1e9:.1f} GB)")
+    shape = ShapeSuite("long_500k", T + 32, 1, "decode")
+    params = draw(torch, dev, R.rglru_model_specs(cfg), 0,
+                  "(L4) recurrentgemma-9b", 9_396_195_328)
+    tokens = torch.randint(0, cfg.vocab_size, (1, T), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    pre = STEPS.make_prefill_step(cfg, shape, dev).fn
+    dec = STEPS.make_decode_step(cfg, shape, dev).fn
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (logits, cache), ms = timed(torch, lambda: pre(params, {"tokens": tokens}))
+    check(bool(logits.isfinite().all()) and finite_tree(torch, cache),
+          "(L4) prefill: non-finite")
+    tok = logits.argmax(-1)[:, None].to(torch.int32)
+    dl, dcache, step_ms = greedy_decodes(torch, dec, params, tok, cache, T, 32,
+                                         "(L4)")
+    check_counts(read_counts(), {}, "(L4) prefill + decodes")
+    peak = measured_peak(torch, "(L4) prefill + 32 decodes",
+                         at_len(r, "peak_bytes", T))
+    flops = at_len(r, "flops", T)
+    med = statistics.median(step_ms)
+    log(f"(L4) recurrentgemma-9b long_500k: prefill 1 x {T} {ms:.1f} ms, "
+        f"{T * 1e3 / ms:.0f} tokens/s, {flops:.4g} FLOP counted -> "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {flops / (ms / 1e3) / BF16_FLOP_S:.3f}"
+        f" of the bf16 peak; 32 greedy decodes to position {T + 31}: median "
+        f"{med:.2f} ms a step; K1-K4 0 launches; every logit and state finite")
+    del logits, cache, dl, dcache
+    torch.cuda.empty_cache()
+    # the trace on the prompt's first 16,384 tokens: the whole prompt's
+    # prefill issues ~560,000 device ops (528 flash query chunks a local
+    # layer at batch 1), whose events the profiler takes ~6 minutes to read
+    trace = profile_ranges(torch, lambda: pre(params,
+                                              {"tokens": tokens[:, :16384]}),
+                           "(L4) prefill 1 x 16384 (the prompt's first "
+                           "16,384 tokens)",
+                           {**attention(A), "scan": [(R, "rglru_scan")]},
+                           warm=False)
+    del params
+    torch.cuda.empty_cache()
+    return {"T": T, "prefill_ms": ms, "decode_ms": med, "peak": peak,
+            "trace": trace}
+
+
+def cat_batch(axes, trees, path=()):
+    """Caches of row groups joined along each leaf's batch axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: cat_batch(axes, [t[k] for t in trees], path + (k,))
+                for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(cat_batch(axes, [t[i] for t in trees], path + (i,))
+                           for i in range(len(first)))
+    import torch
+    return torch.cat(trees, dim=axes[path])
+
+
+def decode_cells(torch, dev, STEPS, reck):
+    """(D)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import get_model
+    from repro_torch.runtime.serving import _batch_axes
+    shape = SHAPES["decode_32k"]
+    B, P = shape.global_batch, 2048
+    out = {}
+    for arch, n_params in (("rwkv6-3b", 3_094_451_200),
+                           ("recurrentgemma-9b", 9_396_195_328)):
+        cfg = get_config(arch)
+        api = get_model(cfg)
+        log_cell(reck, f"{arch} decode_32k")
+        rows = next((b for b in (128, 64)
+                     if reck["prefill"][f"D {arch} {b}"]["peak_bytes"]
+                     <= FIT_BYTES), None)
+        check(rows is not None, f"(D) {arch}: no row group of the prefill fits")
+        r = reck["prefill"][f"D {arch} {rows}"]
+        log_prefill_reckoning(r, f"(D) {arch}", rows, P)
+        params = draw(torch, dev, api.specs(cfg), 0, f"(D) {arch}", n_params)
+        tokens = torch.randint(0, cfg.vocab_size, (B, P), dtype=torch.int32,
+                               generator=torch.Generator().manual_seed(1)).to(dev)
+        pre = STEPS.make_prefill_step(cfg, shape, dev).fn
+        dec = STEPS.make_decode_step(cfg, shape, dev).fn
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        parts = [pre(params, {"tokens": tokens[i:i + rows]})
+                 for i in range(0, B, rows)]
+        axes = _batch_axes(api, cfg, shape.seq_len)
+        logits = torch.cat([p[0] for p in parts])
+        cache = cat_batch(axes, [p[1] for p in parts])
+        del parts
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        fill = read_counts()
+        check_counts(fill, {"wkv": cfg.n_layers * (B // rows)}
+                     if arch == "rwkv6-3b" else {}, f"(D) {arch} prefill")
+        reset_counts()
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        dl, cache, step_ms = greedy_decodes(torch, dec, params, tok, cache, P,
+                                            16, f"(D) {arch}", B=B)
+        check_counts(read_counts(), {}, f"(D) {arch} decodes")
+        peak = measured_peak(torch, f"(D) {arch} prefill + 16 decodes",
+                             r["peak_bytes"])
+        med = statistics.median(step_ms)
+        log(f"(D) {arch} decode_32k: the caches filled by a prefill of {B} x "
+            f"{P} ({B // rows} group(s) of {rows} rows, {fill_s:.1f} s, "
+            f"launches {fill}); 16 greedy decodes of batch {B}: median "
+            f"{med:.2f} ms a step (min {min(step_ms):.2f}, max "
+            f"{max(step_ms):.2f}), {B * 1e3 / med:.0f} tokens/s, K1-K4 0; cut: "
+            f"the positions run {P}..{P + 15}, not 32,767 (a state and a "
+            f"2,048-slot ring: the step's work does not grow past 2,048)")
+        out[arch] = {"decode_ms": med, "tok_s": B * 1e3 / med, "peak": peak,
+                     "rows": rows}
+        del params, tokens, logits, cache, dl
+        torch.cuda.empty_cache()
+    return out
+
+
+def long_context_phase(torch, dev, WK, job):
+    """Phase 17; returns K4's "long" entry."""
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models import attention as A
+    reck = read_reckoning(job)
+    t0 = time.perf_counter()
+    entry, l1 = long_rwkv(torch, dev, WK, STEPS, reck)
+    t1 = time.perf_counter()
+    l3 = long_f32_checks(torch, dev, STEPS, reck)
+    t2 = time.perf_counter()
+    l4 = long_rglru(torch, dev, STEPS, A, reck)
+    t3 = time.perf_counter()
+    d = decode_cells(torch, dev, STEPS, reck)
+    t4 = time.perf_counter()
+    log(f"phase 17 parts: (L1)+(L2) {t1 - t0:.1f} s, (L3) {t2 - t1:.1f} s, "
+        f"(L4) {t3 - t2:.1f} s, (D) {t4 - t3:.1f} s")
+    log("phase 17 json: " + json.dumps({"L1": l1, "L2": entry, "L3": l3,
+                                        "L4": l4, "D": d}))
+    return entry
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5131,6 +5699,14 @@ def main():
               "from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    job = start_reckoning()
+    try:
+        return run_phases(torch, job)
+    finally:
+        stop_reckoning(job)
+
+
+def run_phases(torch, job):
     from repro_torch import checkpoint as CKP
     from repro_torch.core import bptt as BP, costs as CO, rtrl as RT
     from repro_torch.core import sparse_rtrl as SP, stacked_rtrl as ST
@@ -5342,7 +5918,12 @@ def main():
     whisper_phase(torch, dev)
     log(f"phase 16 (whisper-large-v3): {time.perf_counter() - t16:.1f} s")
 
-    # -- phase 17: the kernels line and the result --------------------------
+    # -- phase 17: the long-context cells at full size ---------------------
+    t17 = time.perf_counter()
+    k4_long = long_context_phase(torch, dev, WK, job)
+    log(f"phase 17 (the long-context cells): {time.perf_counter() - t17:.1f} s")
+
+    # -- phase 18: the kernels line and the result --------------------------
     t1, t2 = times["(a) f32"], k2_times["(a) column-compact"]
     kernels = [{"name": "compact_fused", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/compact_fused.cu",
@@ -5371,6 +5952,7 @@ def main():
     kernels[0]["lm"] = lm["compact_fused"]
     kernels[1]["lm"] = lm["influence"]
     kernels[0]["scaled"] = scaled
+    k4_entry["long"] = k4_long
     kernels += [k3_entry, k4_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5380,4 +5962,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--reckon"]:
+        sys.exit(reckon_main(sys.argv[2]))
     sys.exit(main())

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSuite, smoke_config
+from repro_torch.configs.base import (LONG_CONTEXT_OK, SHAPES, ModelConfig,
+                                      ShapeSuite, cells_for, smoke_config)
 
 ARCHS = {
     "olmoe-1b-7b": "olmoe_1b_7b",
@@ -45,5 +46,6 @@ def get_config(name: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{ARCHS[name]}").CONFIG
 
 
-__all__ = ["ARCHS", "NOT_PORTED", "SHAPES", "ModelConfig", "ShapeSuite",
-           "get_config", "not_ported", "smoke_config"]
+__all__ = ["ARCHS", "LONG_CONTEXT_OK", "NOT_PORTED", "SHAPES", "ModelConfig",
+           "ShapeSuite", "cells_for", "get_config", "not_ported",
+           "smoke_config"]

@@ -105,6 +105,18 @@ SHAPES = {
     "long_500k":   ShapeSuite("long_500k",   524_288, 1,   "decode"),
 }
 
+# Archs allowed to run long_500k (sub-quadratic decode state: RWKV6's
+# state does not grow with T, the RG-LRU LM attends over a local window)
+LONG_CONTEXT_OK = {"recurrentgemma-9b", "rwkv6-3b"}
+
+
+def cells_for(arch_name: str) -> list[str]:
+    """The dry-run cells assigned to one architecture."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch_name in LONG_CONTEXT_OK:
+        out.append("long_500k")
+    return out
+
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests."""

@@ -38,8 +38,12 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                         device=device) / head_dim))
+    """1 / theta^(2i/head_dim) in f32.  The power is taken in f64 and
+    rounded once, as XLA's f32 power rounds it: torch's f32 power is one
+    ulp off at some exponents, which at positions near 2^19 moves an
+    angle by up to ~5e-5."""
+    e = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** e.double()).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

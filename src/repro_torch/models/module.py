@@ -100,6 +100,13 @@ def materialize(tree: Tree, gen: torch.Generator) -> Tree:
     return tree_map(lambda s: s.init(gen, s.shape, s.dtype), tree)
 
 
+def abstract(tree: Tree) -> Tree:
+    """Stand-ins for the dry-run: a `meta` tensor of each spec's shape and
+    dtype (no storage is allocated, nothing is drawn)."""
+    return tree_map(lambda s: torch.empty(tuple(s.shape), dtype=s.dtype,
+                                          device="meta"), tree)
+
+
 def stack_specs(tree: Tree, n: int, axis_name: str = "layers") -> Tree:
     """Prepend a stacking dim (the stacked-layers `units` layout)."""
     def stack(s: ParamSpec) -> ParamSpec:

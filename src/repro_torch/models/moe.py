@@ -68,9 +68,13 @@ def router_probs(cfg: ModelConfig, p: dict, xt: torch.Tensor) -> torch.Tensor:
 def load_balance_loss(probs: torch.Tensor, expert_idx: torch.Tensor,
                       n_experts: int) -> torch.Tensor:
     """Switch-style aux loss: E * sum_e f_e * P_e.  The counts are integers
-    (`bincount`), exact in any order."""
+    (an integer `scatter_add_`, exact in any order; `bincount` has no meta
+    kernel, and the dry-run runs this on the meta device)."""
     T = probs.shape[0]
-    counts = torch.bincount(expert_idx.reshape(-1), minlength=n_experts)
+    idx = expert_idx.reshape(-1)
+    counts = torch.zeros(n_experts, dtype=torch.int64,
+                         device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx, dtype=torch.int64))
     f = counts.float() / (T * expert_idx.shape[-1])
     return n_experts * (f * probs.mean(dim=0)).sum()
 

@@ -323,7 +323,9 @@ def _rec_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor, st: dict):
     log_a, x_in, uy, conv = _rec_inputs(cfg, p["lru"], _norm(cfg, p["ln_mix"], x))
     h = rglru_scan(log_a, x_in)
     o = (h.to(dt) * uy) @ p["lru"]["wo"].to(dt)
-    new = {"h": h[:, -1], "conv": conv.to(st["conv"].dtype)}
+    # copies: views would keep the layer's whole [B, S, w] scan and conv
+    # input alive for as long as the state
+    new = {"h": h[:, -1].clone(), "conv": conv.to(st["conv"].dtype, copy=True)}
     return _mlp_residual(cfg, p, x + o), new
 
 

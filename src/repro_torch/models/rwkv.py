@@ -312,19 +312,24 @@ def decode_step(cfg: ModelConfig, params: dict, token, cache, pos):
     return lm_logits(cfg, params["emb"], h)[:, 0], _stack_layers(cfg, new_cache)
 
 
-def prefill(cfg: ModelConfig, params: dict, tokens):
+def prefill(cfg: ModelConfig, params: dict, tokens, *, plain=False):
     """Full-seq forward collecting per-layer final states.
-    tokens: [B,S] ids -> (last-position logits [B,V] f32, cache)."""
+    tokens: [B,S] ids -> (last-position logits [B,V] f32, cache).  `plain`
+    runs the plain WKV in place of the kernel wrapper (the dry-run's meta
+    tensors, which no kernel takes)."""
     x = embed_tokens(cfg, params["emb"], tokens)
     x = _norm(cfg, params["ln0"], x)
     cache = []
     for lp in _layers(cfg, params["units"]):
         xin = _norm(cfg, lp["ln1"], x)
-        h, st_tm = time_mix(cfg, lp["tm"], xin)
+        h, st_tm = time_mix(cfg, lp["tm"], xin, plain=plain)
         x = x + h
         xin2 = _norm(cfg, lp["ln2"], x)
         h, _ = channel_mix(cfg, lp["cm"], xin2)
         x = x + h
-        cache.append({"S": st_tm["S"], "x_tm": xin[:, -1], "x_cm": xin2[:, -1]})
+        # copies of the last rows: a view would keep each layer's whole
+        # [B, S, d] input alive until the cache is stacked
+        cache.append({"S": st_tm["S"], "x_tm": xin[:, -1].clone(),
+                      "x_cm": xin2[:, -1].clone()})
     h = _norm(cfg, params["ln_f"], x)
     return lm_logits(cfg, params["emb"], h[:, -1:])[:, 0], _stack_layers(cfg, cache)

@@ -18,7 +18,8 @@ EXPECTED = {
     "configs.olmoe_1b_7b", "configs.kimi_k2_1t_a32b",
     "configs.recurrentgemma_9b", "models.moe", "models.rglru",
     "configs.whisper_large_v3", "models.encdec", "core.scaled_rtrl",
-    "optim.grad", "optim.schedules", "launch.steps",
+    "optim.grad", "optim.schedules", "launch.steps", "launch.costing",
+    "launch.dryrun", "launch.dryrun_all", "launch.dryrun_lib",
     "cells", "cells.egru", "cells.rglru", "cells.snn", "checkpoint",
     "checkpoint.ckpt", "core.bptt", "core.cells", "core.costs",
     "core.diag_rtrl", "core.learner", "core.rtrl", "core.snap",
