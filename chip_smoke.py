@@ -352,13 +352,41 @@ checkout, it exits non-zero and prints no result.  Phases:
      the caches filled by a prefill of 128 x 2,048 tokens (in row groups
      where the reckoned peak of one does not fit), 16 decodes of batch
      128, ms a step and tokens/s, K1-K4 0;
- 18. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
+ 18. the sharded carry on two ranks of one gloo process group that share
+     the card (`launch.mesh.spawn`, each rank `torch.cuda.set_device(0)`,
+     a (data 1, model 2) mesh; gloo reduces a CUDA tensor on the host, so
+     every collective is staged through it while the compute stays on
+     the card; a join timeout of 300 s fails the phase), each check with
+     the counts set to 0 just before and read just after: (h1) the scaled
+     engine at (s1)'s configuration (n 1,024, capacity 1, compact_fused)
+     on a carry placed by `sharded_step_specs`: 8 steps, K1 8 launches a
+     rank each on its own 57,920 of the 115,840 columns, 0 collectives in
+     the steps (an untimed window under CommDebugMode and the port's own
+     collective counts), grads' collectives counted, the gathered carry
+     and grads against the one-rank run (1e-5 of each leaf's largest
+     entry), K1 on a real step's half-width operands (rank 0's local
+     state and column layout; their launch bitwise the sharded step's
+     vals) against its plain version, timed with the full width's as
+     phase 15 times it (kernel, plain, baddbmm, bound), the window timed
+     bare with both ranks at once, each rank alone and the one-rank run,
+     and each rank's window traced alone in turn (device ops, idle
+     share); (h2) L = 2 at n 512 (K1 16 a rank); (h3) one
+     RigL event at n 256 on the sharded rewirable carry: the migrated vals
+     bitwise the one-rank event's, the next 4 steps against the one-rank
+     run, the event's collectives and ms; (h4) olmoe-1b-7b's MoE block at
+     full width (bf16, 4 x 512 tokens): `moe_block_shardmap` over 2 ranks
+     (32 experts each) against `dispatch` on one rank within 2 x 2^-7 of
+     the largest output, run to run bitwise, the ms of each; (h5)
+     `compressed_psum` over a 2-rank pod group, the accumulated
+     deviation over 8 steps under 0.05, and (h3)'s carry written sharded
+     by both ranks and restored on one rank, bitwise;
+ 19. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
      K1's and K2's with a "stacked" entry for phase 8's path, K1's with a
      "guard" and K2's with a "rewire" entry for phase 9's, both with a
      "telemetry" entry for phase 10's, a "fleet" entry for phase 11's and
      an "lm" entry for phase 12's, K1's with a "scaled" entry for phase
-     15's, K4's with a "long" entry for phase 17's, then the result line
-     {"ok": true, "device": {...}}.
+     15's and a "sharded" entry for phase 18's, K4's with a "long" entry
+     for phase 17's, then the result line {"ok": true, "device": {...}}.
 
 Tolerances: a float32 kernel result is within 1e-5 of the largest
 magnitude of the plain version's (the sums associate differently); a bf16
@@ -5688,6 +5716,423 @@ def long_context_phase(torch, dev, WK, job):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the sharded carry, two ranks of a gloo group on the one card
+# ---------------------------------------------------------------------------
+
+SHARDED_TIMEOUT = 300      # s: the group's join timeout, a failure past it
+
+# the phase's widths: (s1)'s n for (h1), (s4)'s for (h2), a rewire at n 256
+# for (h3), olmoe's MoE block on 4 x 512 tokens for (h4)
+H1_N, H2_N, H3_N, MOE_TOKENS = 1024, 512, 256, (4, 512)
+
+
+def rank_log(rank, *a):
+    log(f"[rank {rank}]", *a)
+
+
+def timed_ms(torch, fn):
+    """(fn's result, its ms on the host clock with the card drained before
+    and after): one run, bare."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def k1_timed(torch, CF, CK, ops, rank, label, name):
+    """K1 on these operands timed by time_k1 (kernel, plain, baddbmm on
+    pre-gathered tiles, bound), logged; its kernels-line numbers."""
+    t = time_k1(torch, CF, CK, ops, 5, 3)
+    Pc = ops[1].shape[-1]
+    rank_log(rank, f"{label} K1 at the {name} width (Pc_pad {Pc:,}): kernel "
+             f"{t['ms']:.4f} ms a launch, plain {t['plain_ms']:.4f} ms, "
+             f"baddbmm on pre-gathered tiles {t['library_ms']:.4f} ms, bound "
+             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']:.0f} B, "
+             f"{t['flops']:.0f} FLOP); in turn: kernel {t['alt_ms']:.4f}, "
+             f"baddbmm {t['alt_library_ms']:.4f} ms; device: kernel "
+             f"{t['device_us']} us, baddbmm {t['library_device_us']} us")
+    return {**t, "Pc_pad": Pc}
+
+
+def sharded_engine(torch, SH, mesh, rank, dev, n, L, label, k1=False):
+    """(h1)/(h2): 8 steps of the scaled learner on a carry placed on
+    (data 1, model 2) by sharded_step_specs, compact_fused, capacity 1.
+    The window is timed bare with both ranks at once, K1 counted (a
+    launch a layer a step on each rank's column half), then each rank's
+    window alone (the other idle at a barrier), bare too; an untimed
+    window under CommDebugMode and the port's own collective counts
+    (`sharding.counts`) shows the update's collectives (0), then grads'.
+    On rank 0: the gathered carry and grads against the one-rank run
+    (1e-5 of each leaf's largest entry), whose warm window is timed bare
+    as the sharded ones are.  With `k1`: K1's operands at step 5 built by
+    `fused_step_operands`, at the half width from rank 0's local state and
+    column layout (their launch is bitwise the sharded step's vals) and at
+    the full width from the one-rank state, each against its plain version
+    and timed by time_k1; then each rank's window traced alone in turn
+    (device ops, idle share)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.core import scaled_rtrl as SR, sparse_rtrl as SP
+    from repro_torch.core.learner import LearnerSpec, make_learner
+    from repro_torch.kernels import compact as CK, compact_fused as CF
+    from repro_torch.sharding import to_local
+    cfg, params, masks, xs, labels = scaled_setup(torch, SR, dev, n=n, L=L)
+    T = xs.shape[0]
+    spec = LearnerSpec(engine="scaled", cfg=cfg, backend="compact_fused")
+    lr = make_learner(spec)
+    carry0 = lr.place(lr.init(params, masks, (xs[0], labels), t_total=T),
+                      mesh)
+
+    def steps(learner, c, t0, t1):
+        for t in range(t0, t1):
+            c, _ = learner.step(c, xs[t], labels)
+        return c
+    window = lambda: steps(lr, carry0, 0, T)
+    window()                                     # warm: K1 and the host path
+    SH.barrier()
+    reset_counts()
+    carry, window_ms = timed_ms(torch, window)
+    counts = read_counts()
+    check_counts(counts, {"compact_fused": T * L}, f"{label} rank {rank}")
+    alone_ms = None
+    SH.barrier()                # the other rank's window has ended too
+    for r in range(2):
+        if r == rank:
+            _, alone_ms = timed_ms(torch, window)
+        SH.barrier()
+    SH.counts.clear()
+    with CommDebugMode() as cm:
+        window()
+    upd = dict(SH.counts)
+    check(cm.get_total_counts() == 0 and not upd,
+          f"{label} rank {rank}: {cm.get_comm_counts()} / {upd} collectives "
+          "in the influence update")
+    vals = carry["state"]["vals"]
+    local = tuple(to_local(vals[0] if L > 1 else vals).shape)
+    SH.counts.clear()
+    with CommDebugMode() as cg:
+        grads = lr.grads(carry)
+    grad_colls = dict(SH.counts)
+    full = lr.gather(carry)
+    res = {"launches": counts["compact_fused"], "local_vals": local,
+           "window_ms": window_ms, "alone_window_ms": alone_ms,
+           "update_collectives": 0, "grad_collectives": grad_colls,
+           "grad_comm_ops": cg.get_total_counts()}
+    rank_log(rank, f"{label} n {n} L {L}: {T} steps, K1 launches "
+             f"{counts['compact_fused']} on vals {local} (its column half), "
+             f"0 collectives in the steps, grads' collectives {grad_colls}; "
+             f"window {window_ms:.2f} ms with both ranks at once, "
+             f"{alone_ms:.2f} ms alone (bare, warm)")
+    w = {k: v for k, v in params.items() if k != "out"}
+    if k1:
+        c = steps(lr, carry0, 0, 4)
+        sh = lr._shards(mesh)
+        st = sh.local(c)["state"]
+        half = list(SP.fused_step_operands(
+            cfg.cell_cfg(), w, cfg.layout(), st["a"], st["vals"], st["idx"],
+            sh.rows(xs[4]), cl=sh.cl())[2])
+        nxt, _ = lr.step(c, xs[4], labels)
+        same = torch.equal(CF.fused_update(*half),
+                           to_local(nxt["state"]["vals"]))
+        check(same, f"{label} rank {rank}: K1 on the rebuilt half-width "
+                    "operands differs from the sharded step's vals")
+        del c, st, nxt
+    SH.barrier()
+    if rank == 0:
+        one = make_learner(spec)
+        init1 = lambda: one.init(params, masks, (xs[0], labels), t_total=T)
+        c1 = steps(one, init1(), 0, T)
+        g1 = one.grads(c1)
+        st = device_gap(full["state"], c1["state"])
+        gr = device_gap(grads, g1)
+        lerr = abs(float(full["loss"]) - float(c1["loss"])) / abs(
+            float(c1["loss"]))
+        check(st[0] <= F32_REL and gr[0] <= F32_REL and lerr <= F32_REL,
+              f"{label}: sharded vs one rank: state {st}, grads {gr}, loss "
+              f"{lerr:.3e}")
+        c = init1()
+        _, one_ms = timed_ms(torch, lambda: steps(one, c, 0, T))
+        del c
+        res.update(state_vs_one=st[0], grads_vs_one=gr[0], loss_vs_one=lerr,
+                   state_bitwise=st[2], grads_bitwise=gr[2],
+                   one_rank_window_ms=one_ms)
+        rank_log(rank, f"{label}: the gathered carry vs the one-rank run: "
+                 f"state {st[0]:.2e} ({'bitwise' if st[2] else st[1]}), "
+                 f"rtrl grads {gr[0]:.2e} ({'bitwise' if gr[2] else gr[1]}),"
+                 f" loss {lerr:.2e} (bound 1e-5 of each leaf's largest "
+                 f"entry); the one-rank window {one_ms:.2f} ms (bare, warm, "
+                 "rank 1 idle)")
+        if k1:
+            c = steps(one, init1(), 0, 4)
+            s1 = c["state"]
+            whole = list(SP.fused_step_operands(
+                cfg.cell_cfg(), w, cfg.layout(), s1["a"], s1["vals"],
+                s1["idx"], xs[4], cl=cfg.col_layout(masks, device=dev))[2])
+            del c, s1
+            res["max_abs_err"] = compare_k1(torch, CF, half,
+                                            f"{label} half width (rank 0)")
+            compare_k1(torch, CF, whole, f"{label} full width")
+            for name, ops in (("half", half), ("full", whole)):
+                res[f"k1_{name}"] = k1_timed(torch, CF, CK, ops, rank, label,
+                                             name)
+            del whole
+        del c1, g1
+    if k1:
+        del half
+    SH.barrier()
+    if k1:
+        for r in range(2):
+            if r == rank:
+                tr = profile_ranges(torch, lambda: steps(lr, carry, 0, T),
+                                    f"{label} rank {rank} window", {},
+                                    warm=False)
+                if tr is not None:
+                    res["idle"], res["ops_per_step"] = tr["idle"], \
+                        tr["ops"] / T
+                    rank_log(rank, f"{label} window traced alone: "
+                             f"{tr['ops'] / T:.1f} device ops a step, idle "
+                             f"share {tr['idle']:.3f}, wall "
+                             f"{tr['wall_us'] / 1e3:.2f} ms")
+            SH.barrier()
+    del carry, carry0, full, grads
+    torch.cuda.empty_cache()
+    return res
+
+
+def tree_leaves_of(tree):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def device_gap(a, b):
+    """leaf_gap on the leaves' own device (the carry's GB-sized buffers
+    stay on the card): (worst relative error, its leaf, all leaves
+    bitwise)."""
+    from repro_torch.tree import leaf_name, tree_flatten_with_path
+    worst, name, same = 0.0, "", True
+    for (p, x), (_, y) in zip(tree_flatten_with_path(a),
+                              tree_flatten_with_path(b)):
+        same = same and bool(x.shape == y.shape and (x == y).all())
+        gap = float((x.float() - y.float()).abs().max()) / max(
+            float(y.abs().max()), 1e-30)
+        if gap >= worst:
+            worst, name = gap, leaf_name(p)
+    return worst, name, same
+
+
+def sharded_rewire(torch, SH, mesh, rank, dev, n, root):
+    """(h3) one RigL event on the sharded rewirable compact carry at n 256
+    (capacity 1): the migrated vals bitwise the one-rank event's, the next
+    4 steps against the one-rank run; then (h5b) the carry written sharded
+    by both ranks and restored on one rank, bitwise."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core import scaled_rtrl as SR
+    from repro_torch.core.learner import LearnerSpec, make_learner
+    cfg, params, masks, xs, labels = scaled_setup(torch, SR, dev, n=n)
+    spec = LearnerSpec(engine="scaled", cfg=cfg, backend="compact",
+                       col_compact=True, rewirable=True)
+    lr, one = make_learner(spec), make_learner(spec)
+    c2 = lr.place(lr.init(params, masks, (xs[0], labels), t_total=8.0), mesh)
+    c1 = one.init(params, masks, (xs[0], labels), t_total=8.0)
+    for t in range(4):
+        c2, _ = lr.step(c2, xs[t], labels)
+        c1, _ = one.step(c1, xs[t], labels)
+    c2, c1 = lr.reset_grads(c2), one.reset_grads(c1)
+    SH.counts.clear()
+    c2, event_ms = timed_ms(torch, lambda: lr.rewire(
+        c2, (0, 1), frac=0.3, method="rigl", block=cfg.mask_block))
+    colls = dict(SH.counts)
+    c1 = one.rewire(c1, (0, 1), frac=0.3, method="rigl", block=cfg.mask_block)
+    mid = lr.gather(c2)
+    mig = torch.equal(mid["state"]["vals"], c1["state"]["vals"])
+    check(mig, f"(h3) rank {rank}: migrated vals differ from the one-rank "
+               "event's")
+    for t in range(4, 8):
+        c2, _ = lr.step(c2, xs[t], labels)
+        c1, _ = one.step(c1, xs[t], labels)
+    end = lr.gather(c2)
+    st = device_gap(end["state"], c1["state"])
+    gr = device_gap(lr.grads(c2), one.grads(c1))
+    same = st[2]
+    check(st[0] <= F32_REL and gr[0] <= F32_REL,
+          f"(h3) rank {rank}: after the event, state {st}, grads {gr}")
+    rank_log(rank, f"(h3) RigL event (frac 0.3, 8 x 8 blocks) at n {n}: "
+             f"{event_ms:.2f} ms, collectives {colls}; migrated vals bitwise "
+             f"the one-rank event's; the next 4 steps: state "
+             f"{'bitwise' if same else f'{st[0]:.2e}'}, grads {gr[0]:.2e} "
+             "of the one-rank run's")
+    # (h5b) a sharded checkpoint, restored whole on one rank
+    ck = Path(root) / "ckpt"
+    save_checkpoint(ck, 1, {"carry": c2})
+    ck_ok = True
+    if rank == 0:
+        like = {"carry": end}
+        got, step = load_checkpoint(ck, like)
+        ck_ok = step == 1 and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves_of(got["carry"]),
+                                              tree_leaves_of(end)))
+        nfiles = len(list((ck / "step_00000001").glob("carry__state__vals.*")))
+        check(ck_ok and nfiles == 2, f"(h5) checkpoint written by 2 ranks, "
+              f"restored on one: bitwise {ck_ok}, vals files {nfiles}")
+        rank_log(rank, "(h5) the carry written sharded by both ranks (vals in "
+                 f"{nfiles} shard files) and restored on one rank: bitwise")
+    SH.barrier()
+    return {"event_ms": event_ms, "event_collectives": colls,
+            "migrated_bitwise": mig, "after_state": st[0],
+            "after_grads": gr[0], "after_bitwise": same,
+            "ckpt_bitwise": ck_ok}
+
+
+def sharded_moe(torch, SH, mesh, rank, dev):
+    """(h4) one olmoe-1b-7b MoE block at full width (64 experts, d 2048,
+    d_ff 1024, top 8, bf16): the shardmap form over 'model' (32 experts a
+    rank) on MOE_TOKENS (4 x 512) against `dispatch` on one rank, within one
+    bf16 step a rounding (2 roundings) of the largest output; run to run
+    bitwise; each form's ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MO
+    from repro_torch.models.module import materialize, tree_shardings
+    cfg = get_config("olmoe-1b-7b").replace(moe_impl="shardmap")
+    tokens = MOE_TOKENS
+    p = materialize(MO.moe_specs(cfg),
+                    torch.Generator(device=dev).manual_seed(8))
+    x = torch.randn(tokens + (cfg.d_model,), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(9)).to(
+        cfg.compute_dtype)
+    psh = tree_shardings(MO.moe_specs(cfg), SH.make_rules(cfg, mesh), mesh)
+    placed = {k: SH.place(v, psh[k]) for k, v in p.items()}
+    xp = SH.place(x, SH.NamedSharding(mesh, ("data", None, None)))
+    ctx = SH.make_ctx(cfg, mesh)
+    SH.counts.clear()
+    y, aux = MO.moe_block(cfg, placed, xp, ctx)
+    colls = dict(SH.counts)
+    y2, aux2 = MO.moe_block(cfg, placed, xp, ctx)
+    same = torch.equal(y.to_local(), y2.to_local()) and torch.equal(aux, aux2)
+    check(same, f"(h4) rank {rank}: two shardmap runs differ")
+    SH.barrier()
+    ms = time_ms(torch, lambda: MO.moe_block(cfg, placed, xp, ctx), 5, 1)
+    local = tuple(placed["wi"].to_local().shape)
+    res = {"collectives": colls, "bitwise": same, "ms": ms,
+           "local_wi": local}
+    SH.barrier()
+    if rank == 0:
+        dcfg = cfg.replace(moe_impl="dispatch")
+        yd, auxd = MO.moe_block(dcfg, p, x)
+        err = float((y.to_local().float() - yd.float()).abs().max())
+        scale = float(yd.float().abs().max())
+        check(err <= 2 * BF16_STEP * scale and abs(float(aux - auxd))
+              <= F32_REL * abs(float(auxd)),
+              f"(h4) shardmap vs dispatch {err:.3e} of {scale:.3e}, aux "
+              f"{float(aux)} vs {float(auxd)}")
+        dms = time_ms(torch, lambda: MO.moe_block(dcfg, p, x), 5, 1)
+        res.update(err=err, scale=scale, dispatch_ms=dms)
+        rank_log(rank, f"(h4) olmoe-1b-7b MoE block, {tokens[0]} x "
+                 f"{tokens[1]} tokens: shardmap "
+                 f"(wi {local} a rank) vs dispatch on one rank {err:.3e} of "
+                 f"the largest output {scale:.3e} (bound 2 x 2^-7 of it), aux "
+                 f"{float(aux):.6f} vs {float(auxd):.6f}; collectives {colls}; "
+                 f"two runs bitwise; shardmap {ms:.3f} ms a call (both ranks "
+                 f"at once), dispatch {dms:.3f} ms (rank 0 alone)")
+    SH.barrier()
+    return res
+
+
+def sharded_compression(torch, SH, rank, dev):
+    """(h5a) compressed_psum over a 2-rank 'pod' group on the card: the
+    accumulated update over 8 steps within 0.05 of the true mean's (the
+    reference's test), the collectives a step."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.runtime import compression as CMP
+    mesh = init_device_mesh(dev.type, (2, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    g = {"w": torch.linspace(-1.0, 1.0, 64, device=dev).reshape(8, 8)}
+    err = CMP.init_error_state(g)
+    total = torch.zeros(8, 8, device=dev)
+    SH.counts.clear()
+    for _ in range(8):
+        g_hat, err = CMP.compressed_psum(g, err, mesh)
+        total = total + g_hat["w"]
+    dev_ = float((total - 8 * g["w"]).abs().max())
+    check(dev_ < 0.05, f"(h5) compressed_psum deviation {dev_}")
+    colls = dict(SH.counts)
+    rank_log(rank, f"(h5) compressed_psum over a 2-rank pod group, 8 steps: "
+             f"accumulated deviation {dev_:.2e} (bound 0.05); collectives "
+             f"{colls}")
+    return {"deviation": dev_, "collectives": colls}
+
+
+def sharded_rank(rank, world, out_dir):
+    """One rank of phase 18: both ranks on card 0, in a gloo group."""
+    import torch
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    from repro_torch import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 2)
+    res, parts, t0 = {}, {}, time.perf_counter()
+    for name, fn in (
+            ("h1", lambda: sharded_engine(torch, SH, mesh, rank, dev, H1_N,
+                                          1, "(h1)", k1=True)),
+            ("h2", lambda: sharded_engine(torch, SH, mesh, rank, dev, H2_N,
+                                          2, "(h2)")),
+            ("h3", lambda: sharded_rewire(torch, SH, mesh, rank, dev, H3_N,
+                                          out_dir)),
+            ("h4", lambda: sharded_moe(torch, SH, mesh, rank, dev)),
+            ("h5", lambda: sharded_compression(torch, SH, rank, dev))):
+        res[name] = fn()
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    res["seconds"] = parts
+    res["jax_imported"] = sorted(m for m in sys.modules
+                                 if m == "jax" or m.startswith("jax.")
+                                 or m == "repro" or m.startswith("repro."))
+    check(not res["jax_imported"], f"rank {rank} imported {res['jax_imported']}")
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def sharded_phase(torch):
+    """Phase 18 (module docstring): the two-rank group's run, then the
+    ranks' results read back.  Returns K1's "sharded" entry of the kernels
+    line."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.mesh import spawn
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    try:
+        t0 = time.perf_counter()
+        spawn(sharded_rank, 2, str(root), timeout=SHARDED_TIMEOUT)
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((root / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    h1, h2 = ranks[0]["h1"], ranks[0]["h2"]
+    for r in ranks:
+        check(r["h1"]["launches"] == 8 and r["h2"]["launches"] == 16,
+              f"phase 18 launches {r['h1']['launches']}, {r['h2']['launches']}")
+    log(f"phase 18 group: {wall:.1f} s wall (spawn, CUDA init and the checks)"
+        f"; seconds by part (rank 0): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in ranks[0]["seconds"].items()))
+    log("phase 18 json: " + json.dumps(ranks))
+    return {"launches_per_rank": [r["h1"]["launches"] for r in ranks],
+            "stacked_launches_per_rank": [r["h2"]["launches"] for r in ranks],
+            "local_vals": h1["local_vals"],
+            "update_collectives": 0,
+            "grad_collectives": h1["grad_collectives"],
+            "max_abs_err": h1["max_abs_err"],
+            "half": h1["k1_half"], "full": h1["k1_full"],
+            "vs_one_rank": {"h1": h1["grads_vs_one"], "h2": h2["grads_vs_one"]},
+            "window_ms": [r["h1"]["window_ms"] for r in ranks],
+            "alone_window_ms": [r["h1"]["alone_window_ms"] for r in ranks],
+            "one_rank_window_ms": h1["one_rank_window_ms"],
+            "idle": [r["h1"].get("idle") for r in ranks],
+            "group_s": wall}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5923,7 +6368,13 @@ def run_phases(torch, job):
     k4_long = long_context_phase(torch, dev, WK, job)
     log(f"phase 17 (the long-context cells): {time.perf_counter() - t17:.1f} s")
 
-    # -- phase 18: the kernels line and the result --------------------------
+    # -- phase 18: the sharded carry on two ranks of the card -------------
+    t18 = time.perf_counter()
+    sharded = sharded_phase(torch)
+    log(f"phase 18 (the sharded carry, 2 ranks): "
+        f"{time.perf_counter() - t18:.1f} s")
+
+    # -- phase 19: the kernels line and the result --------------------------
     t1, t2 = times["(a) f32"], k2_times["(a) column-compact"]
     kernels = [{"name": "compact_fused", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/compact_fused.cu",
@@ -5952,6 +6403,7 @@ def run_phases(torch, job):
     kernels[0]["lm"] = lm["compact_fused"]
     kernels[1]["lm"] = lm["influence"]
     kernels[0]["scaled"] = scaled
+    kernels[0]["sharded"] = sharded
     k4_entry["long"] = k4_long
     kernels += [k3_entry, k4_entry]
     print(json.dumps({"kernels": kernels}), flush=True)

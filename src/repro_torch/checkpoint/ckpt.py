@@ -6,7 +6,8 @@ Counterpart of `repro.checkpoint.ckpt`.  One directory per step:
     <root>/step_00000123.tmp/          # written here first
         manifest.json                  # step, leaves [{name, shape, dtype,
                                        #   shards}], extra
-        <leaf>.s_full.npy              # one file per leaf
+        <leaf>.s_full.npy              # a whole leaf, or
+        <leaf>.s<index tag>.npy        # one file a shard of a placed leaf
     <root>/step_00000123/              # atomic rename on completion
 
 Leaves are named as the JAX package names them (`tree.leaf_name`: dict
@@ -23,11 +24,29 @@ For a "bfloat16" entry the reader accepts a uint16 file or a 2-byte void
 file ('<V2' / '|V2', what the JAX package writes through ml_dtypes) and
 reinterprets the bits as torch.bfloat16.
 
-The port runs on one device, so it writes whole leaves only (one
-`s_full` file, `"index": null`).  Its reader still assembles a sharded
-checkpoint of the JAX package from its shard files.  Placement by target
-shardings (the JAX package's `shardings` argument, elastic re-mesh) is
-not ported: ROADMAP Queue 1 item 13.
+Sharded writes.  A DTensor leaf (`sharding.place`) is written shard by
+shard: each rank writes the shards it holds, one file each, named and
+indexed as the JAX package names them (`<leaf>.s0-4_0-e.npy`, `"index":
+[[0, 4], [null, null]]`, null where the dim is not split), and a shard
+held by several ranks (replicated over a mesh dim) is written once, by
+the rank at coordinate 0 of those dims.  A placement that is a partial
+sum (the sharded scaled learner's gradient accumulators) is summed first
+(one all_reduce over its mesh dims).  A plain tensor or numpy leaf is
+whole on every rank and rank 0 writes it as one `s_full` file.  In a
+process group of several ranks rank 0 makes the directory, every rank
+writes, and after a barrier rank 0 writes the manifest (every rank's
+shard list follows from the placements and the mesh) and renames; the
+group then meets at a second barrier, so every rank returns with the
+step on disk.
+
+Elastic re-mesh.  `load_checkpoint(root, tree_like, shardings)` assembles
+each leaf on the host from its files (whole, or the shards of any mesh,
+the JAX package's included) and places a tensor leaf by its TARGET
+sharding (`models.module.NamedSharding`, possibly over a mesh of another
+shape): this rank's slice on the mesh's device, with no collective.
+Without a sharding a tensor leaf lands on the device of the
+corresponding leaf of `tree_like`; a numpy leaf (host state: a stream
+position, a key) is restored as numpy either way.
 
 The session-keyed store of the stream fleet (`save_session`,
 `load_session`, `list_sessions`) keeps one checkpoint lineage a session
@@ -134,29 +153,98 @@ def _to_host(leaf) -> np.ndarray:
     return np.array(leaf, copy=True)
 
 
+def _group_ranks() -> tuple[int, int]:
+    """(rank, world size) of the default process group, (0, 1) without."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _idx_tag(index) -> str:
+    return "_".join(f"{a or 0}-{'e' if b is None else b}" for a, b in index)
+
+
+def _shard_entries(leaf) -> tuple:
+    """A DTensor leaf's shards: ([(index, file tag)] of every distinct
+    shard on the mesh, the index of this rank's shard or None where
+    another rank writes it, and the local value (partial sums summed))."""
+    from torch.distributed.tensor import Partial, Replicate
+    from repro_torch.sharding import all_reduce, local_index
+    mesh, pl = leaf.device_mesh, tuple(leaf.placements)
+    local = leaf.to_local()
+    partial = [mesh.mesh_dim_names[i] for i, p in enumerate(pl)
+               if isinstance(p, Partial)]
+    if partial:
+        local = all_reduce(local, mesh, tuple(partial))
+    dup = [i for i, p in enumerate(pl) if isinstance(p, (Replicate, Partial))]
+
+    def index_of(coord):
+        idx = local_index(leaf.shape, pl, coord, mesh.shape)
+        return [[None, None] if (sl.start, sl.stop) == (0, n)
+                else [sl.start, sl.stop] for sl, n in zip(idx, leaf.shape)]
+
+    shards = {}
+    for coord in np.ndindex(*mesh.shape):
+        if all(coord[i] == 0 for i in dup):
+            index = index_of(coord)
+            shards[_idx_tag(index)] = index
+    coord = mesh.get_coordinate()
+    mine = index_of(coord) if all(coord[i] == 0 for i in dup) else None
+    return sorted(shards.items()), mine, local
+
+
 def _snapshot(tree: Tree) -> list:
-    """[(name, host array, manifest dtype)] in the manifest's order."""
-    return [(leaf_name(path), _to_host(leaf), dtype_name(leaf))
-            for path, leaf in tree_flatten_with_path(tree)]
+    """[(name, host array or None, manifest dtype, shape, shards)] in the
+    manifest's order: `shards` None for a whole leaf (host: the leaf),
+    else [(tag, index)] of every shard, host being this rank's shard or
+    None where another rank writes it."""
+    from torch.distributed.tensor import DTensor
+    out = []
+    for path, leaf in tree_flatten_with_path(tree):
+        name, dtype = leaf_name(path), dtype_name(leaf)
+        if isinstance(leaf, DTensor):
+            shards, mine, local = _shard_entries(leaf)
+            host = None if mine is None else (_idx_tag(mine), _to_host(local))
+            out.append((name, host, dtype, tuple(leaf.shape), shards))
+        else:
+            host = _to_host(leaf)
+            out.append((name, host, dtype, host.shape, None))
+    return out
 
 
 def _write(root: Path, step: int, snapshot: list, extra: dict | None) -> Path:
+    from repro_torch.sharding import barrier
+    rank, world = _group_ranks()
     final = root / f"step_{step:08d}"
     tmp = root / f"step_{step:08d}.tmp"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir(parents=True)
+    if rank == 0:
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+    barrier()
     manifest = {"step": step, "leaves": [], "extra": extra or {}}
-    for name, host, dtype in snapshot:
-        fname = f"{name}.s_full.npy"
-        np.save(tmp / fname, host)
+    for name, host, dtype, shape, shards in snapshot:
+        if shards is None:
+            fname = f"{name}.s_full.npy"
+            if rank == 0:
+                np.save(tmp / fname, host)
+            entries = [{"file": fname, "index": None}]
+        else:
+            if host is not None:
+                np.save(tmp / f"{name}.s{host[0]}.npy", host[1])
+            entries = [{"file": f"{name}.s{tag}.npy", "index": index}
+                       for tag, index in shards]
         manifest["leaves"].append(
-            {"name": name, "shape": list(host.shape), "dtype": dtype,
-             "shards": [{"file": fname, "index": None}]})
-    (tmp / "manifest.json").write_text(json.dumps(manifest))
-    if final.exists():
-        shutil.rmtree(final)
-    os.rename(tmp, final)                      # atomicity barrier
+            {"name": name, "shape": list(shape), "dtype": dtype,
+             "shards": entries})
+    barrier()
+    if rank == 0:
+        (tmp / "manifest.json").write_text(json.dumps(manifest))
+        if final.exists():
+            shutil.rmtree(final)
+        os.rename(tmp, final)                      # atomicity barrier
+    barrier()
     return final
 
 
@@ -183,7 +271,8 @@ def _assemble(entry: dict, ckpt_dir: Path) -> np.ndarray:
     return out
 
 
-def _restore_leaf(name: str, entry: dict | None, like, ckpt_dir: Path):
+def _restore_leaf(name: str, entry: dict | None, like, ckpt_dir: Path,
+                  sharding=None):
     if entry is None:
         raise CheckpointError(f"checkpoint {ckpt_dir} has no leaf {name!r}")
     shape, dtype = tuple(np.shape(like)), dtype_name(like)
@@ -193,21 +282,26 @@ def _restore_leaf(name: str, entry: dict | None, like, ckpt_dir: Path):
             f"{tuple(entry['shape'])}, expected {dtype}{shape}")
     host = _assemble(entry, ckpt_dir)
     if not isinstance(like, torch.Tensor):
-        return host
+        return host                # host state (numpy) stays on the host
     if dtype == BF16:
         t = torch.from_numpy(host.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(host)
+    if sharding is not None:
+        from repro_torch.sharding import place
+        return place(t, sharding)
     return t.to(like.device)
 
 
 def load_checkpoint(root: str | Path, tree_like: Tree,
-                    step: int | None = None):
+                    shardings: Tree | None = None, step: int | None = None):
     """Restore into the structure of `tree_like`; each leaf must have the
     name, shape and dtype of the corresponding leaf of `tree_like`
-    (CheckpointError otherwise), and a tensor leaf lands on that leaf's
-    device.  Returns (tree, step), or (None, -1) when `root` holds no
-    valid step and none was named."""
+    (CheckpointError otherwise).  With `shardings` (a tree of
+    `NamedSharding` over the same leaves, on any mesh) each leaf is placed
+    by its target sharding (`sharding.place`); otherwise a tensor leaf
+    lands on that leaf's device.  Returns (tree, step), or (None, -1) when
+    `root` holds no valid step and none was named."""
     root = Path(root)
     if step is None:
         # newest VALID step: an interrupted write or gc leaves a directory
@@ -224,9 +318,13 @@ def load_checkpoint(root: str | Path, tree_like: Tree,
     manifest = json.loads((ckpt_dir / "manifest.json").read_text())
     by_name = {e["name"]: e for e in manifest["leaves"]}
 
+    sh_by_path = (dict(tree_flatten_with_path(shardings))
+                  if shardings is not None else {})
+
     def restore(path, like):
         name = leaf_name(path)
-        return _restore_leaf(name, by_name.get(name), like, ckpt_dir)
+        return _restore_leaf(name, by_name.get(name), like, ckpt_dir,
+                             sh_by_path.get(path))
 
     return tree_map_with_path(restore, tree_like), step
 
@@ -238,7 +336,9 @@ class CheckpointManager:
     (the device-to-host copies happen there, so the caller may reuse the
     tensors' storage at once), then writes and renames on a background
     thread that touches numpy and files only, so the train loop never
-    blocks on disk.
+    blocks on disk.  In a process group of several ranks the write runs
+    in the caller's thread: its barriers are collectives, which must not
+    interleave with the train loop's.
 
     A write failure on the background thread is captured and re-raised as
     CheckpointError on the next save() or wait().  `retries` write
@@ -284,7 +384,7 @@ class CheckpointManager:
             ce.__cause__ = err
             self._error = ce
 
-        if self.async_write:
+        if self.async_write and _group_ranks()[1] == 1:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
         else:
@@ -302,11 +402,14 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def restore(self, tree_like: Tree, step: int | None = None):
+    def restore(self, tree_like: Tree, shardings: Tree | None = None,
+                step: int | None = None):
         self.wait()
-        return load_checkpoint(self.root, tree_like, step)
+        return load_checkpoint(self.root, tree_like, shardings, step)
 
     def _gc(self):
+        if _group_ranks()[0] != 0:
+            return
         steps = sorted(p for p in self.root.glob("step_*")
                        if not p.name.endswith(".tmp"))
         for p in steps[: -self.keep]:
@@ -354,12 +457,12 @@ def save_session(root: str | Path, sid: str, tree: Tree, step: int = 0,
 
 
 def load_session(root: str | Path, sid: str, tree_like: Tree,
-                 step: int | None = None):
+                 shardings: Tree | None = None, step: int | None = None):
     """Restore one session (the newest VALID step by default, with the
     fallback of `load_checkpoint`).  Returns (tree, step); raises
     CheckpointError if the session has no valid checkpoint."""
     sdir = _session_dir(root, sid)
-    tree, got = load_checkpoint(sdir, tree_like, step)
+    tree, got = load_checkpoint(sdir, tree_like, shardings, step)
     if tree is None:
         raise CheckpointError(
             f"session {sid!r} has no valid checkpoint under {sdir}")

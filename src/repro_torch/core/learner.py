@@ -41,7 +41,8 @@ from repro_torch.cells import resolve_cell
 from repro_torch.core import cells, sparse_rtrl as SP, stacked_rtrl as ST
 from repro_torch.core.cells import EGRUConfig, StackedEGRUConfig
 from repro_torch.kernels import compact as CK, ops as kops
-from repro_torch.tree import tree_map
+from repro_torch import sharding as SH
+from repro_torch.tree import tree_leaves, tree_map
 
 Tree = Any
 
@@ -179,19 +180,25 @@ class _LearnerBase:
 
     @staticmethod
     def _inst_loss_and_grads(po: Tree, a: torch.Tensor, y: torch.Tensor,
-                             tt: torch.Tensor):
+                             tt: torch.Tensor, batch: int | None = None):
         """Instantaneous loss xent(a W + b, y) / tt with its gradients in
         closed form: (loss, logits, {"W", "b"} readout grads, c-bar =
-        dL/da)."""
+        dL/da).  `batch`: the global batch of which `a` holds a shard's
+        rows (a sharded carry): the loss and every gradient are then this
+        shard's partial sums of the global batch mean."""
         mm = cells.slot_mm          # rounds alike in a vmapped fleet slot
         logits = mm(a, po["W"]) + po["b"]
         logp = torch.log_softmax(logits, dim=-1)
         yl = y.long()[:, None]
-        loss = -logp.gather(1, yl).mean() / tt
+        if batch is None:
+            batch = a.shape[0]
+            loss = -logp.gather(1, yl).mean() / tt
+        else:
+            loss = -logp.gather(1, yl).sum() / batch / tt
         # out of place: vmap has a batching rule for `scatter`, not for
         # `scatter_`
         onehot = torch.zeros_like(logp).scatter(1, yl, 1.0)
-        dlogits = (logp.exp() - onehot) / (a.shape[0] * tt)
+        dlogits = (logp.exp() - onehot) / (batch * tt)
         gout = {"W": mm(a.T, dlogits), "b": dlogits.sum(dim=0)}
         return loss, logits, gout, mm(dlogits, po["W"].T)
 
@@ -830,7 +837,25 @@ class ScaledLearner(_LearnerBase):
     "compact" step (as in the JAX package, whose scaled specs carry the
     LearnerSpec default "dense").  Rewirable on "compact" with masks and a
     column-compact carry; the ColLayout follows the carry's masks as in
-    `SparseLearner._bind`."""
+    `SparseLearner._bind`.
+
+    The sharded carry (`place(carry, mesh)`, by
+    `scaled_rtrl.sharded_step_specs`): the batch over the mesh's batch
+    axes ('data', with 'pod' in front) and the influence's compact column
+    axis over 'model'.  `step` then runs the same compact step on every
+    rank's local tensors: its rows of the batch and its slice of the
+    column axis (the ColLayout's arrays cut to its columns), one K1
+    launch a layer a step on its own columns under compact_fused, and NO
+    collective: the contraction has no cross-column reduction, and the
+    readout's loss and gradients accumulate as partial sums of the global
+    batch mean (DTensor `Partial` over the batch axes).  `grads` issues
+    the update's two collectives (`sharding`): one all_reduce over the
+    batch axes of the accumulators, one all_gather over 'model' of the
+    flat gradient's columns.  A rewire event on a sharded carry issues one
+    all_gather over 'model' (every buffer's columns, then each rank keeps
+    its new columns) and, with more than one batch shard, one all_reduce
+    of the RigL scores over the batch axes.  Stats (overflow) are this
+    rank's rows'."""
 
     def __init__(self, spec: LearnerSpec):
         self.fused = spec.backend == "compact_fused"
@@ -840,6 +865,7 @@ class ScaledLearner(_LearnerBase):
         self.spec = spec
         self.cfg = spec.cfg                 # scaled_rtrl.ScaledRTRLConfig
         self.stacked = self.cfg.n_layers > 1
+        self._shard_views = {}
 
     def init(self, params, masks, batch, t_total: float = 1.0):
         from repro_torch.core import scaled_rtrl as SC
@@ -860,6 +886,7 @@ class ScaledLearner(_LearnerBase):
                 "(the full-width scaled carry tracks dead columns, so "
                 "grow-at-zero exactness only holds on the compact carry)")
         self._freeze_static(masks=masks, col_compact=col_compact)
+        self._device = device
         self._cl = cfg.col_layout(masks, device=device) if col_compact \
             else None
         if self.fused:
@@ -868,16 +895,11 @@ class ScaledLearner(_LearnerBase):
             lays = cfg.slayout().layers if self.stacked else (cfg.layout(),)
             for l, lay in enumerate(lays):
                 CF.fused_segments(lay, self._cl, layer=l)
-        if self._cl is not None:
-            P_carry = self._cl.Pc_pad
-        else:
-            P_carry = (cfg.slayout().P_pad if self.stacked
-                       else cfg.layout().P_pad)
         carry = self._base_carry(params, t_total, device)
         carry["state"] = SC.init_state(cfg, self._cl,
                                        self.spec.influence_dtype,
                                        device=device)
-        carry["gw"] = torch.zeros((P_carry,), dtype=torch.float32,
+        carry["gw"] = torch.zeros((self._carry_width(),), dtype=torch.float32,
                                   device=device)
         carry["gout"] = tree_map(
             lambda x: torch.zeros_like(x, dtype=torch.float32), params["out"])
@@ -894,23 +916,38 @@ class ScaledLearner(_LearnerBase):
         """Derive the ColLayout's arrays from rw (the carry's "rw", or
         init's own)."""
         self._bound = rw
+        self._shard_views = {}
         if self._cl is not None:
             self._cl = dataclasses.replace(self._cl, **rw["cl"])
 
     def step(self, carry, x_t, y_t):
-        from repro_torch.core import scaled_rtrl as SC
         self._sync(carry)
+        mesh = _carry_mesh(carry)
+        if mesh is None:
+            return self._step(carry, x_t, y_t, self._cl)
+        if self.spec.per_step_grads:
+            raise ValueError("per_step_grads reads the whole gradient every "
+                             "step: not on a sharded carry (its gradient is "
+                             "gathered once an update, in grads)")
+        sh = self._shards(mesh)
+        local = sh.local(carry)
+        new, out = self._step(local, sh.rows(x_t), sh.rows(y_t), sh.cl(),
+                              batch=self.cfg.batch)
+        return sh.wrap(new), out
+
+    def _step(self, carry, x_t, y_t, cl, batch: int | None = None):
+        from repro_torch.core import scaled_rtrl as SC
         cfg, params = self.cfg, carry["params"]
         w = params["layers"] if self.stacked else cells.rec_param_tree(params)
         state, overflow = SC.compact_step(
-            cfg, w, carry["state"], x_t, cl=self._cl,
+            cfg, w, carry["state"], x_t, cl=cl,
             backend="compact_fused" if self.fused else "compact")
         # the readout and the gradient read the top layer
         a, vals, idx = ((state[k][-1] for k in ("a", "vals", "idx"))
                         if self.stacked else
                         (state["a"], state["vals"], state["idx"]))
         lt, logits, gout_t, cbar = self._inst_loss_and_grads(
-            params["out"], a, y_t, carry["t_total"])
+            params["out"], a, y_t, carry["t_total"], batch)
         gw_t = CK.compact_grads(vals, idx, cbar)
         new = dict(carry)
         new["state"] = state
@@ -926,6 +963,13 @@ class ScaledLearner(_LearnerBase):
             step_grads["out"] = gout_t
         return new, StepOut(lt, logits, stats, step_grads)
 
+    def _carry_width(self) -> int:
+        """The carry's column axis: Pc_pad, or the full P_pad."""
+        if self._cl is not None:
+            return self._cl.Pc_pad
+        return (self.cfg.slayout().P_pad if self.stacked
+                else self.cfg.layout().P_pad)
+
     def _finish_gw(self, gw):
         cfg = self.cfg
         if self._cl is not None:
@@ -937,9 +981,80 @@ class ScaledLearner(_LearnerBase):
 
     def grads(self, carry):
         self._sync(carry)
-        grads = self._finish_gw(carry["gw"])
-        grads["out"] = carry["gout"]
+        mesh = _carry_mesh(carry)
+        if mesh is None:
+            grads = self._finish_gw(carry["gw"])
+            grads["out"] = carry["gout"]
+            return grads
+        # the update's two collectives: the accumulators summed over the
+        # batch axes (one all_reduce), the columns gathered over 'model'
+        sh = self._shards(mesh)
+        local = sh.local(carry)
+        gw, gout = sh.reduce_batch((local["gw"], local["gout"]))
+        grads = self._finish_gw(SH.all_gather(gw, mesh, "model"))
+        grads["out"] = gout
         return grads
+
+    def reset_grads(self, carry, params=None):
+        mesh = _carry_mesh(carry)
+        if mesh is None:
+            return super().reset_grads(carry, params)
+        sh = self._shards(mesh)
+        return sh.wrap(super().reset_grads(sh.local(carry), params))
+
+    # -- the sharded carry ----------------------------------------------------
+
+    def _shards(self, mesh) -> "_Shards":
+        """This rank's share of a carry on `mesh`, kept until the next
+        `_bind` (a rewire changes the layout it cuts)."""
+        sh = self._shard_views.get(mesh)
+        if sh is None:
+            sh = self._shard_views[mesh] = _Shards(self, mesh)
+        return sh
+
+    def place(self, carry, mesh):
+        """The carry placed on `mesh` (this rank's share, no collective):
+        the influence state by `scaled_rtrl.sharded_step_specs`, the last
+        inputs over the batch axes, the gradient accumulator's columns over
+        'model' and every accumulator (loss, gw, gout) a partial sum over
+        the batch axes (the rank at batch coordinate 0 keeps the values
+        the carry holds).  The parameters, masks and layout stay whole on
+        every rank.  The compact column axis must split into whole 8-column
+        groups (K1's rows are 16-byte aligned): Pc_pad / model a multiple
+        of 8, or this raises; no column is dropped."""
+        sh = self._shards(mesh)
+        return sh.wrap(sh.local(carry))
+
+    def shardings(self, carry, mesh):
+        """Target shardings of every tensor leaf of a carry on `mesh` (a
+        restore's `shardings`, the re-mesh of a checkpoint): the state by
+        `sharded_step_specs`, the last inputs over the batch axes, the
+        gradient accumulator's columns over 'model', the rest replicated.
+        The accumulators are whole on disk: a restore places them whole,
+        and the sharded step counts each once (see `place`)."""
+        from repro_torch.core import scaled_rtrl as SC
+        from repro_torch.models.module import NamedSharding
+        from repro_torch.sharding import batch_axes
+        rep = NamedSharding(mesh, ())
+        out = tree_map(lambda _: rep, {k: v for k, v in carry.items()
+                                       if k not in ("state", "gw", "last")})
+        out["state"] = SC.sharded_step_specs(self.cfg, mesh)[0]
+        out["gw"] = NamedSharding(mesh, ("model",))
+        if "last" in carry:
+            rows = NamedSharding(mesh, (batch_axes(mesh),))
+            out["last"] = {k: rows for k in carry["last"]}
+        return out
+
+    def gather(self, carry):
+        """A sharded carry's whole value on every rank, as plain tensors
+        (the influence state gathered, the partial sums summed): the
+        comparison with a one-rank run.  Collectives: one all_gather per
+        state leaf and mesh axis it is split over, one all_reduce per
+        accumulator."""
+        mesh = _carry_mesh(carry)
+        if mesh is None:
+            return carry
+        return self._shards(mesh).gather(carry)
 
     # -- dynamic sparsity ---------------------------------------------------
 
@@ -975,9 +1090,17 @@ class ScaledLearner(_LearnerBase):
         self._check_rewirable(carry)
         self._sync(carry)
         cfg = self.cfg
+        mesh = _carry_mesh(carry)
+        sh = None if mesh is None else self._shards(mesh)
         carry = dict(carry)
         rw = dict(carry["rw"])
-        grads = self._rigl_scores(carry) if method == "rigl" else None
+        grads = None
+        if method == "rigl":
+            if sh is None:
+                grads = self._rigl_scores(carry)
+            else:       # this rank's rows' share of the batch mean, summed
+                grads = sh.reduce_batch(self._rigl_scores(sh.local(carry)),
+                                        mean=True)
         params = dict(carry["params"])
         if self.stacked:
             old_masks = list(rw["masks"])
@@ -997,8 +1120,14 @@ class ScaledLearner(_LearnerBase):
                                     new_masks)
             rw["masks"] = new_masks
         carry["params"] = params
-        new_cl = cfg.col_layout(new_masks, device=carry["gw"].device)
+        new_cl = cfg.col_layout(new_masks, device=self._cl.src.device)
         plan = DS.migration_plan(self._cl, new_cl)
+        if sh is not None:
+            carry = sh.migrate(carry, plan)
+            rw["cl"] = _cl_arrays(new_cl)
+            carry["rw"] = rw
+            self._bind(rw)
+            return carry
         state = dict(carry["state"])
         if self.stacked:
             state["vals"] = tuple(
@@ -1022,6 +1151,214 @@ class ScaledLearner(_LearnerBase):
         masks = dict(masks)
         masks.setdefault("out", None)
         return masks
+
+
+def _carry_mesh(carry: Tree):
+    """The DeviceMesh of a sharded scaled carry (its vals a DTensor), or
+    None."""
+    from repro_torch.sharding import is_dtensor
+    v = carry["state"]["vals"]
+    v = v[0] if isinstance(v, tuple) else v
+    return v.device_mesh if is_dtensor(v) else None
+
+
+class _Shards:
+    """This rank's share of a `ScaledLearner` carry on a mesh: its rows of
+    the batch (the mesh's batch axes, 'pod' major) and its columns of the
+    compact axis ('model'), and the DTensor placements the sharded carry
+    keeps (see `ScaledLearner.place`)."""
+
+    def __init__(self, learner: "ScaledLearner", mesh):
+        import math
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from repro_torch.core import scaled_rtrl as SC
+        cfg = learner.cfg
+        self.learner, self.mesh = learner, mesh
+        names = tuple(mesh.mesh_dim_names)
+        sizes = dict(zip(names, mesh.shape))
+        if "model" not in sizes:
+            raise ValueError(f"a scaled carry shards its columns over a "
+                             f"'model' mesh dim; the mesh has {names}")
+        self.batch_dims = tuple(a for a in ("pod", "data") if a in sizes)
+        self.coord = dict(zip(names, mesh.get_coordinate()))
+        self.n_batch = math.prod(sizes[a] for a in self.batch_dims)
+        if cfg.batch % self.n_batch:
+            raise ValueError(f"batch {cfg.batch} does not split over "
+                             f"{self.n_batch} batch shards")
+        bi = 0
+        for a in self.batch_dims:
+            bi = bi * sizes[a] + self.coord[a]
+        self.B = cfg.batch // self.n_batch
+        self.r0 = bi * self.B
+        # the rank that keeps a whole (replicated) accumulator's value
+        self.lead = all(self.coord[a] == 0 for a in self.batch_dims)
+        width = learner._carry_width()
+        n_model = sizes["model"]
+        if width % (8 * n_model):
+            raise ValueError(
+                f"the compact column axis ({width} columns) does not split "
+                f"into {n_model} shards of whole 8-column groups (K1 reads "
+                f"16-byte rows): use a 'model' size dividing {width // 8}")
+        self.w = width // n_model
+        self.c0 = self.coord["model"] * self.w
+        self.state_sh = SC.sharded_step_specs(cfg, mesh)[0]
+        self.pl_rows = tuple(Shard(0) if a in self.batch_dims else Replicate()
+                             for a in names)
+        self.pl_gw = tuple(Partial() if a in self.batch_dims else
+                           Shard(0) if a == "model" else Replicate()
+                           for a in names)
+        self.pl_acc = tuple(Partial() if a in self.batch_dims else Replicate()
+                            for a in names)
+        self._local_cl = None
+
+    # -- local views --------------------------------------------------------
+
+    def rows(self, t):
+        """This rank's batch rows of a whole [B, ...] input (a DTensor
+        placed over the batch axes is its local shard already)."""
+        from repro_torch.sharding import is_dtensor
+        if is_dtensor(t):
+            return t.to_local()
+        return t[self.r0:self.r0 + self.B]
+
+    def _cut(self, x, sharding):
+        from repro_torch.sharding import is_dtensor, local_index
+        idx = local_index(x.shape, sharding.placements,
+                          self.mesh.get_coordinate(), self.mesh.shape)
+        if not is_dtensor(x):
+            return x[idx].contiguous()
+        if tuple(x.placements) != tuple(sharding.placements):
+            raise ValueError(
+                f"a scaled carry's state is placed by sharded_step_specs "
+                f"({sharding.placements}); got {tuple(x.placements)}")
+        return x.to_local()
+
+    def _partial(self, x, cols: bool = False):
+        """An accumulator's local partial sum: a Partial DTensor's local
+        value; a whole value (plain, or replicated over the batch axes, as
+        a restore places it) kept by the lead rank and zero elsewhere."""
+        from torch.distributed.tensor import Partial
+        from repro_torch.sharding import is_dtensor
+        if is_dtensor(x):
+            whole = not all(isinstance(p, Partial) for p, a in
+                            zip(x.placements, self.mesh.mesh_dim_names)
+                            if a in self.batch_dims)
+            x = x.to_local()
+        else:
+            whole = True
+        if cols and x.shape[-1] != self.w:
+            x = x[..., self.c0:self.c0 + self.w]
+        if whole and not self.lead:
+            return torch.zeros_like(x)
+        return x.clone() if whole else x
+
+    def local(self, carry: Tree) -> Tree:
+        """The carry as this rank's plain local tensors."""
+        out = dict(carry)
+        out["state"] = tree_map(self._cut, carry["state"], self.state_sh)
+        out["gw"] = self._partial(carry["gw"], cols=True)
+        out["gout"] = tree_map(self._partial, carry["gout"])
+        out["loss"] = self._partial(carry["loss"])
+        if "last" in carry:
+            out["last"] = {k: self.rows(v) for k, v in carry["last"].items()}
+        return out
+
+    def wrap(self, local: Tree) -> Tree:
+        """`local`'s tensors as the sharded carry's DTensors."""
+        from torch.distributed.tensor import DTensor
+
+        def dt(x, pl):
+            return DTensor.from_local(x, self.mesh, pl, run_check=False)
+        out = dict(local)
+        out["state"] = tree_map(lambda x, s: dt(x, s.placements),
+                                local["state"], self.state_sh)
+        out["gw"] = dt(local["gw"], self.pl_gw)
+        out["gout"] = tree_map(lambda x: dt(x, self.pl_acc), local["gout"])
+        out["loss"] = dt(local["loss"], self.pl_acc)
+        if "last" in local:
+            out["last"] = {k: dt(v, self.pl_rows)
+                           for k, v in local["last"].items()}
+        return out
+
+    def cl(self):
+        """The ColLayout cut to this rank's columns (an all-live layout
+        stands in for a full-width carry), built once (the learner drops
+        this view at a rewire); under compact_fused its gate-segment table
+        is built from the local columns, which may start inside a gate's
+        run or hold none of a gate's columns."""
+        lr = self.learner
+        cl = self._local_cl
+        if cl is None:
+            full = lr._cl if lr._cl is not None else lr.cfg.col_layout(
+                None, device=lr._device)
+            sl = slice(self.c0, self.c0 + self.w)
+            cl = dataclasses.replace(
+                full, Pc=int(full.live[sl].sum()), Pc_pad=self.w,
+                **{f: getattr(full, f)[sl] for f in _CL_FIELDS})
+            if lr.fused:
+                from repro_torch.kernels import compact_fused as CF
+                cfg = lr.cfg
+                lays = (cfg.slayout().layers if lr.stacked
+                        else (cfg.layout(),))
+                for l, lay in enumerate(lays):
+                    CF.fused_segments(lay, cl, layer=l)
+            self._local_cl = cl
+        return cl
+
+    # -- collectives --------------------------------------------------------
+
+    def reduce_batch(self, tree: Tree, mean: bool = False) -> Tree:
+        """Every leaf of `tree` summed (or averaged) over the batch axes in
+        ONE all_reduce of their concatenation (none with one batch
+        shard)."""
+        leaves = tree_leaves(tree)
+        flat = torch.cat([x.float().reshape(-1) for x in leaves])
+        if self.n_batch > 1:
+            flat = SH.all_reduce(flat, self.mesh, self.batch_dims)
+            if mean:
+                flat = flat / self.n_batch
+        parts = iter(flat.split([x.numel() for x in leaves]))
+        return tree_map(lambda x: next(parts).reshape(x.shape).to(x.dtype),
+                        tree)
+
+    def gather(self, carry: Tree) -> Tree:
+        local = self.local(carry)
+        names = self.mesh.mesh_dim_names
+
+        def whole(x, placements):
+            from torch.distributed.tensor import Shard
+            # minor mesh dims first: rebuilds a dim split major to minor
+            for a, p in reversed(list(zip(names, placements))):
+                if isinstance(p, Shard):
+                    x = SH.all_gather(x, self.mesh, a, axis=p.dim)
+            return x
+        out = dict(local)
+        out["state"] = tree_map(lambda x, s: whole(x, s.placements),
+                                local["state"], self.state_sh)
+        gw, gout, loss = self.reduce_batch(
+            (local["gw"], local["gout"], local["loss"]))
+        out["gw"] = SH.all_gather(gw, self.mesh, "model")
+        out["gout"], out["loss"] = gout, loss
+        if "last" in local:
+            out["last"] = {k: whole(v, self.pl_rows)
+                           for k, v in local["last"].items()}
+        return out
+
+    def migrate(self, carry: Tree, plan) -> Tree:
+        """A rewire's migration of the sharded carry: every column buffer
+        (each layer's vals, the gradient accumulator) gathered over
+        'model' in one all_gather, each rank then keeping its new columns
+        (`sparsity.migrate.migrate_sharded`)."""
+        from repro_torch import sparsity as DS
+        local = self.local(carry)
+        state = dict(local["state"])
+        vals = list(state["vals"]) if self.learner.stacked \
+            else [state["vals"]]
+        new = DS.migrate_sharded(plan, vals + [local["gw"]], self.mesh,
+                                 self.c0)
+        state["vals"] = tuple(new[:-1]) if self.learner.stacked else new[0]
+        local["state"], local["gw"] = state, new[-1]
+        return self.wrap(local)
 
 
 # ---------------------------------------------------------------------------

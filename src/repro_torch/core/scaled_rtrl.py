@@ -17,8 +17,13 @@ of the hand-written CUDA kernel `kernels.compact_fused` a step), and for a
 stack `stacked_rtrl.stacked_compact_step` (one a layer).  The gradient
 c-bar^T M is read off the compact form (`kernels.compact.compact_grads`).
 
-The reference's sharding of the column axis over a mesh
-(`sharded_step_specs`) is ROADMAP Queue 1 item 13 and raises here.
+Sharding (`sharded_step_specs`): the batch over 'data' ('pod', 'data'
+with a pod axis), the carry's parameter-column axis over 'model'.  The
+contraction sum_l J[k, l] M[l, p] has no cross-p reduction, so each rank
+runs the same step on its own columns (the learner's sharded carry,
+`core.learner.ScaledLearner.place`): one K1 launch a layer a step on its
+column shard and ZERO collectives in the influence update; the gradient
+is reduced once an update (`ScaledLearner.grads`).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from repro_torch.core import cells, sparse_rtrl as SP, stacked_rtrl as ST
 from repro_torch.core.cells import EGRUConfig, StackedEGRUConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import compact as CK
+from repro_torch.models.module import NamedSharding, mesh_shape
 
 Tree = Any
 
@@ -209,8 +215,23 @@ def rtrl_grads(cfg: ScaledRTRLConfig, params: Tree, xs: torch.Tensor,
 
 
 def sharded_step_specs(cfg: ScaledRTRLConfig, mesh):
-    """The reference's shardings of the scaled step over a mesh (batch over
-    'data', the influence's column axis over 'model')."""
-    raise NotImplementedError(
-        "sharded_step_specs is not ported yet: ROADMAP Queue 1 item 13 (the "
-        "sharded carry over a mesh of cards)")
+    """NamedShardings for the distributed RTRL step: batch -> data, the flat
+    parameter-column axis p of the influence state -> model (no
+    cross-shard reduction exists in the update).  In a stack every layer's
+    buffer shards the SAME way: the (l, j) blocks live along the column
+    axis, so layer blocks stay embarrassingly parallel across the model
+    axis and the cross-layer term contracts over rows (replicated), adding
+    no collectives.  Returns (state shardings, xs [T, B, n_in] sharding);
+    `mesh` is a DeviceMesh, or its {name: size} for the specs alone."""
+    ba = "data" if "pod" not in mesh_shape(mesh) else ("pod", "data")
+    ns = lambda *spec: NamedSharding(mesh, spec)
+    if cfg.n_layers > 1:
+        L = cfg.n_layers
+        state_sh = {"a": tuple(ns(ba, None) for _ in range(L)),
+                    "vals": tuple(ns(ba, None, "model") for _ in range(L)),
+                    "idx": tuple(ns(ba, None) for _ in range(L))}
+    else:
+        state_sh = {"a": ns(ba, None), "vals": ns(ba, None, "model"),
+                    "idx": ns(ba, None)}
+    x_sh = ns(None, ba, None)
+    return state_sh, x_sh

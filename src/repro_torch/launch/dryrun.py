@@ -7,7 +7,8 @@ device, nothing allocated (`launch/dryrun_lib.py`).
 
 The reference's flags.  `--mesh` takes `card` (the default: one card);
 the reference's `single` and `multi` are its 256- and 512-chip TPU meshes,
-which wait for the sharded port (ROADMAP item 13), and exit non-zero.
+whose sharded LM steps wait for ROADMAP item 17 (the rules, the meshes and
+the shardings are ported: `sharding`, `launch.mesh`), and exit non-zero.
 """
 from __future__ import annotations
 
@@ -15,8 +16,8 @@ import argparse
 import sys
 
 MESH_REFUSAL = ("--mesh {mesh}: the reference's {chips}-chip TPU mesh is not "
-                "ported; the sharded steps wait for ROADMAP item 13 (this "
-                "dry-run runs one card: --mesh card)")
+                "ported; the LM's sharded steps wait for ROADMAP item 17 "
+                "(this dry-run runs one card: --mesh card)")
 
 
 def parse_overrides(pairs) -> dict:

@@ -9,7 +9,7 @@ end the sweep; `--jobs` runs that many at once (the counts are
 single-threaded Python; a full-size cell with a long plain-WKV loop takes
 minutes).  Records land in `<out>/<arch>_<shape>_card.json`.  `--mesh`
 takes `card` only: the reference's `single` / `multi` / `both` meshes wait
-for ROADMAP item 13.
+for the LM's sharded steps, ROADMAP item 17.
 """
 from __future__ import annotations
 

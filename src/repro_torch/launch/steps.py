@@ -2,14 +2,16 @@
 
 Counterpart of `repro.launch.steps` (`batch_abstract`, `input_specs`,
 `BuiltStep`, `default_optimizer`, `make_train_step`, `_prefill_callable`,
-`make_prefill_step`, `make_decode_step`).  One device, so there is no mesh,
-no sharding and no jit: a step is a Python function over the parameter
-tree, and its abstract arguments are `meta` tensors (`models.module.
-abstract`), which the dry-run (`launch/dryrun_lib.py`) runs the step on.
-A serve step is built for a device: on `meta` it takes the plain versions
-of the kernels (no kernel wrapper takes a meta tensor), on the card the
-kernels.  The sharding helpers (`batch_shardings`,
-`mirror_opt_shardings`) wait for ROADMAP item 13.
+`make_prefill_step`, `make_decode_step`, `batch_shardings`,
+`mirror_opt_shardings`).  There is no jit: a step is a Python function
+over the parameter tree, and its abstract arguments are `meta` tensors
+(`models.module.abstract`), which the dry-run (`launch/dryrun_lib.py`)
+runs the step on.  A serve step is built for a device: on `meta` it takes
+the plain versions of the kernels (no kernel wrapper takes a meta
+tensor), on the card the kernels.  The sharding helpers return the
+reference's shardings over a mesh (`models.module.NamedSharding`); the
+steps themselves run on one device: the train step over a mesh
+(`make_train_step(cfg, mesh, ...)`) waits for ROADMAP item 17.
 """
 from __future__ import annotations
 
@@ -20,9 +22,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSuite
 from repro_torch.models import get_model
-from repro_torch.models.module import abstract
+from repro_torch.models.module import NamedSharding, abstract, mesh_shape
 from repro_torch.optim import clip_by_global_norm, make_optimizer, microbatch_grads
-from repro_torch.tree import tree_flatten_with_path, tree_leaves
+from repro_torch.tree import (tree_flatten_with_path, tree_leaves,
+                               tree_map_with_path)
 
 Tree = Any
 
@@ -69,6 +72,54 @@ def _decode_inputs(cfg: ModelConfig, shape: ShapeSuite) -> dict:
     return {"token": torch.empty((B, 1), dtype=torch.int32, device="meta"),
             "pos": torch.empty((B,), dtype=torch.int32, device="meta"),
             "cache": get_model(cfg).init_cache(cfg, B, S, "meta")}
+
+
+def batch_shardings(cfg: ModelConfig, shape: ShapeSuite, mesh,
+                    pure_dp: bool = False) -> dict:
+    """A NamedSharding a batch leaf: the batch dim over the batch axes (and
+    'model' with `pure_dp`), shedding trailing axes until they divide the
+    global batch (a batch too small to split is replicated)."""
+    from repro_torch.sharding import batch_axes
+    ba = batch_axes(mesh) + (("model",) if pure_dp else ())
+    B = shape.global_batch
+
+    def spec(x):
+        axes = ba
+        while axes and B % _size(mesh, axes):
+            axes = axes[:-1]
+        rest = (None,) * (x.dim() - 1)
+        return NamedSharding(mesh, (axes if axes else None,) + rest)
+    return {k: spec(x) for k, x in batch_abstract(cfg, shape).items()}
+
+
+def _size(mesh, axes) -> int:
+    sizes = mesh_shape(mesh)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
+def mirror_opt_shardings(opt_abs: dict, params_abs: Tree, params_sh: Tree,
+                         mesh) -> dict:
+    """Opt state sharded leaf for leaf like the params where the structure
+    and shapes match (adamw/lion/sgdm moments); other state (adafactor's
+    factored vr/vc, step counters) replicates."""
+    p_leaves = tree_flatten_with_path(params_abs)
+    sh_leaves = dict(tree_flatten_with_path(params_sh))
+    rep = NamedSharding(mesh, ())
+
+    def sub(sub_abs):
+        leaves = tree_flatten_with_path(sub_abs)
+        same = ([p for p, _ in leaves] == [p for p, _ in p_leaves]
+                and all(tuple(a.shape) == tuple(b.shape)
+                        for (_, a), (_, b) in zip(leaves, p_leaves)))
+        if same:
+            return tree_map_with_path(lambda path, _: sh_leaves[path],
+                                      sub_abs)
+        return tree_map_with_path(lambda path, _: rep, sub_abs)
+
+    return {k: sub(v) for k, v in opt_abs.items()}
 
 
 @dataclasses.dataclass

@@ -6,14 +6,22 @@ and ``materialize`` draws concrete parameters from it.  Initializers draw
 from a ``torch.Generator`` on the generator's device: a seed reproduces a
 model on every device of one kind, but not the JAX package's ``jax.random``
 draws (parity tests transfer the reference's parameters through
-``repro_torch.weights``).  The logical axis names are kept for the sharding
-rules, which wait for ROADMAP Queue 1 item 13.
+``repro_torch.weights``).
+
+The logical axis names map to mesh dims through ``ShardingRules``
+(``pspec_for``, the reference's divisibility fallback).  A PartitionSpec
+is a tuple of the reference's form (each entry None, a mesh dim name or a
+tuple of names, trailing Nones trimmed), and a NamedSharding
+(`NamedSharding`) is a torch ``DeviceMesh`` with that tuple, whose
+``placements`` are DTensor's: one ``Shard(d)`` or ``Replicate()`` a mesh
+dim.  The rule functions read the mesh's ``{name: size}`` only
+(`mesh_shape`), so they run on a plain dict as on a DeviceMesh.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
@@ -124,3 +132,146 @@ def stack_specs(tree: Tree, n: int, axis_name: str = "layers") -> Tree:
 def count_params(tree: Tree) -> int:
     return sum(leaf.size if isinstance(leaf, ParamSpec) else leaf.numel()
                for leaf in tree_leaves(tree))
+
+
+# ---------------------------------------------------------------------------
+# Logical axis rules -> shardings
+# ---------------------------------------------------------------------------
+
+def mesh_shape(mesh) -> dict:
+    """{dim name: size} of a torch DeviceMesh, or of a plain mapping (the
+    rule functions' abstract mesh: no ranks needed), in mesh-dim order."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Maps logical axis names to mesh axis names (or tuples thereof)."""
+    rules: Mapping[str, Any]
+
+    def mesh_axes(self, logical: str | None):
+        if logical is None:
+            return None
+        return self.rules.get(logical, None)
+
+
+def _axis_size(mesh, mesh_axes) -> int:
+    if mesh_axes is None:
+        return 1
+    if isinstance(mesh_axes, str):
+        mesh_axes = (mesh_axes,)
+    shape = mesh_shape(mesh)
+    return math.prod(shape[a] for a in mesh_axes)
+
+
+def pspec_for(spec_axes: Sequence, shape: Sequence[int], rules: ShardingRules,
+              mesh) -> tuple:
+    """PartitionSpec tuple with the divisibility fallback.
+
+    A dim not divisible by the product of its assigned mesh axes sheds
+    trailing axes until it is (replicated when none is left): this lets
+    one rule-set serve archs with e.g. 8 query heads on a 16-way model
+    axis.  A mesh axis is used at most once a tensor.  Trailing None
+    entries are trimmed, as `PartitionSpec` prints them."""
+    sizes = mesh_shape(mesh)
+    used: set = set()
+    entries = []
+    axes = tuple(spec_axes) if spec_axes else (None,) * len(shape)
+    for dim, logical in zip(shape, axes):
+        mesh_axes = rules.mesh_axes(logical)
+        if mesh_axes is None:
+            entries.append(None)
+            continue
+        if isinstance(mesh_axes, str):
+            mesh_axes = (mesh_axes,)
+        # drop axes already used by another dim of this tensor
+        mesh_axes = tuple(a for a in mesh_axes if a not in used and a in sizes)
+        while mesh_axes and dim % _axis_size(sizes, mesh_axes) != 0:
+            mesh_axes = mesh_axes[:-1]     # shed trailing axes until divisible
+        if not mesh_axes:
+            entries.append(None)
+        else:
+            used.update(mesh_axes)
+            entries.append(mesh_axes if len(mesh_axes) > 1 else mesh_axes[0])
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def placements_for(spec: Sequence, dim_names: Sequence[str]) -> tuple:
+    """DTensor placements of a PartitionSpec tuple on a mesh with these dim
+    names: ``Shard(d)`` on every mesh dim that tensor dim d names,
+    ``Replicate()`` elsewhere.  Several mesh dims on one tensor dim split
+    it major to minor in the entry's order, which DTensor's left-to-right
+    mesh-dim order expresses only when the entry lists them in mesh order
+    (the reference's rules always do: ('pod', 'data'))."""
+    from torch.distributed.tensor import Replicate, Shard
+    out: list = [Replicate()] * len(dim_names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = (entry,) if isinstance(entry, str) else tuple(entry)
+        pos = [dim_names.index(a) for a in names]
+        if pos != sorted(pos):
+            raise ValueError(f"spec entry {entry!r} is not in mesh-dim order "
+                             f"{tuple(dim_names)}")
+        for i in pos:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh (a torch DeviceMesh, or its {name: size} for the rule
+    functions) and a PartitionSpec tuple: the reference's NamedSharding."""
+    mesh: Any
+    spec: tuple = ()
+
+    def __post_init__(self):
+        # as PartitionSpec does: a one-name tuple entry is that name
+        object.__setattr__(self, "spec", tuple(
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in self.spec))
+
+    @property
+    def placements(self) -> tuple:
+        return placements_for(self.spec, tuple(mesh_shape(self.mesh)))
+
+
+def tree_shardings(tree: Tree, rules: ShardingRules, mesh) -> Tree:
+    """NamedSharding tree matching a ParamSpec tree."""
+    return tree_map(
+        lambda s: NamedSharding(mesh, pspec_for(s.axes, s.shape, rules, mesh)),
+        tree)
+
+
+def tree_pspecs(tree: Tree, rules: ShardingRules, mesh) -> Tree:
+    return tree_map(lambda s: pspec_for(s.axes, s.shape, rules, mesh), tree)
+
+
+def logical_constraint(x: torch.Tensor, axes: Sequence, rules: ShardingRules,
+                       mesh) -> torch.Tensor:
+    """The reference's with_sharding_constraint by logical axes: nothing
+    without a mesh; a DTensor is redistributed to the rules' placements
+    (DTensor issues the collectives that takes); a plain tensor is a
+    rank's local value in SPMD code and stays as it is."""
+    from torch.distributed.tensor import DTensor
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    spec = pspec_for(axes, x.shape, rules, mesh)
+    return x.redistribute(mesh, placements_for(spec, mesh.mesh_dim_names))
+
+
+# A context-free handle passed down the model call stack.
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    mesh: Any
+    rules: ShardingRules
+
+    def cons(self, x: torch.Tensor, axes: Sequence) -> torch.Tensor:
+        return logical_constraint(x, axes, self.rules, self.mesh)
+
+
+NULL_CTX = ShardCtx(None, ShardingRules({}))

@@ -21,10 +21,11 @@ the same run to run on the card.
 
 ``cfg.moe_impl``: 'dispatch'; 'blockwise' (the reference's dispatch within
 each data block of the mesh: one card has one block, which is 'dispatch');
-'dense' (the oracle: every expert on every token); 'shardmap' (the
-reference's explicit expert-parallel form over a mesh) falls through to
-'dispatch' without a mesh, exactly as the reference does.  The mesh form
-waits for the sharded carry, ROADMAP Queue 1 item 13.  The expert products
+'dense' (the oracle: every expert on every token); 'shardmap', the
+reference's explicit expert parallelism over a mesh
+(`moe_block_shardmap`, given a `ShardCtx` with a mesh that has a 'model'
+dim and at least one token an expert a batch shard), which otherwise falls
+through to 'dispatch', exactly as the reference does.  The expert products
 are batched matmuls: the reference computes them outside any Pallas
 kernel.
 """
@@ -37,7 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _act
-from repro_torch.models.module import ParamSpec, fan_in_normal
+from repro_torch.models.module import NULL_CTX, ParamSpec, ShardCtx, fan_in_normal
 
 MOE_IMPLS = ("dispatch", "blockwise", "dense", "shardmap")
 
@@ -114,11 +115,16 @@ class _PermGather(torch.autograd.Function):
 
 
 def _dispatch(cfg: ModelConfig, p: dict, xt: torch.Tensor, gate: torch.Tensor,
-              expert_idx: torch.Tensor, C: int) -> torch.Tensor:
+              expert_idx: torch.Tensor, C: int, e0: int = 0,
+              E_loc: int | None = None) -> torch.Tensor:
     """The capacity-bounded dispatch of T tokens [T, d] with their top-k
-    gates and experts [T, k] -> [T, d]."""
+    gates and experts [T, k] -> [T, d].  With `e0`/`E_loc` (expert
+    parallelism) `p` holds experts [e0, e0 + E_loc) only: the pairs routed
+    elsewhere are dropped here (their rank serves them), the positions in
+    each expert and the capacity are the whole dispatch's."""
     T, d = xt.shape
     k, E = cfg.top_k, cfg.n_experts
+    E_loc = E if E_loc is None else E_loc
     dev = xt.device
     e_flat = expert_idx.reshape(T * k)
     order = torch.sort(e_flat, stable=True).indices
@@ -126,16 +132,19 @@ def _dispatch(cfg: ModelConfig, p: dict, xt: torch.Tensor, gate: torch.Tensor,
     starts = torch.searchsorted(es, torch.arange(E, device=dev), side="left")
     rank = torch.arange(T * k, device=dev)
     pos_in_e = rank - starts[es]
-    slot_sorted = torch.where(pos_in_e < C, es * C + pos_in_e, E * C)
-    # each pair's buffer row in (token, slot) order (E*C: dropped), and
-    # each buffer row's pair (T*k: empty); row E*C collects the dropped
+    el = es - e0
+    mine = (pos_in_e < C) & (el >= 0) & (el < E_loc)
+    slot_sorted = torch.where(mine, el * C + pos_in_e, E_loc * C)
+    # each pair's buffer row in (token, slot) order (E_loc*C: dropped), and
+    # each buffer row's pair (T*k: empty); row E_loc*C collects the dropped
     # pairs and is cut off
+    R = E_loc * C
     slot_of_pair = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
-    pair_of_row = torch.full((E * C + 1,), T * k, dtype=rank.dtype,
-                             device=dev).scatter_(0, slot_of_pair, rank)[:E * C]
+    pair_of_row = torch.full((R + 1,), T * k, dtype=rank.dtype,
+                             device=dev).scatter_(0, slot_of_pair, rank)[:R]
     tok_of_row = torch.where(pair_of_row < T * k, pair_of_row // k, T)
     ebuf = _PermGather.apply(xt, tok_of_row, slot_of_pair.reshape(T, k))
-    eout = _expert_ffn(cfg, p, ebuf.reshape(E, C, d)).reshape(E * C, d)
+    eout = _expert_ffn(cfg, p, ebuf.reshape(E_loc, C, d)).reshape(R, d)
     y_pairs = _PermGather.apply(eout, slot_of_pair, pair_of_row[:, None])
     return (y_pairs.reshape(T, k, d) * gate[..., None]).sum(dim=1)
 
@@ -150,12 +159,25 @@ def _route(cfg: ModelConfig, p: dict, xt: torch.Tensor):
     return gate, expert_idx, load_balance_loss(probs, expert_idx, cfg.n_experts)
 
 
-def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor):
+def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
+              ctx: ShardCtx = NULL_CTX):
     """x: [B, S, d] -> (y [B, S, d], aux_loss scalar f32)."""
     if cfg.moe_impl not in MOE_IMPLS:
         raise ValueError(f"moe_impl {cfg.moe_impl!r}")
     if cfg.moe_impl == "blockwise":
         return moe_block_blockwise(cfg, p, x)
+    if cfg.moe_impl == "shardmap" and ctx.mesh is not None:
+        from repro_torch.models.module import mesh_shape
+        from repro_torch.sharding import is_dtensor
+        sizes = mesh_shape(ctx.mesh)
+        D = math.prod(sizes.get(a, 1) for a in ("pod", "data"))
+        # the tokens of a batch shard (a plain x is this rank's block);
+        # explicit EP pays a full expert-weight gather a layer; below ~1
+        # token an expert a shard (decode) the plain dispatch is cheaper
+        T = x.shape[0] * x.shape[1]
+        if "model" in sizes and (T // D if is_dtensor(x) else T) \
+                >= cfg.n_experts:
+            return moe_block_shardmap(cfg, p, x, ctx)
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     gate, expert_idx, aux = _route(cfg, p, xt)
@@ -172,6 +194,80 @@ def moe_block_blockwise(cfg: ModelConfig, p: dict, x: torch.Tensor):
     C(T / D).  One card has no mesh, so D = 1: one block of all T tokens,
     which is 'dispatch'."""
     return moe_block(cfg.replace(moe_impl="dispatch"), p, x)
+
+
+def _gathered(w, mesh, dims: tuple):
+    """A weight's local value, gathered over the mesh dims of `dims` that
+    shard it (one all_gather each): a plain tensor is whole already."""
+    from torch.distributed.tensor import Shard
+    from repro_torch import sharding as SH
+    if not SH.is_dtensor(w):
+        return w
+    local = w.to_local()
+    for a, pl in reversed(list(zip(mesh.mesh_dim_names, w.placements))):
+        if a in dims and isinstance(pl, Shard):
+            local = SH.all_gather(local, mesh, a, axis=pl.dim)
+    return local
+
+
+def moe_block_shardmap(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                       ctx: ShardCtx):
+    """Explicit expert parallelism over the mesh's 'model' dim: each rank
+    serves E/M experts to the tokens of its batch shard.
+
+    Activations are batch-sharded and model-replicated, so every rank
+    already holds the tokens of its data row: dispatch to its own experts
+    needs no communication.  `x` is a DTensor placed over the batch axes
+    (the result is placed alike) or this rank's plain local block; the
+    expert weights are DTensors placed by the rules (`tree_shardings`:
+    experts over 'model', with `cfg.fsdp` their d_model dim over the fsdp
+    axes) or whole plain tensors, of which the rank takes its experts.
+    Collectives a call (`sharding`):
+      * with `cfg.fsdp`, one all_gather over 'data' of each expert weight
+        (and of the router, whose d_model dim the rules shard too);
+      * one all_reduce over 'model' of the combined token outputs;
+      * one all_reduce over the batch axes of the aux loss (its mean).
+    The collectives are not differentiated: this is the forward; the
+    sharded train step is ROADMAP item 17."""
+    from repro_torch import sharding as SH
+    from repro_torch.models.module import mesh_shape
+    mesh = ctx.mesh
+    sizes = mesh_shape(mesh)
+    E, k = cfg.n_experts, cfg.top_k
+    n_model = sizes["model"]
+    if E % n_model:
+        raise ValueError(f"{E} experts do not split over {n_model} 'model' "
+                         "ranks")
+    E_loc = E // n_model
+    e0 = mesh.get_coordinate()[mesh.mesh_dim_names.index("model")] * E_loc
+    batch_ax = tuple(a for a in ("pod", "data") if a in sizes)
+    fsdp_ax = tuple(a for a in cfg.fsdp_axes if a in sizes) \
+        if cfg.fsdp else ()
+    x_dt = SH.is_dtensor(x)
+    x_blk = x.to_local() if x_dt else x
+    Bl, Sl, d = x_blk.shape
+    Tl = Bl * Sl
+    C = capacity(cfg, Tl)
+
+    def local_experts(w):
+        if SH.is_dtensor(w):
+            return _gathered(w, mesh, fsdp_ax)
+        return w[e0:e0 + E_loc]
+    lp = {name: local_experts(p[name]) for name in ("wi", "wg", "wo")
+          if name in p}
+    lp["router"] = _gathered(p["router"], mesh, tuple(sizes))
+    xt = x_blk.reshape(Tl, d)
+    gate, expert_idx, aux = _route(cfg, lp, xt)
+    D = math.prod(sizes[a] for a in batch_ax)
+    if D > 1:
+        aux = SH.all_reduce(aux, mesh, batch_ax) / D
+    yt = _dispatch(cfg, lp, xt, gate, expert_idx, C, e0=e0, E_loc=E_loc)
+    yt = SH.all_reduce(yt, mesh, "model")
+    y = yt.reshape(Bl, Sl, d)
+    if x_dt:
+        from torch.distributed.tensor import DTensor
+        y = DTensor.from_local(y, mesh, x.placements, run_check=False)
+    return y, aux
 
 
 def _moe_dense_combine(cfg: ModelConfig, p: dict, x: torch.Tensor, gate,

@@ -121,6 +121,12 @@ class OnlineTrainer:
     degradation policy.  fault_plan (`runtime.guard.FaultPlan`):
     deterministic fault injection.
 
+    shardings: an optional tree of target shardings
+    (`models.module.NamedSharding`) over `_ckpt_tree()` for elastic
+    re-mesh resume: `try_resume` places every restored tensor leaf by it,
+    on whatever mesh it names (a None entry leaves its leaf on the
+    device, as without shardings).
+
     telemetry (`repro_torch.obs.Telemetry`, default the null form): the
     registry every count of the result comes from; when active, the
     packed window metrics, the `window` / `rewire` / `ckpt_write` spans
@@ -138,7 +144,8 @@ class OnlineTrainer:
     def __init__(self, cfg: OnlineTrainerConfig, learner, opt, params: Tree,
                  masks: Tree | None, stream: Callable[[int], tuple], *,
                  device: torch.device | str, rewire_schedule=None,
-                 guard=None, fault_plan=None, telemetry=None):
+                 guard=None, fault_plan=None, shardings: Tree | None = None,
+                 telemetry=None):
         self.cfg = cfg
         self.learner = learner
         self.opt = opt
@@ -153,6 +160,7 @@ class OnlineTrainer:
         if fault_plan is not None:
             stream = fault_plan.wrap_stream(stream)
         self.stream = stream
+        self.shardings = shardings      # target placements over _ckpt_tree()
         self.device = torch.device(device)
         x0, y0 = stream(0)
         tt = cfg.t_total if cfg.t_total is not None else float(cfg.update_every)
@@ -231,7 +239,10 @@ class OnlineTrainer:
     def try_resume(self) -> bool:
         if self.ckpt is None or self.ckpt.latest_step() < 0:
             return False
-        tree, upd = self.ckpt.restore(self._ckpt_tree())
+        # elastic re-mesh: the target shardings (possibly for another mesh
+        # than the checkpoint's writer ran on) are the caller's, never read
+        # from disk
+        tree, upd = self.ckpt.restore(self._ckpt_tree(), self.shardings)
         if tree is None:
             return False
         self.carry, self.opt_state = tree["carry"], tree["opt"]

@@ -7,10 +7,10 @@ Counterpart of `repro.runtime.trainer`:
   * failure injection (a crash at step K, once) and a supervised restart;
   * a straggler watchdog: a step slower than `straggler_factor` x the EMA
     of step wall times is counted;
-  * step-keyed data (`data_it(step)`), so a restart replays exactly.
-
-Elastic re-mesh restore (the JAX package's `shardings`) is ROADMAP Queue 1
-item 13; the port runs on one device.
+  * step-keyed data (`data_it(step)`), so a restart replays exactly;
+  * elastic re-mesh: `shardings` = (param shardings, opt shardings), the
+    TARGET placements a resume restores onto (`checkpoint.load_checkpoint`;
+    possibly another mesh shape than the writer's).
 """
 from __future__ import annotations
 
@@ -80,12 +80,14 @@ class Trainer:
     across restarts)."""
 
     def __init__(self, cfg: TrainerConfig, step_fn: Callable,
-                 params: Any, opt_state: Any, data_it):
+                 params: Any, opt_state: Any, data_it,
+                 shardings: tuple | None = None):
         self.cfg = cfg
         self.step_fn = step_fn
         self.params = params
         self.opt_state = opt_state
         self.data_it = data_it
+        self.shardings = shardings             # (param_sh, opt_sh) for re-mesh
         self.ckpt = CheckpointManager(cfg.ckpt_dir or default_ckpt_dir(),
                                       keep=cfg.keep)
         self.step = 0
@@ -107,7 +109,10 @@ class Trainer:
     def try_resume(self) -> bool:
         if self.ckpt.latest_step() < 0:
             return False
-        tree, step = self.ckpt.restore(self._ckpt_tree())
+        sh = None
+        if self.shardings is not None:
+            sh = {"params": self.shardings[0], "opt": self.shardings[1]}
+        tree, step = self.ckpt.restore(self._ckpt_tree(), sh)
         self.params, self.opt_state = tree["params"], tree["opt"]
         self.step = step
         return True

@@ -13,7 +13,8 @@ Integration: `rewire(carry, event_key)` of the rewirable learners
 """
 from repro_torch.sparsity.migrate import (gate_col_mask, migrate_dense,
                                           migrate_flat, migrate_influence,
-                                          migrate_via_flat, migration_plan)
+                                          migrate_sharded, migrate_via_flat,
+                                          migration_plan)
 from repro_torch.sparsity.schedule import (RewireSchedule, rewire_masks,
                                            rewire_stacked_masks,
                                            rewire_tensor)
@@ -21,5 +22,5 @@ from repro_torch.sparsity.schedule import (RewireSchedule, rewire_masks,
 __all__ = [
     "RewireSchedule", "rewire_masks", "rewire_stacked_masks",
     "rewire_tensor", "migration_plan", "migrate_influence", "migrate_flat",
-    "migrate_dense", "migrate_via_flat", "gate_col_mask",
+    "migrate_dense", "migrate_via_flat", "gate_col_mask", "migrate_sharded",
 ]

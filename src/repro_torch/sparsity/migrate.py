@@ -200,3 +200,25 @@ def restart_oracle(learner, carry: Tree):
     oc["M"] = (torch.nn.functional.pad(flat, (0, P_pad - flat.shape[-1])),)
     oc["a"], oc["beta_prev"] = (carry["a"],), carry["beta_prev"].reshape(1)
     return oracle, oc
+
+
+def migrate_sharded(plan, bufs: list, mesh, c0: int) -> list:
+    """`migrate_influence` of column-sharded buffers: each of `bufs` is
+    this rank's [..., w] slice (columns [c0, c0 + w)) of a [..., Pc_pad]
+    buffer split over the mesh's 'model' dim.  The slices are gathered in
+    ONE all_gather over 'model' (their rows concatenated, read as f32, an
+    exact widening of a bf16 carry), and each rank keeps its new columns:
+    the plan's gather and carried entries at [c0, c0 + w).  Bitwise the
+    unsharded migration's columns."""
+    from repro_torch import sharding as SH
+    gather, carried = plan
+    w = bufs[0].shape[-1]
+    rows = [b.reshape(-1, w).float() for b in bufs]
+    full = SH.all_gather(torch.cat(rows), mesh, "model", axis=1)
+    sl = slice(c0, c0 + w)
+    new = full.index_select(-1, gather[sl]) * carried[sl]
+    out, r = [], 0
+    for b, part in zip(bufs, rows):
+        out.append(new[r:r + part.shape[0]].reshape(b.shape).to(b.dtype))
+        r += part.shape[0]
+    return out

@@ -33,6 +33,7 @@ EXPECTED = {
     "obs.telemetry", "obs.trace", "obs.validate", "optim.optimizers",
     "runtime.guard", "runtime.online", "runtime.serving", "runtime.trainer",
     "sparsity", "sparsity.migrate", "sparsity.schedule", "tree", "weights",
+    "sharding", "launch.mesh", "runtime.compression", "data.pipeline",
 }
 
 

@@ -142,8 +142,16 @@ def test_col_layout_and_stacked_state_equal_the_reference(L):
     assert tree_leaves(st["vals"])[0].dtype == torch.bfloat16
     if L > 1:
         assert isinstance(st["a"], tuple) and len(st["vals"]) == L
-    with pytest.raises(NotImplementedError, match="item 13"):
-        SR.sharded_step_specs(cfg, None)
+    # the shardings over a mesh: the reference's specs on the same mesh
+    from jax.sharding import AbstractMesh
+    jst, jx = JSR.sharded_step_specs(jcfg, AbstractMesh((2, 4),
+                                                        ("data", "model")))
+    st, x = SR.sharded_step_specs(cfg, {"data": 2, "model": 4})
+    assert x.spec == tuple(jx.spec)
+    for k in ("a", "vals", "idx"):
+        got = st[k] if L > 1 else (st[k],)
+        want = jst[k] if L > 1 else (jst[k],)
+        assert [g.spec for g in got] == [tuple(w.spec) for w in want]
 
 
 def test_init_params_draws_masked_params_from_the_generator():
