@@ -245,7 +245,7 @@ checkout, it exits non-zero and prints no result.  Phases:
      gradients within 1e-5 or twice the CPU's own spread between one
      thread and its default, whichever is larger); (p3)
      `launch.train --arch gemma2-2b` and `--arch rwkv6-3b` as the launcher
-     builds them, at full width and depth cut to 8 layers (20 steps, batch
+     builds them, at full width and depth cut to 4 layers (20 steps, batch
      4, seq 64, bf16): finite losses and gradient norms, K4 0 while
      training and 32 in a full-depth prefill after; rwkv6-
      3b at full width, 2 layers, f32, card against CPU; crash and resume
@@ -316,7 +316,8 @@ checkout, it exits non-zero and prints no result.  Phases:
      16 decodes against the full forward over S + 16 (1e-4 of the largest
      logit), loss and gradients card against CPU (as in phase 13); (w3)
      `launch.train --arch whisper-large-v3` as the launcher builds it, full
-     size, 20 steps of 4 x 64 tokens with 4 x 1500 frames (finite losses,
+     width, encoder and decoder cut to 4 of 32 layers (the script's time),
+     20 steps of 4 x 64 tokens with 4 x 1500 frames (finite losses,
      median step ms, peak allocation), crash and resume at --smoke, final
      checkpoints bitwise; (c) prefill tokens/s and its share of the bf16
      peak (the encoder's and the decoder's FLOPs from the shapes), decode
@@ -380,13 +381,37 @@ checkout, it exits non-zero and prints no result.  Phases:
      `compressed_psum` over a 2-rank pod group, the accumulated
      deviation over 8 steps under 0.05, and (h3)'s carry written sharded
      by both ranks and restored on one rank, bitwise;
- 19. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
+ 19. the LM's sharded steps on two ranks of one gloo group that share the
+     card, as phase 18 runs them (a (data 1, model 2) mesh, a join timeout
+     of 420 s that fails the phase), each check with the counts set to 0
+     just before and read just after: (m1) rwkv6-3b at full width and
+     depth, bf16, through `launch.steps.make_prefill_step(..., mesh=)`: a
+     prefill of 4 x 512 tokens, K4 32 launches a rank each on its 20 of
+     the 40 heads, the prefill's ms with both ranks at once (best of 2)
+     and each rank's peak bytes beside the one-rank prefill's (rank 0,
+     the other idle), the collectives it issues; K4 on layer 0's operands
+     of each rank against its plain version, and on the two 20-head
+     halves of the one-rank layer 0's operands bitwise the 40-head
+     launch's same heads; every layer's bf16 time mix on the rank's
+     heads, K4 against the plain WKV, within 5 %; f32 at 2 layers (4 x 256
+     tokens): the gathered logits within 1e-5 of the largest one-rank
+     logit; (m2) `Engine(mesh=...)` on rwkv6-3b, full width, 2 layers,
+     f32: 4 prompts of 8 tokens and 16 greedy decodes each, the one-rank
+     Engine's tokens, ms an engine step; (m3) `make_train_step(...,
+     mesh=)` at full width and 2 layers, f32, sgdm, batch 2 x 256:
+     rwkv6-3b and gemma2-2b pure data parallel, qwen3-8b tensor parallel
+     over 'model'; 2 steps, loss and grad norm within 1e-5 and the
+     gathered parameters within 1e-5 (rwkv6-3b 2e-4) of each leaf's
+     largest entry against the one-rank step, each step's ms and
+     collectives, each rank's peak bytes beside the one-rank step's;
+ 20. one JSON line {"kernels": [...]} for every ported kernel (K1-K4),
      K1's and K2's with a "stacked" entry for phase 8's path, K1's with a
      "guard" and K2's with a "rewire" entry for phase 9's, both with a
      "telemetry" entry for phase 10's, a "fleet" entry for phase 11's and
      an "lm" entry for phase 12's, K1's with a "scaled" entry for phase
      15's and a "sharded" entry for phase 18's, K4's with a "long" entry
-     for phase 17's, then the result line {"ok": true, "device": {...}}.
+     for phase 17's and a "sharded" entry for phase 19's, then the result
+     line {"ok": true, "device": {...}}.
 
 Tolerances: a float32 kernel result is within 1e-5 of the largest
 magnitude of the plain version's (the sums associate differently); a bf16
@@ -3452,6 +3477,26 @@ def k4_launch_shape(WK, ops, chunk):
 
 
 @contextlib.contextmanager
+def recorded_wkv(WK, calls):
+    """Inside the block each K4 launch appends its heads to `calls`, the
+    first launch its operands first: the recorder stands in for the
+    module's `launch`, which the wrapper (`WK.wkv`, which counts itself)
+    calls with its checked operands."""
+    launch = WK.launch
+
+    def recorded(call, args):
+        if not calls:
+            calls.append([t.clone() for t in args] + [None] * (6 - len(args)))
+        calls.append(int(args[0].shape[1]))
+        return launch(call, args)
+    WK.launch = recorded
+    try:
+        yield
+    finally:
+        WK.launch = launch
+
+
+@contextlib.contextmanager
 def plain_wkv(WK):
     """Inside the block the RWKV6 model's WKV (`WK.wkv`, which `models.rwkv`
     calls) is its plain version: the way to hold a whole prefill on the
@@ -3464,26 +3509,32 @@ def plain_wkv(WK):
         WK.wkv = kernel
 
 
-def bf16_layers_vs_plain(torch, RW, WK, cfg, params, tokens):
+def bf16_layers_vs_plain(torch, RW, WK, cfg, params, tokens, ctx=None):
     """Every layer's bf16 time-mix output with the kernel and with the plain
     WKV, both on the kernel path's layer input, so no round-off carries
     from one layer to the next.  Returns the largest max abs difference
-    over the layer's largest magnitude."""
+    over the layer's largest magnitude.  With a mesh's `ctx`, on this
+    rank's local shards (`params`): K4 on the rank's heads."""
     from repro_torch.models.layers import embed_tokens
+    from repro_torch.models.module import NULL_CTX
     from repro_torch.models.transformer import _norm
-    x = _norm(cfg, params["ln0"], embed_tokens(cfg, params["emb"], tokens))
+    ctx = ctx or NULL_CTX
+    top = ctx.use_top(params, lambda: RW.rwkv_model_specs(cfg))
+    x = _norm(cfg, top["ln0"], embed_tokens(cfg, top["emb"], tokens, ctx))
     worst = 0.0
     for lp in RW._layers(cfg, params["units"]):
+        lp = ctx.use(lp, RW.layer_specs(cfg))
         xin = _norm(cfg, lp["ln1"], x)
-        h, _ = RW.time_mix(cfg, lp["tm"], xin)
+        h, _ = RW.time_mix(cfg, lp["tm"], xin, ctx=ctx)
         with plain_wkv(WK):
-            h_plain, _ = RW.time_mix(cfg, lp["tm"], xin)
+            h_plain, _ = RW.time_mix(cfg, lp["tm"], xin, ctx=ctx)
         h, h_plain = h.float(), h_plain.float()
         check(bool(h.isfinite().all()), "bf16 time-mix: non-finite output")
         worst = max(worst, float((h - h_plain).abs().max())
                     / float(h_plain.abs().max()))
         x = x + h.to(x.dtype)
-        x = x + RW.channel_mix(cfg, lp["cm"], _norm(cfg, lp["ln2"], x))[0]
+        x = x + RW.channel_mix(cfg, lp["cm"], _norm(cfg, lp["ln2"], x),
+                               ctx=ctx)[0]
     return worst
 
 
@@ -3495,7 +3546,7 @@ def k4_layer0_operands(torch, RW, cfg, params, tokens):
     from repro_torch.tree import tree_map
     lp = tree_map(lambda t: t[0], params["units"])
     x = _norm(cfg, params["ln0"], embed_tokens(cfg, params["emb"], tokens))
-    r, k, v, logw, _ = RW.time_mix_inputs(cfg, lp["tm"], _norm(cfg, lp["ln1"], x))
+    r, k, v, logw, _, _ = RW.time_mix_inputs(cfg, lp["tm"], _norm(cfg, lp["ln1"], x))
     tr = lambda t: t.transpose(1, 2).contiguous()
     return [tr(r), tr(k), tr(v), tr(logw), lp["tm"]["u"].contiguous(), None]
 
@@ -4118,8 +4169,8 @@ def decoder_training(torch, dev, A, TRAIN, STEPS, T, RW, root):
         ck = Path(root) / arch
         log(f"(p3) {arch}: {free_disk_gb(root):.1f} GB free under the "
             f"checkpoint root before the run writes its final checkpoint")
-        # the depth cut to 8 layers keeps the script inside its time limit
-        costs[arch] = cut_training(torch, TRAIN, STEPS, arch, 8, ck, "(p3)")
+        # the depth cut to 4 layers keeps the script inside its time limit
+        costs[arch] = cut_training(torch, TRAIN, STEPS, arch, 4, ck, "(p3)")
         shutil.rmtree(ck, ignore_errors=True)
         torch.cuda.empty_cache()
         cfg = get_config(arch)
@@ -4515,18 +4566,23 @@ def rglru_correctness(torch, dev, R):
     return {"decode_vs_full": errs, "scan_vs_loop": err_s, "grads": grads}
 
 
-def cut_training(torch, TRAIN, STEPS, arch, layers, ck, label="(m5)"):
+def cut_training(torch, TRAIN, STEPS, arch, layers, ck, label="(m5)",
+                 enc_layers=None):
     """`launch.train --arch arch --steps 20 --batch 4 --seq 64` with the
-    depth cut to `layers`: the launcher's own run (`build_model_lm`), its
-    config's depth replaced before the step is built, through
-    `model_lm_trainers` and `run_with_restart`, K1-K4 counted."""
+    depth cut to `layers` (and an encoder's to `enc_layers`): the
+    launcher's own run (`build_model_lm`), its config's depth replaced
+    before the step is built, through `model_lm_trainers` and
+    `run_with_restart`, K1-K4 counted."""
     from repro_torch.runtime.trainer import run_with_restart
     args = TRAIN.parse_args(["--arch", arch, "--steps", "20", "--batch", "4",
                              "--seq", "64", "--ckpt-every", "0",
                              "--ckpt-dir", str(ck)])
     run = TRAIN.build_model_lm(args)
     full = run["cfg"].n_layers
-    run["cfg"] = run["cfg"].replace(n_layers=layers)
+    cut = {"n_layers": layers}
+    if enc_layers is not None:
+        cut["enc_layers"] = enc_layers
+    run["cfg"] = run["cfg"].replace(**cut)
     run["step_fn"] = STEPS.make_train_step(run["cfg"], run["opt"])
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -4539,7 +4595,8 @@ def cut_training(torch, TRAIN, STEPS, arch, layers, ck, label="(m5)"):
                   for s in steps), f"{label} {arch}: {len(steps)} steps")
     med = statistics.median(s["ms"] for s in steps[1:])
     log(f"{label} launch.train --arch {arch} --steps 20 --batch 4 --seq 64, full "
-        f"width, depth {layers} of {full} layers, bf16, "
+        f"width, depth {layers} of {full} layers"
+        f"{'' if enc_layers is None else f' (encoder {enc_layers})'}, bf16, "
         f"{run['cfg'].optimizer}: "
         f"losses {steps[0]['loss']:.4f} -> {steps[-1]['loss']:.4f}, all 20 "
         f"finite; median step {med:.1f} ms (steps 2-20, first "
@@ -5100,12 +5157,13 @@ def whisper_correctness(torch, dev, E):
 
 def whisper_training(torch, TRAIN, STEPS, root):
     """(w3) `launch.train --arch whisper-large-v3` as the launcher builds
-    it, full size, 20 steps of 4 x 64 tokens with 1500 frames; crash and
-    resume at --smoke, the final checkpoints bitwise."""
+    it, full width, encoder and decoder cut to 4 of 32 layers, 20 steps of
+    4 x 64 tokens with 1500 frames; crash and resume at --smoke, the final
+    checkpoints bitwise."""
     import shutil
     arch = "whisper-large-v3"
     ck = Path(root) / arch
-    cost = cut_training(torch, TRAIN, STEPS, arch, 32, ck, "(w3)")
+    cost = cut_training(torch, TRAIN, STEPS, arch, 4, ck, "(w3)", 4)
     shutil.rmtree(ck, ignore_errors=True)
     torch.cuda.empty_cache()
     argv = ["--arch", arch, "--smoke", "--ckpt-every", "5"]
@@ -6133,6 +6191,371 @@ def sharded_phase(torch):
             "group_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the LM's sharded steps, two ranks of a gloo group on the one card
+# ---------------------------------------------------------------------------
+
+LM_SHARDED_TIMEOUT = 420   # s: the group's join timeout, a failure past it
+
+
+def whole_leaf(SH, x):
+    """A placed leaf whole on this rank, gathered with the port's own
+    (counted, host-staged) all_gather over each mesh dim that shards it,
+    minor dims first; a plain leaf as it is."""
+    if not SH.is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Shard
+    mesh, out = x.device_mesh, x.to_local()
+    for name, p in reversed(list(zip(mesh.mesh_dim_names, x.placements))):
+        if isinstance(p, Shard):
+            out = SH.all_gather(out, mesh, name, axis=p.dim)
+    return out
+
+
+def rel_err(torch, got, want):
+    """max |got - want| over max |want| (float64 on the card)."""
+    want = want.double()
+    return float((got.double() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def lm_sharded_prefill(torch, SH, mesh, rank, dev):
+    """(m1): rwkv6-3b at full width on (data 1, model 2) through
+    `make_prefill_step(..., mesh=)`: bf16 at full depth, 4 x 512 tokens,
+    K4 counted (a launch a layer a rank, each on 20 of the 40 heads), its
+    ms with both ranks at once and peak bytes against the one-rank
+    prefill's (rank 0, the other rank idle); layer 0's K4 on the rank's
+    operands against its plain version, and on the one-rank operands'
+    halves bitwise the one-rank launch's heads; every layer's bf16 time
+    mix against the plain WKV (5 %); f32 at 2 layers, 4 x 256 tokens: the
+    gathered logits against the one-rank prefill's (1e-5 of the largest)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSuite
+    from repro_torch.kernels import wkv as WK
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models import rwkv as RW
+    from repro_torch.models.module import ShardCtx, materialize
+    cfg = get_config("rwkv6-3b")
+    H, L = RW.n_heads(cfg), cfg.n_layers
+    B, T = 4, 512
+    tokens = torch.randint(0, cfg.vocab_size, (B, T),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    out = {}
+    pre = STEPS.make_prefill_step(cfg, ShapeSuite("p", T, B, "prefill"), dev,
+                                  mesh=mesh)
+    draw = lambda: materialize(RW.rwkv_model_specs(cfg),
+                               torch.Generator(device=dev).manual_seed(0))
+    held = torch.cuda.memory_allocated()
+    params = SH.place_tree(draw(), pre.shardings["params"])
+    torch.cuda.empty_cache()
+    calls = []
+    batch = {"tokens": tokens}
+    pre.fn(params, batch)                       # warm: the kernel's load
+    runs = []
+    for i in range(2):
+        SH.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        calls.clear()
+        reset_counts()
+        SH.counts.clear()
+        with recorded_wkv(WK, calls):
+            (logits, cache), ms = timed_ms(torch, lambda: pre.fn(params, batch))
+        counts, colls = read_counts(), dict(SH.counts)
+        runs.append(ms)
+        check_counts(counts, {"wkv": L}, f"(m1) rank {rank} prefill")
+        check(calls[1:] == [H // 2] * L,
+              f"(m1) rank {rank}: K4 heads {calls[1:]}")
+    peak = torch.cuda.max_memory_allocated() - held
+    loc = SH.to_local(logits)
+    check(tuple(loc.shape) == (B, cfg.vocab_size // 2)
+          and bool(loc.isfinite().all()), f"(m1) logits {tuple(loc.shape)}")
+    out.update(launches=counts["wkv"], heads=calls[1], prefill_ms=min(runs),
+               prefill_runs_ms=runs, peak_bytes=peak, collectives=colls)
+    ops = calls[0]
+    err, _ = compare_k4(torch, WK, ops, cfg.rwkv_chunk,
+                        f"(m1) rank {rank}: layer 0 of the sharded prefill")
+    out["max_abs_err"] = err
+    del logits, cache
+    ctx = ShardCtx(mesh, SH.make_rules(cfg, mesh), seq=T)
+    out["time_mix_vs_plain"] = bf16_layers_vs_plain(
+        torch, RW, WK, cfg, SH.local_tree(params), tokens, ctx)
+    check(out["time_mix_vs_plain"] <= 0.05,
+          f"(m1) rank {rank} bf16 time mix vs plain: "
+          f"{out['time_mix_vs_plain']:.4g}")
+    del params
+    torch.cuda.empty_cache()
+    # -- the one-rank prefill and K4's heads, rank 0 alone ------------------
+    SH.barrier()
+    if rank == 0:
+        held = torch.cuda.memory_allocated()
+        full = draw()
+        RW.prefill(cfg, full, tokens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        one = [timed_ms(torch, lambda: RW.prefill(cfg, full, tokens))[1]
+               for _ in range(2)]
+        out["one_rank_peak_bytes"] = torch.cuda.max_memory_allocated() - held
+        out["one_rank_prefill_ms"] = min(one)
+        full_ops = k4_layer0_operands(torch, RW, cfg, full, tokens)
+        o, S = WK.wkv(*full_ops, chunk=cfg.rwkv_chunk)
+        bitwise = []
+        for r in range(2):
+            hs = slice(r * H // 2, (r + 1) * H // 2)
+            half = [t[:, hs].contiguous() for t in full_ops[:4]] + \
+                [full_ops[4][hs].contiguous(), None]
+            o_r, S_r = WK.wkv(*half, chunk=cfg.rwkv_chunk)
+            bitwise.append(bool(torch.equal(o_r, o[:, hs]))
+                           and bool(torch.equal(S_r, S[:, hs])))
+        check(all(bitwise), f"(m1) K4 on 20 heads vs the 40-head launch's "
+                            f"same heads: bitwise {bitwise}")
+        out["bitwise"] = bitwise
+        hs = slice(0, H // 2)
+        out["rank0_operands_vs_one_rank"] = max(
+            rel_err(torch, a, b[:, hs]) for a, b in zip(ops[:4], full_ops[:4]))
+        del full, full_ops, o, S
+    SH.barrier()
+    del ops
+    calls.clear()
+    torch.cuda.empty_cache()
+    # -- f32 at 2 layers: the gathered logits against one rank --------------
+    cfg32 = cfg.replace(n_layers=2, param_dtype=torch.float32,
+                        compute_dtype=torch.float32)
+    p32 = materialize(RW.rwkv_model_specs(cfg32),
+                      torch.Generator(device=dev).manual_seed(2))
+    t32 = tokens[:, :256]
+    pre32 = STEPS.make_prefill_step(cfg32, ShapeSuite("p", 256, B, "prefill"),
+                                    dev, mesh=mesh)
+    logits, cache = pre32.fn(SH.place_tree(p32, pre32.shardings["params"]),
+                             {"tokens": t32})
+    got = whole_leaf(SH, logits)
+    if rank == 0:
+        want, _ = RW.prefill(cfg32, p32, t32)
+        out["f32_logits_rel"] = rel_err(torch, got, want)
+        check(out["f32_logits_rel"] <= F32_REL,
+              f"(m1) f32 sharded prefill vs one rank: {out['f32_logits_rel']:.3e}")
+    del p32, logits, cache, got
+    torch.cuda.empty_cache()
+    rank_log(rank, f"(m1) rwkv6-3b prefill {B} x {T} on (1, 2), bf16: K4 "
+             f"{out['launches']} launches on {out['heads']} of {H} heads, "
+             f"{out['prefill_ms']:.2f} ms (runs {runs}), peak "
+             f"{peak / 1e9:.3f} GB, collectives {colls}; K4 layer 0 vs plain "
+             f"{err:.3e}; time mix vs plain {out['time_mix_vs_plain']:.4g}"
+             + ("" if rank else
+                f"; one rank: {out['one_rank_prefill_ms']:.2f} ms, peak "
+                f"{out['one_rank_peak_bytes'] / 1e9:.3f} GB; K4 halves "
+                f"bitwise {out['bitwise']}; f32 2-layer logits vs one rank "
+                f"{out['f32_logits_rel']:.2e}"))
+    return out
+
+
+def lm_sharded_engine(torch, SH, mesh, rank, dev):
+    """(m2): `Engine(mesh=...)` on rwkv6-3b at full width, 2 layers, f32:
+    4 prompts of 8 tokens, 16 greedy decodes each, the tokens against the
+    one-rank Engine's (rank 0); ms an engine step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv as RW
+    from repro_torch.models.module import materialize
+    from repro_torch.runtime.serving import Engine, ServeConfig
+    cfg = get_config("rwkv6-3b").replace(n_layers=2,
+                                         param_dtype=torch.float32,
+                                         compute_dtype=torch.float32)
+    params = materialize(RW.rwkv_model_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(4))
+    rng = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab_size, (8,), generator=rng).tolist()
+               for _ in range(4)]
+    scfg = ServeConfig(batch_slots=4, max_seq=32)
+    eng = Engine(cfg, scfg, params, mesh=mesh)
+    eng.generate(prompts[:1], max_new=2)                  # warm
+    eng = Engine(cfg, scfg, params, mesh=mesh)
+    SH.barrier()
+    SH.counts.clear()
+    toks, ms = timed_ms(torch, lambda: eng.generate(prompts, max_new=16))
+    steps = 8 + 16 - 1
+    out = {"ms_per_step": ms / steps, "collectives_per_step": {
+        k: v / steps for k, v in SH.counts.items()}}
+    check(all(len(t) == 16 for t in toks), f"(m2) tokens {toks}")
+    SH.barrier()
+    if rank == 0:
+        one = Engine(cfg, scfg, params, device=dev)
+        one.generate(prompts[:1], max_new=2)
+        one = Engine(cfg, scfg, params, device=dev)
+        want, one_ms = timed_ms(torch, lambda: one.generate(prompts,
+                                                            max_new=16))
+        check(toks == want, f"(m2) sharded Engine tokens {toks} vs one rank "
+                            f"{want}")
+        out["one_rank_ms_per_step"] = one_ms / steps
+    SH.barrier()
+    out["tokens_equal"] = True
+    rank_log(rank, f"(m2) Engine(mesh) rwkv6-3b 2 layers f32: 4 x 16 greedy "
+             f"tokens, {out['ms_per_step']:.2f} ms an engine step, "
+             f"collectives a step {out['collectives_per_step']}"
+             + ("" if rank else f"; the one-rank Engine's tokens, "
+                f"{out['one_rank_ms_per_step']:.2f} ms a step"))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+LM_SHARDED_TRAIN = (("rwkv6-3b", 2, 2e-4), ("gemma2-2b", 2, 1e-5),
+                    ("qwen3-8b", 2, 1e-5))
+
+
+def lm_sharded_train(torch, SH, mesh, rank, dev, arch, n_layers, prel):
+    """(m3): `make_train_step(..., mesh=)` at full width and `n_layers`, f32,
+    sgdm (the update linear in the gradient), batch 2 x 256: pure DP for
+    rwkv6-3b and gemma2-2b, TP over 'model' for qwen3-8b; 2 steps, each
+    timed with both ranks at once and its collectives counted; loss and
+    grad norm (1e-5) and the gathered parameters (`prel` of each leaf's
+    largest entry) against the one-rank step on rank 0; each rank's peak
+    bytes beside the one-rank step's."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSuite
+    from repro_torch.launch import steps as STEPS
+    from repro_torch.models import get_model
+    from repro_torch.models.module import materialize
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_flatten_with_path
+    cfg = get_config(arch).replace(n_layers=n_layers,
+                                   param_dtype=torch.float32,
+                                   compute_dtype=torch.float32)
+    B, S = 2, 256
+    opt = make_optimizer("sgdm")
+    rng = np.random.default_rng(6)
+    batches = [{k: torch.from_numpy(rng.integers(lo, cfg.vocab_size, (B, S)))
+                .to(dev) for k, lo in (("tokens", 0), ("labels", -1))}
+               for _ in range(2)]
+    specs = get_model(cfg).specs(cfg)
+    draw = lambda: materialize(specs, torch.Generator(device=dev).manual_seed(3))
+    built = STEPS.make_train_step(cfg, opt, ShapeSuite("t", S, B, "train"),
+                                  mesh=mesh)
+    sh = built.shardings
+    held = torch.cuda.memory_allocated()
+    params = SH.place_tree(draw(), sh["params"])
+    state = STEPS.init_opt_state(opt, params, sh["opt"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()      # the whole draw not counted
+    metrics, ms, colls = [], [], []
+    for i, b in enumerate(batches):
+        SH.barrier()
+        SH.counts.clear()
+        (params, state, m), t = timed_ms(
+            torch, lambda: built.fn(params, state, b, i))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        ms.append(t)
+        colls.append(dict(SH.counts))
+    peak = torch.cuda.max_memory_allocated() - held
+    got = {p: whole_leaf(SH, x) for p, x in tree_flatten_with_path(params)}
+    del params, state
+    torch.cuda.empty_cache()
+    out = {"pure_dp": sh["pure_dp"], "metrics": metrics, "step_ms": ms,
+           "collectives": colls, "peak_bytes": peak}
+    SH.barrier()
+    if rank == 0:
+        step = STEPS.make_train_step(cfg, opt)
+        held = torch.cuda.memory_allocated()
+        p1 = draw()
+        s1, want, one_ms = opt.init(p1), [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i, b in enumerate(batches):
+            (p1, s1, m), t = timed_ms(torch, lambda: step(p1, s1, b, i))
+            want.append((float(m["loss"]), float(m["grad_norm"])))
+            one_ms.append(t)
+        out["one_rank_peak_bytes"] = torch.cuda.max_memory_allocated() - held
+        out["one_rank_step_ms"] = one_ms
+        for (gl, gn), (wl, wn) in zip(metrics, want):
+            check(abs(gl - wl) <= F32_REL * abs(wl)
+                  and abs(gn - wn) <= F32_REL * abs(wn),
+                  f"(m3) {arch}: loss/grad norm {metrics} vs one rank {want}")
+        worst = max(rel_err(torch, got[p], x)
+                    for p, x in tree_flatten_with_path(p1))
+        check(worst <= prel, f"(m3) {arch}: params vs one rank {worst:.3e}")
+        out["params_rel"] = worst
+        out["one_rank_metrics"] = want
+        del p1, s1
+    del got
+    torch.cuda.empty_cache()
+    SH.barrier()
+    rank_log(rank, f"(m3) {arch} full width, {n_layers} layers, f32, "
+             f"{'pure DP' if sh['pure_dp'] else 'TP over model'}: steps "
+             f"{[f'{t:.1f}' for t in ms]} ms, peak {peak / 1e9:.3f} GB, "
+             f"collectives a step {colls[-1]}"
+             + ("" if rank else
+                f"; one rank: steps {[f'{t:.1f}' for t in out['one_rank_step_ms']]}"
+                f" ms, peak {out['one_rank_peak_bytes'] / 1e9:.3f} GB; "
+                f"params vs one rank {out['params_rel']:.2e}"))
+    return out
+
+
+def lm_sharded_rank(rank, world, out_dir):
+    """One rank of phase 19: both ranks on card 0, in a gloo group."""
+    import torch
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    from repro_torch import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 2)
+    res, parts, t0 = {}, {}, time.perf_counter()
+    jobs = [("m1", lambda: lm_sharded_prefill(torch, SH, mesh, rank, dev)),
+            ("m2", lambda: lm_sharded_engine(torch, SH, mesh, rank, dev))]
+    jobs += [(f"m3 {a}", lambda a=a, n=n, p=p: lm_sharded_train(
+        torch, SH, mesh, rank, dev, a, n, p)) for a, n, p in LM_SHARDED_TRAIN]
+    for name, fn in jobs:
+        res[name] = fn()
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    res["seconds"] = parts
+    res["jax_imported"] = sorted(m for m in sys.modules
+                                 if m == "jax" or m.startswith("jax.")
+                                 or m == "repro" or m.startswith("repro."))
+    check(not res["jax_imported"], f"rank {rank} imported {res['jax_imported']}")
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def lm_sharded_phase(torch):
+    """Phase 19 (module docstring): the two-rank group's run, then the
+    ranks' results read back.  Returns K4's "sharded" entry of the kernels
+    line."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.mesh import spawn
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_sharded_"))
+    try:
+        t0 = time.perf_counter()
+        spawn(lm_sharded_rank, 2, str(root), timeout=LM_SHARDED_TIMEOUT)
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((root / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    m1 = [r["m1"] for r in ranks]
+    log(f"phase 19 group: {wall:.1f} s wall; seconds by part (rank 0): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["seconds"].items()))
+    log("phase 19 json: " + json.dumps(ranks))
+    return {"launches_per_rank": [m["launches"] for m in m1],
+            "heads_per_rank": m1[0]["heads"],
+            "bitwise_vs_one_rank_heads": m1[0]["bitwise"],
+            "max_abs_err": max(m["max_abs_err"] for m in m1),
+            "prefill_ms": [m["prefill_ms"] for m in m1],
+            "one_rank_prefill_ms": m1[0]["one_rank_prefill_ms"],
+            "peak_bytes": [m["peak_bytes"] for m in m1],
+            "one_rank_peak_bytes": m1[0]["one_rank_peak_bytes"],
+            "f32_logits_rel": m1[0]["f32_logits_rel"],
+            "engine_ms_per_step": ranks[0]["m2"]["ms_per_step"],
+            "train": {a: {k: ranks[0][f"m3 {a}"][k] for k in
+                          ("pure_dp", "step_ms", "peak_bytes",
+                           "one_rank_step_ms", "one_rank_peak_bytes",
+                           "params_rel")}
+                      for a, _, _ in LM_SHARDED_TRAIN},
+            "group_s": wall}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6151,6 +6574,14 @@ def main():
         stop_reckoning(job)
 
 
+def phase_time(n, what, t0) -> float:
+    """Logs the seconds since t0 as phase n's ("phase{n} (what): s");
+    returns the time now."""
+    t = time.perf_counter()
+    log(f"phase{n} ({what}): {t - t0:.1f} s")
+    return t
+
+
 def run_phases(torch, job):
     from repro_torch import checkpoint as CKP
     from repro_torch.core import bptt as BP, costs as CO, rtrl as RT
@@ -6162,6 +6593,7 @@ def run_phases(torch, job):
     from repro_torch.runtime import fleet as FL, online as ON
 
     # -- phase 1: device and build ------------------------------------------
+    tp = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -6263,6 +6695,8 @@ def run_phases(torch, job):
         "(time_ms)")
     log("K2 times json: " + json.dumps(k2_times))
 
+    tp = phase_time("s 1-3", "device, build, K1 and K2", tp)
+
     # -- phase 4: the main paths --------------------------------------------
     runs, launches = {}, {}
     for backend in ("compact_fused", "pallas", "dense", "compact"):
@@ -6312,29 +6746,37 @@ def run_phases(torch, job):
 
     trace_main_path(torch, TRAIN, ON, "compact_fused", "fused_update_kernel")
     trace_main_path(torch, TRAIN, ON, "pallas", "influence_kernel")
+    tp = phase_time(" 4", "the main paths", tp)
 
     # -- phase 5: checkpoint, restart and the offline path ------------------
     checkpoint_phase(torch, TRAIN, ON, CKP)
+    tp = phase_time(" 5", "checkpoint, restart, offline", tp)
 
     # -- phase 6: K3 against its plain version, and its entry point ----------
     k3_entry = k3_checks(torch, dev, TRAIN, ON, EM, OPS)
+    tp = phase_time(" 6", "K3", tp)
 
     # -- phase 7: RWKV6-3B serving with K4 ----------------------------------
     k4_entry, _ = rwkv_serving(torch, dev, WK)
+    tp = phase_time(" 7", "RWKV6-3B serving", tp)
 
     # -- phase 8: the stacked engine, --layers 2 and 3 ----------------------
     stacked = stacked_phase(torch, TRAIN, ON, CKP, BP, RT, ST, SP, CF, CK, IN,
                             OPS, CO)
+    tp = phase_time(" 8", "the stacked engine", tp)
 
     # -- phase 9: dynamic sparsity and the stream guard ---------------------
     rewire_entry, guard_entry, g2 = dynamic_phase(torch, TRAIN, ON, CKP, SP,
                                                   ST, CF, CK, IN, OPS)
+    tp = phase_time(" 9", "dynamic sparsity and the guard", tp)
 
     # -- phase 10: the telemetry plane --------------------------------------
     telemetry = telemetry_phase(torch, TRAIN, ON, g2)
+    tp = phase_time(" 10", "the telemetry plane", tp)
 
     # -- phase 11: the stream fleet -----------------------------------------
     fleet = fleet_phase(torch, SERVE, FL, ON, CF, IN, OPS, SP)
+    phase_time(" 11", "the stream fleet", tp)
 
     # -- phase 12: the online token LM --------------------------------------
     t12 = time.perf_counter()
@@ -6374,7 +6816,13 @@ def run_phases(torch, job):
     log(f"phase 18 (the sharded carry, 2 ranks): "
         f"{time.perf_counter() - t18:.1f} s")
 
-    # -- phase 19: the kernels line and the result --------------------------
+    # -- phase 19: the LM's sharded steps on two ranks of the card ---------
+    t19 = time.perf_counter()
+    lm_sharded = lm_sharded_phase(torch)
+    log(f"phase 19 (the LM's sharded steps, 2 ranks): "
+        f"{time.perf_counter() - t19:.1f} s")
+
+    # -- phase 20: the kernels line and the result --------------------------
     t1, t2 = times["(a) f32"], k2_times["(a) column-compact"]
     kernels = [{"name": "compact_fused", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/compact_fused.cu",
@@ -6405,6 +6853,7 @@ def run_phases(torch, job):
     kernels[0]["scaled"] = scaled
     kernels[0]["sharded"] = sharded
     k4_entry["long"] = k4_long
+    k4_entry["sharded"] = lm_sharded
     kernels += [k3_entry, k4_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

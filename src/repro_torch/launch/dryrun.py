@@ -7,8 +7,9 @@ device, nothing allocated (`launch/dryrun_lib.py`).
 
 The reference's flags.  `--mesh` takes `card` (the default: one card);
 the reference's `single` and `multi` are its 256- and 512-chip TPU meshes,
-whose sharded LM steps wait for ROADMAP item 17 (the rules, the meshes and
-the shardings are ported: `sharding`, `launch.mesh`), and exit non-zero.
+and exit non-zero: the LM's sharded steps are ported (`launch.steps`'
+builders take `mesh=`), but counting them on a fake process group of 256
+or 512 ranks waits for ROADMAP item 17.
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ import argparse
 import sys
 
 MESH_REFUSAL = ("--mesh {mesh}: the reference's {chips}-chip TPU mesh is not "
-                "ported; the LM's sharded steps wait for ROADMAP item 17 "
-                "(this dry-run runs one card: --mesh card)")
+                "ported; the dry-run of the sharded steps on a fake process "
+                "group waits for ROADMAP item 17 (this dry-run runs one "
+                "card: --mesh card)")
 
 
 def parse_overrides(pairs) -> dict:

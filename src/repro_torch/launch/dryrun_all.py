@@ -9,7 +9,8 @@ end the sweep; `--jobs` runs that many at once (the counts are
 single-threaded Python; a full-size cell with a long plain-WKV loop takes
 minutes).  Records land in `<out>/<arch>_<shape>_card.json`.  `--mesh`
 takes `card` only: the reference's `single` / `multi` / `both` meshes wait
-for the LM's sharded steps, ROADMAP item 17.
+for the dry-run of the sharded steps on a fake process group, ROADMAP
+item 17.
 """
 from __future__ import annotations
 

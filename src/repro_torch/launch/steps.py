@@ -9,22 +9,33 @@ over the parameter tree, and its abstract arguments are `meta` tensors
 runs the step on.  A serve step is built for a device: on `meta` it takes
 the plain versions of the kernels (no kernel wrapper takes a meta
 tensor), on the card the kernels.  The sharding helpers return the
-reference's shardings over a mesh (`models.module.NamedSharding`); the
-steps themselves run on one device: the train step over a mesh
-(`make_train_step(cfg, mesh, ...)`) waits for ROADMAP item 17.
+reference's shardings over a mesh (`models.module.NamedSharding`).
+
+With `mesh=` a step is explicit SPMD over the caller's process group:
+each rank runs it on its local shards (`models.module.ShardCtx`).  Its
+parameters and optimizer state are placed by the `BuiltStep`'s
+`shardings` (`sharding.place_tree`, and `init_opt_state`), its batch is
+given whole and each rank takes its rows, and it returns its outputs
+placed (DTensors, or plain tensors where a sharding replicates).  The
+train step picks pure data parallelism as the reference does.  The MoE
+decoders, the RG-LRU LM and the encoder-decoder are not ported under a
+mesh (ROADMAP item 17).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
 
+from repro_torch import sharding as SH
 from repro_torch.configs.base import ModelConfig, ShapeSuite
 from repro_torch.models import get_model
-from repro_torch.models.module import NamedSharding, abstract, mesh_shape
+from repro_torch.models.module import (NamedSharding, ShardCtx, abstract,
+                                       mesh_shape, tree_shardings)
 from repro_torch.optim import clip_by_global_norm, make_optimizer, microbatch_grads
-from repro_torch.tree import (tree_flatten_with_path, tree_leaves,
+from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,
                                tree_map_with_path)
 
 Tree = Any
@@ -79,14 +90,11 @@ def batch_shardings(cfg: ModelConfig, shape: ShapeSuite, mesh,
     """A NamedSharding a batch leaf: the batch dim over the batch axes (and
     'model' with `pure_dp`), shedding trailing axes until they divide the
     global batch (a batch too small to split is replicated)."""
-    from repro_torch.sharding import batch_axes
-    ba = batch_axes(mesh) + (("model",) if pure_dp else ())
+    ba = SH.batch_axes(mesh) + (("model",) if pure_dp else ())
     B = shape.global_batch
 
     def spec(x):
-        axes = ba
-        while axes and B % _size(mesh, axes):
-            axes = axes[:-1]
+        axes = SH.split_dims(mesh, ba, B)
         rest = (None,) * (x.dim() - 1)
         return NamedSharding(mesh, (axes if axes else None,) + rest)
     return {k: spec(x) for k, x in batch_abstract(cfg, shape).items()}
@@ -127,6 +135,33 @@ class BuiltStep:
     fn: Callable                 # the step, a Python function
     args_abstract: tuple         # its arguments' meta stand-ins
     donate: tuple = ()           # arguments the step updates in place
+    shardings: dict | None = None   # with a mesh: the arguments' and outputs'
+
+
+# ---------------------------------------------------------------------------
+# Under a mesh
+# ---------------------------------------------------------------------------
+
+def pure_dp_for(cfg: ModelConfig, mesh, shape: ShapeSuite) -> bool:
+    """The reference's choice: pure data parallelism where the config asks
+    for it and the global batch divides over the batch axes and 'model'."""
+    return (cfg.train_pure_dp and shape.global_batch
+            % _size(mesh, SH.batch_axes(mesh) + ("model",)) == 0)
+
+
+def _rows(x: torch.Tensor, mesh, dims: tuple) -> torch.Tensor:
+    """This rank's rows of a whole batch leaf split over `dims`."""
+    if not dims:
+        return x
+    n = x.shape[0] // _size(mesh, dims)
+    return x[SH.group_index(mesh, dims) * n:][:n]
+
+
+def init_opt_state(opt, params: Tree, opt_sh: Tree) -> Tree:
+    """`opt.init` on each rank's local shards, placed by `opt_sh`."""
+    return tree_map_with_path(
+        lambda path, x: SH.from_local(x, _at(opt_sh, path)),
+        opt.init(SH.local_tree(params)))
 
 
 # ---------------------------------------------------------------------------
@@ -159,7 +194,8 @@ def update_in_place(opt, grads: Tree, state: dict, params: Tree, step) -> None:
             old.copy_(new)
 
 
-def make_train_step(cfg: ModelConfig, opt=None, shape: ShapeSuite = None):
+def make_train_step(cfg: ModelConfig, opt=None, shape: ShapeSuite = None, *,
+                    mesh=None):
     """train_step(params, opt_state, batch, step) -> (params, opt_state,
     {"loss", "grad_norm"}): the loss and gradients over
     cfg.n_microbatches slices of the batch, the gradients clipped to
@@ -168,9 +204,12 @@ def make_train_step(cfg: ModelConfig, opt=None, shape: ShapeSuite = None):
     (`update_in_place`), which are returned.  With a `shape`, a
     `BuiltStep` whose abstract arguments are the meta parameters,
     optimizer state and batch, and step 0 (the optimizers read the step
-    as a Python int)."""
+    as a Python int).  With a `mesh` (and a `shape`), the step over the
+    mesh: see `_sharded_train_step`."""
     api = get_model(cfg)
     opt = opt or default_optimizer(cfg)
+    if mesh is not None:
+        return _sharded_train_step(cfg, api, opt, shape, mesh)
 
     def loss(params, batch):
         return api.loss_fn(cfg, params, batch)
@@ -188,6 +227,66 @@ def make_train_step(cfg: ModelConfig, opt=None, shape: ShapeSuite = None):
     return BuiltStep(train_step, args, donate=(0, 1))
 
 
+def _sharded_train_step(cfg, api, opt, shape, mesh) -> BuiltStep:
+    """The train step on each rank's shards.  The loss is the whole
+    batch's (each rank's rows, the sums and the count summed over the
+    batch's split dims); each weight's gradient is summed over those dims
+    by its FSDP gather's backward, or by one all_reduce a bucket after the
+    backward; the norm is the whole tree's; the update runs leaf by leaf
+    on the local shards.  So loss, grad_norm and parameters are the
+    one-rank step's.  The batch leaves come whole; the params and state
+    placed by `shardings` ("params", "opt"; "batch" says how the rows
+    split)."""
+    if shape is None:
+        raise ValueError("a train step over a mesh needs the shape (its "
+                         "global batch picks the layout)")
+    SH.refuse_on_mesh(cfg, "train step")
+    if not opt.elementwise:
+        raise NotImplementedError(
+            "adafactor's factored moments over a mesh need each leaf's whole "
+            "rows and columns: ROADMAP item 17")
+    pure_dp = pure_dp_for(cfg, mesh, shape)
+    rules = SH.make_rules(cfg, mesh, pure_dp=pure_dp)
+    specs = api.specs(cfg)
+    params_sh = tree_shardings(specs, rules, mesh)
+    params_abs = abstract(specs)
+    opt_sh = mirror_opt_shardings(opt.init(params_abs), params_abs, params_sh,
+                                  mesh)
+    b_sh = batch_shardings(cfg, shape, mesh, pure_dp=pure_dp)
+    axes = SH.batch_axes(mesh) + (("model",) if pure_dp else ())
+    sizes = mesh_shape(mesh)
+    stored = tree_map(SH.placed_dims, params_sh)     # a tuple a leaf
+    rep = tree_map(lambda s: math.prod(n for d, n in sizes.items()
+                                       if d not in SH.placed_dims(s)),
+                   params_sh)
+
+    def train_step(params, opt_state, batch, step):
+        lp, ls = SH.local_tree(params), SH.local_tree(opt_state)
+        rows = next(iter(batch.values())).shape[0] // cfg.n_microbatches
+        dims = SH.split_dims(mesh, axes, rows)
+        ctx = ShardCtx(mesh, rules, batch=dims)
+
+        def loss(p, mb):
+            return api.loss_fn(cfg, p, {k: _rows(v, mesh, dims)
+                                        for k, v in mb.items()}, ctx=ctx)
+
+        lv, grads = microbatch_grads(loss, lp, batch, cfg.n_microbatches)
+        gl, need = [], []
+        tree_map(lambda g, st: (gl.append(g), need.append(
+            tuple(d for d in dims if d not in st))), grads, stored)
+        it = iter(SH.reduce_grads(gl, need, mesh))
+        grads = tree_map(lambda _: next(it), grads)
+        grads, gnorm = clip_by_global_norm(
+            grads, 1.0, mesh=mesh, rep=tree_map(lambda _, r: r, grads, rep))
+        update_in_place(opt, grads, ls, lp, step)
+        return params, opt_state, {"loss": lv.float(), "grad_norm": gnorm}
+
+    args = (params_abs, opt.init(params_abs), batch_abstract(cfg, shape), 0)
+    return BuiltStep(train_step, args, donate=(0, 1),
+                     shardings={"params": params_sh, "opt": opt_sh,
+                                "batch": b_sh, "pure_dp": pure_dp})
+
+
 # ---------------------------------------------------------------------------
 # Serve steps
 # ---------------------------------------------------------------------------
@@ -196,21 +295,25 @@ def _on_meta(device) -> bool:
     return torch.device(device).type == "meta"
 
 
-def _prefill_callable(cfg: ModelConfig, api, max_seq: int, plain: bool):
+def _prefill_callable(cfg: ModelConfig, api, max_seq: int, plain: bool,
+                      ctx=None):
     """prefill(params, batch) -> (last-position logits, cache with room for
     max_seq positions); `plain` takes RWKV6's plain WKV (K4's wrapper
-    refuses a meta tensor)."""
+    refuses a meta tensor); `ctx` a mesh's (decoder and RWKV6 only)."""
+    kw = {} if ctx is None else {"ctx": ctx}
     if cfg.family == "decoder":
         def f(params, batch):
             return api.prefill(cfg, params, batch["tokens"],
-                               batch.get("patch_embeds"), max_seq=max_seq)
+                               batch.get("patch_embeds"), max_seq=max_seq,
+                               **kw)
     elif cfg.family == "encdec":
         def f(params, batch):
             return api.prefill(cfg, params, batch["tokens"], batch["frames"],
                                max_seq=max_seq)
     elif cfg.family == "rwkv6":
         def f(params, batch):            # the state does not grow with S
-            return api.prefill(cfg, params, batch["tokens"], plain=plain)
+            return api.prefill(cfg, params, batch["tokens"], plain=plain,
+                               **kw)
     else:
         def f(params, batch):
             return api.prefill(cfg, params, batch["tokens"], max_seq=max_seq)
@@ -218,31 +321,61 @@ def _prefill_callable(cfg: ModelConfig, api, max_seq: int, plain: bool):
 
 
 def make_prefill_step(cfg: ModelConfig, shape: ShapeSuite,
-                      device="meta") -> BuiltStep:
+                      device="meta", *, mesh=None) -> BuiltStep:
     """The prefill of the shape's batch on `cfg.replace(remat="none")`,
     its cache sized to the shape's S (a shorter prompt leaves room to
-    decode up to S), built for `device`."""
+    decode up to S), built for `device`.  With a `mesh`, over the mesh on
+    its device: fn(params, batch) -> (logits, cache) placed by
+    `shardings` ("logits", "cache"; "params" places the parameters)."""
     icfg = cfg.replace(remat="none")
     api = get_model(icfg)
-    fn = _prefill_callable(icfg, api, shape.seq_len, _on_meta(device))
-    return BuiltStep(fn, (abstract(api.specs(icfg)),
-                          input_specs(icfg, shape)))
+    args = (abstract(api.specs(icfg)), input_specs(icfg, shape))
+    if mesh is None:
+        fn = _prefill_callable(icfg, api, shape.seq_len, _on_meta(device))
+        return BuiltStep(fn, args)
+    SH.refuse_on_mesh(icfg, "prefill")
+    sh, ctx, dims = SH.serve_layout(icfg, api, shape.global_batch,
+                                    shape.seq_len, mesh)
+    inner = _prefill_callable(icfg, api, shape.seq_len, False, ctx)
+
+    def fn(params, batch):
+        with torch.no_grad():
+            logits, cache = inner(SH.local_tree(params),
+                                  {k: _rows(v, mesh, dims)
+                                   for k, v in batch.items()})
+        return (SH.from_local(logits, sh["logits"]),
+                tree_map(SH.from_local, cache, sh["cache"]))
+    return BuiltStep(fn, args, shardings=sh)
 
 
 def make_decode_step(cfg: ModelConfig, shape: ShapeSuite,
-                     device="meta") -> BuiltStep:
+                     device="meta", *, mesh=None) -> BuiltStep:
     """One decode step of the shape's batch on `cfg.replace(remat="none")`
     from a cache sized to the shape's S: fn(params, token, cache, pos) ->
     (logits [B, V] f32, new cache; the old one is not written, so nothing
     is donated).  No kernel lies on a decode path, so `device` changes
-    nothing here; it is taken for symmetry."""
+    nothing here; it is taken for symmetry.  With a `mesh`: token and pos
+    whole, the cache placed by `shardings["cache"]` (a prefill's over the
+    same mesh and shape), the logits and new cache placed."""
     del device
     icfg = cfg.replace(remat="none")
     api = get_model(icfg)
+    args = _decode_inputs(icfg, shape)      # whatever the shape's kind
+    args = (abstract(api.specs(icfg)), args["token"], args["cache"],
+            args["pos"])
+    if mesh is None:
+        def fn(params, token, cache, pos):
+            return api.decode_step(icfg, params, token, cache, pos)
+        return BuiltStep(fn, args)
+    SH.refuse_on_mesh(icfg, "decode step")
+    sh, ctx, dims = SH.serve_layout(icfg, api, shape.global_batch,
+                                    shape.seq_len, mesh)
 
     def fn(params, token, cache, pos):
-        return api.decode_step(icfg, params, token, cache, pos)
-
-    args = _decode_inputs(icfg, shape)      # whatever the shape's kind
-    return BuiltStep(fn, (abstract(api.specs(icfg)), args["token"],
-                          args["cache"], args["pos"]))
+        with torch.no_grad():
+            logits, new = api.decode_step(
+                icfg, SH.local_tree(params), _rows(token, mesh, dims),
+                SH.local_tree(cache), _rows(pos, mesh, dims), ctx=ctx)
+        return (SH.from_local(logits, sh["logits"]),
+                tree_map(SH.from_local, new, sh["cache"]))
+    return BuiltStep(fn, args, shardings=sh)

@@ -107,7 +107,7 @@ The LM families (counterpart of the reference's LM path, its `main`):
                 whisper-large-v3} \
         [--smoke] [--steps 20] [--batch 4] [--seq 64] [--seed 0] \
         [--device cpu] [--ckpt-every 10] [--ckpt-dir DIR] [--fail-at K] \
-        [--metrics FILE] [--metrics-dir DIR [--trace]]
+        [--metrics FILE] [--metrics-dir DIR [--trace]] [--production-mesh]
 
 trains offline through `launch.steps.make_train_step` (the loss over
 cfg.n_microbatches slices, the global norm clipped to 1.0, the config's
@@ -120,6 +120,18 @@ torch.Generator(--seed) on the device.  RWKV6 trains through the plain WKV
 (`models.rwkv.loss_fn`); a MoE decoder's loss adds 0.01 x its
 load-balance loss.  The flags this path does not read (the spiral's and
 the online LM's) are refused before anything is written.
+
+Under a process group (`torchrun --nproc-per-node N -m
+repro_torch.launch.train ...`, or `launch.mesh.spawn`) the RWKV6 and
+dense-decoder archs train over `make_host_mesh()` (N x 1) across its
+ranks, as the reference does, through the step's mesh form (FSDP or pure
+data parallelism as the rules and the config pick); `--production-mesh`
+takes `make_production_mesh()` (16 x 16), which needs 256 ranks and
+raises on another world size.  The parameters are drawn whole and each
+rank keeps its shards; checkpoints are written shard by shard and
+restore onto the run's own mesh (`Trainer(shardings=...)`); rank 0
+prints the summary.  The MoE, RG-LRU and encoder-decoder archs under a
+mesh are refused before anything is written (ROADMAP item 17).
 """
 from __future__ import annotations
 
@@ -216,7 +228,7 @@ def _build_common(args) -> dict:
     from repro_torch.optim.optimizers import (make_optimizer, masked,
                                               masked_dynamic)
 
-    _refuse_unread(args, _LM_FLAGS)
+    _refuse_unread(args, {**_LM_FLAGS, "production_mesh": False})
     backend = args.rtrl_backend
     rewiring = args.rewire != "off"
     if rewiring and not args.online:
@@ -388,8 +400,10 @@ def build_lm(args) -> dict:
                          f"workload — pass --online (--steps counts "
                          f"optimizer updates)")
     engine = LM_ARCHS[args.arch]
-    _refuse_unread(args, _SPIRAL_FLAGS if engine == "sparse"
-                   else {**_SPIRAL_FLAGS, **_EGRU_FLAGS})
+    _refuse_unread(args, {**_SPIRAL_FLAGS, "production_mesh": False}
+                   if engine == "sparse"
+                   else {**_SPIRAL_FLAGS, **_EGRU_FLAGS,
+                         "production_mesh": False})
     if engine == "eprop" and args.sparsity > 0.0:
         raise SystemExit("--sparsity is not wired for snn-lm (no "
                          "parameter-mask convention for the spiking cell)")
@@ -638,6 +652,9 @@ def parse_args(argv=None):
                     help="streams in the batch of the *-lm archs")
     ap.add_argument("--seq", type=int, default=64,
                     help="tokens a sequence of the *-lm archs' stream")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="LM families: train over the 16 x 16 production "
+                         "mesh (256 ranks)")
     add_obs_args(ap)
     args = ap.parse_args(argv)
     if args.ckpt_dir is None:
@@ -645,9 +662,30 @@ def parse_args(argv=None):
     return args
 
 
-def build_model_lm(args) -> dict:
+def _model_lm_mesh(args, device):
+    """The LM run's mesh: the production mesh when asked for, the host
+    mesh over an initialized process group, else None (one device).  A
+    process started by torchrun (WORLD_SIZE > 1 in its environment) joins
+    its group first: gloo on the CPU, nccl on the card (its LOCAL_RANK's)."""
+    import os
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("gloo" if device.type == "cpu" else "nccl")
+    if args.production_mesh:
+        return mesh_lib.make_production_mesh(device=device)
+    if dist.is_initialized():
+        return mesh_lib.make_host_mesh(device=device)
+    return None
+
+
+def build_model_lm(args, mesh=None) -> dict:
     """The LM family run of `args`: cfg, device, opt, the train step and
-    data_at (the step's batch on the device).  The refusals come first."""
+    data_at (the step's batch on the device), and the mesh (`mesh`, else
+    `_model_lm_mesh`) with the step's shardings.  The refusals come
+    first."""
     from repro_torch.configs import ARCHS as MODEL_ARCHS
     from repro_torch.configs import NOT_PORTED, get_config, smoke_config
     from repro_torch.launch import steps as steps_lib
@@ -665,7 +703,16 @@ def build_model_lm(args) -> dict:
     if args.smoke:
         cfg = smoke_config(cfg)
     device = resolve_device(args.device)
+    mesh = mesh if mesh is not None else _model_lm_mesh(args, device)
     opt = steps_lib.default_optimizer(cfg)
+    built = None
+    if mesh is not None:
+        from repro_torch.configs.base import ShapeSuite
+        built = steps_lib.make_train_step(
+            cfg, opt, ShapeSuite("cli", args.seq, args.batch, "train"),
+            mesh=mesh)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     batches = {"n_patches": cfg.n_patches} if cfg.n_patches else {}
     if cfg.family == "encdec":       # the stub audio frontend's frames
         batches["frames"] = (cfg.enc_seq, cfg.d_model)
@@ -679,28 +726,40 @@ def build_model_lm(args) -> dict:
                 for k, v in b.items()}
 
     return {"cfg": cfg, "device": device, "opt": opt, "data_at": data_at,
-            "step_fn": steps_lib.make_train_step(cfg, opt)}
+            "mesh": mesh,
+            "shardings": None if built is None else built.shardings,
+            "step_fn": steps_lib.make_train_step(cfg, opt) if built is None
+            else built.fn}
 
 
 def model_lm_trainers(args, run):
     """make_trainer(attempt) for `run_with_restart`: a Trainer with the
     parameters drawn anew from torch.Generator(--seed) on the device,
-    `--fail-at` armed on attempt 0 only."""
+    `--fail-at` armed on attempt 0 only.  Over a mesh the parameters and
+    state are placed by the step's shardings, and restore onto them."""
     from repro_torch.models import get_model
     from repro_torch.models.module import materialize
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
-    cfg, device = run["cfg"], run["device"]
+    cfg, device, sh = run["cfg"], run["device"], run["shardings"]
 
     def make_trainer(attempt=0):
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = materialize(get_model(cfg).specs(cfg), gen)
+        opt_state, shardings = None, None
+        if sh is not None:
+            from repro_torch.launch.steps import init_opt_state
+            from repro_torch.sharding import place_tree
+            params = place_tree(params, sh["params"])
+            opt_state = init_opt_state(run["opt"], params, sh["opt"])
+            shardings = (sh["params"], sh["opt"])
         tcfg = TrainerConfig(total_steps=args.steps,
                              ckpt_every=args.ckpt_every,
                              ckpt_dir=args.ckpt_dir,
                              fail_at_step=args.fail_at if attempt == 0 else -1,
                              metrics_path=args.metrics)
-        return Trainer(tcfg, run["step_fn"], params, run["opt"].init(params),
-                       run["data_at"])
+        return Trainer(tcfg, run["step_fn"], params,
+                       run["opt"].init(params) if opt_state is None
+                       else opt_state, run["data_at"], shardings=shardings)
 
     return make_trainer
 
@@ -715,10 +774,17 @@ def train_model_lm(args) -> dict:
                "stragglers": out["stragglers"],
                **_loss_fields(out["metrics"]),
                "median_step_ms": _median_ms(out["steps"])}
+    mesh = run["mesh"]
+    if mesh is not None:
+        from repro_torch.models.module import mesh_shape
+        summary["mesh"] = mesh_shape(mesh)
+        summary["pure_dp"] = run["shardings"]["pure_dp"]
+    out["summary"] = summary
+    if mesh is not None and mesh.get_rank() != 0:
+        return out
     obs = telemetry_from_args(args, arch=args.arch)
     finish_run(obs, f"train {args.arch}", summary)
     print(json.dumps(summary))
-    out["summary"] = summary
     return out
 
 

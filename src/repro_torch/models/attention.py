@@ -15,6 +15,17 @@ Scores, P.V and the decode products take compute-dtype operands widened
 to f32, as the reference's `preferred_element_type=jnp.float32` products
 do (a bf16 x bf16 product is exact in f32); P is rounded to V's dtype
 before P.V, as there.  TF32 is off in this package.
+
+Under a mesh (`ShardCtx`), wq/wk/wv are column-parallel and wo
+row-parallel over 'model'.  Where the projections' channel slices are
+whole heads, and each rank's query heads find their kv heads on the same
+rank, a rank attends over its own heads.  Otherwise (a slice that is not
+whole heads, or GQA groups that straddle ranks) the projected heads are
+gathered over 'model', every rank attends over all heads, and keeps its
+channels for wo.  The decode cache is split as `sharding.cache_shardings`
+splits it: along the sequence over 'model' where it divides (each rank
+attends over its slots and the partial softmaxes merge: the max, then
+the weighted sums), else by kv heads.
 """
 from __future__ import annotations
 
@@ -22,9 +33,11 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import collectives as C
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_rope, rmsnorm, softcap
-from repro_torch.models.module import ParamSpec, fan_in_normal, ones_init
+from repro_torch.models.module import (NULL_CTX, ParamSpec, ShardCtx,
+                                       fan_in_normal, ones_init)
 
 NEG_INF = -1e30
 
@@ -52,8 +65,13 @@ def _scale(cfg: ModelConfig) -> float:
 def project_q(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, *,
               rope: bool = True) -> torch.Tensor:
     """-> [B, S, H, Dh]"""
-    q = x @ p["wq"].to(cfg.compute_dtype)
-    q = q.reshape(*q.shape[:-1], cfg.n_heads, cfg.head_dim)
+    return _q_heads(cfg, p, x @ p["wq"].to(cfg.compute_dtype), positions, rope)
+
+
+def _q_heads(cfg, p, q, positions, rope=True):
+    """Projected queries [..., n * Dh] -> heads [..., n, Dh], normed and
+    rotated."""
+    q = q.reshape(*q.shape[:-1], -1, cfg.head_dim)
     if cfg.qk_norm and "q_norm" in p:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
     if rope and cfg.pos_emb == "rope":
@@ -65,10 +83,13 @@ def project_kv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, *,
                rope: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """-> k, v: [B, Skv, KV, Dh]"""
     dt = cfg.compute_dtype
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
-    k = k.reshape(*k.shape[:-1], cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(*v.shape[:-1], cfg.n_kv_heads, cfg.head_dim)
+    return _kv_heads(cfg, p, x @ p["wk"].to(dt), x @ p["wv"].to(dt),
+                     positions, rope)
+
+
+def _kv_heads(cfg, p, k, v, positions, rope=True):
+    k = k.reshape(*k.shape[:-1], -1, cfg.head_dim)
+    v = v.reshape(*v.shape[:-1], -1, cfg.head_dim)
     if cfg.qk_norm and "k_norm" in p:
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     if rope and cfg.pos_emb == "rope":
@@ -202,10 +223,62 @@ def decode_attention(cfg: ModelConfig, q, k_cache, v_cache, cur_pos, *,
     return o.reshape(B, KV * G, 1, Dh).transpose(1, 2).to(cfg.compute_dtype)
 
 
-def out_proj(cfg: ModelConfig, p: dict, attn_out: torch.Tensor) -> torch.Tensor:
+def out_proj(cfg: ModelConfig, p: dict, attn_out: torch.Tensor,
+             ctx: ShardCtx = NULL_CTX, local: bool = False) -> torch.Tensor:
+    """attn_out [B, S, n, Dh] @ wo.  `local`: the rank's own heads against
+    its rows of wo, summed over 'model'; all heads against rows of wo
+    split over 'model': the rank's channels, summed likewise."""
     B, S = attn_out.shape[:2]
-    flat = attn_out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return flat @ p["wo"].to(cfg.compute_dtype)
+    flat = attn_out.reshape(B, S, -1)
+    wo = p["wo"].to(cfg.compute_dtype)
+    if wo.shape[0] == flat.shape[-1]:
+        out = flat @ wo
+        return ctx.reduce(out) if local else out
+    return ctx.reduce(ctx.split(flat, -1) @ wo)
+
+
+def project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
+                ctx: ShardCtx = NULL_CTX):
+    """(q [B,S,n,Dh], k, v [B,S,nkv,Dh], the cfg of their heads, local):
+    the rank's own heads (local=True) where its column slices of wq and
+    wk/wv are whole heads of aligned GQA groups, else every head (the
+    split projections gathered over 'model')."""
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    wq, wk, wv = (p[k].to(cfg.compute_dtype) for k in ("wq", "wk", "wv"))
+    if wq.shape[-1] == H * Dh and wk.shape[-1] == KV * Dh:
+        q = _q_heads(cfg, p, x @ wq, positions)
+        return (q, *_kv_heads(cfg, p, x @ wk, x @ wv, positions), cfg, False)
+    xin = ctx.copy(x)
+    m = H * Dh // wq.shape[-1]
+    if (wq.shape[-1] * m == H * Dh and wk.shape[-1] * m == KV * Dh
+            and H % m == 0 and KV % m == 0):
+        # the qk-norm scales act on the rank's heads only: their gradient
+        # sums over 'model'
+        p = {k: ctx.copy(v) if k in ("q_norm", "k_norm") else v
+             for k, v in p.items()}
+        q = _q_heads(cfg, p, xin @ wq, positions)
+        k, v = _kv_heads(cfg, p, xin @ wk, xin @ wv, positions)
+        return q, k, v, cfg.replace(n_heads=H // m, n_kv_heads=KV // m), True
+
+    def proj(w, full):
+        return x @ w if w.shape[-1] == full else ctx.gather(xin @ w, -1)
+    q = _q_heads(cfg, p, proj(wq, H * Dh), positions)
+    k, v = _kv_heads(cfg, p, proj(wk, KV * Dh), proj(wv, KV * Dh), positions)
+    return q, k, v, cfg, False
+
+
+def cache_split(cfg: ModelConfig, smax: int, ctx: ShardCtx):
+    """How a [B, smax, KV, Dh] cache splits over 'model' (the rules' own
+    order: kv_seq claims 'model' first): (slot lo, slots, head lo,
+    heads) of this rank."""
+    KV = cfg.n_kv_heads
+    if ctx.model_split("kv_seq", smax):
+        n = smax // ctx.mesh["model"].size()
+        return ctx.model_lo(n), n, 0, KV
+    if ctx.model_split("kv_heads", KV):
+        n = KV // ctx.mesh["model"].size()
+        return 0, smax, ctx.model_lo(n), n
+    return 0, smax, 0, KV
 
 
 # ---------------------------------------------------------------------------
@@ -213,11 +286,10 @@ def out_proj(cfg: ModelConfig, p: dict, attn_out: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, *,
-                   causal=True, window=0):
-    q = project_q(cfg, p, x, positions)
-    k, v = project_kv(cfg, p, x, positions)
-    return out_proj(cfg, p, flash_attention(cfg, q, k, v, causal=causal,
-                                            window=window))
+                   causal=True, window=0, ctx: ShardCtx = NULL_CTX):
+    q, k, v, hcfg, local = project_qkv(cfg, p, x, positions, ctx)
+    o = flash_attention(hcfg, q, k, v, causal=causal, window=window)
+    return out_proj(cfg, p, o, ctx, local)
 
 
 def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -250,25 +322,79 @@ def ring_slot_pos(pos: torch.Tensor, smax: int) -> torch.Tensor:
 
 
 def self_attention_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos, *,
-                          window=0):
+                          window=0, ctx: ShardCtx = NULL_CTX):
     """x: [B,1,d]; cache: {'k','v': [B,Smax,KV,Dh]}  pos: [B] int.
 
     Returns (out [B,1,d], new_cache); the cache passed in is not modified.
     Local layers use a ring buffer (slot = pos % Smax), global layers a
-    linear cache (slot = min(pos, Smax - 1), the reference's clamp)."""
-    B = x.shape[0]
-    Smax = cache["k"].shape[1]
+    linear cache (slot = min(pos, Smax - 1), the reference's clamp).
+    Under a mesh the cache is this rank's split of it (`cache_split`):
+    every head's new K/V is written by the rank that holds its slot, and a
+    rank attends over its slots (merging the partial softmaxes over
+    'model') or its kv heads (gathering the heads' outputs)."""
+    B, dt = x.shape[0], cache["k"].dtype
+    # a split's length does not tell whether the sequence was split (6
+    # slots split 2 ways and 3 slots whole both leave 3): under a mesh the
+    # whole length is the ctx's
+    if not ctx.on:
+        smax = cache["k"].shape[1]
+    else:
+        smax = min(ctx.seq, window) if window > 0 else ctx.seq
+    s_lo, n_s, h_lo, n_h = cache_split(cfg, smax, ctx)
     pos = pos.long()
-    slot = pos % Smax if window > 0 else pos.clamp(max=Smax - 1)
-    k_new, v_new = project_kv(cfg, p, x, pos[:, None])
+    q, k_new, v_new, _, local = project_qkv(cfg, p, x, pos[:, None], ctx)
+    if local:
+        q, k_new, v_new = (ctx.gather(t, 2) for t in (q, k_new, v_new))
+    G = cfg.n_heads // cfg.n_kv_heads
+    slot = (pos % smax if window > 0 else pos.clamp(max=smax - 1)) - s_lo
+    own = ((slot >= 0) & (slot < n_s))[:, None, None]
+    slot = slot.clamp(0, n_s - 1)
     rows = torch.arange(B, device=x.device)
-    k_cache = cache["k"].index_put((rows, slot), k_new[:, 0].to(cache["k"].dtype))
-    v_cache = cache["v"].index_put((rows, slot), v_new[:, 0].to(cache["v"].dtype))
-    slot_pos = ring_slot_pos(pos, Smax) if window > 0 else None
-    q = project_q(cfg, p, x, pos[:, None])
-    o = decode_attention(cfg, q, k_cache, v_cache, pos, window=window,
-                         slot_pos=slot_pos)
-    return out_proj(cfg, p, o), {"k": k_cache, "v": v_cache}
+
+    def write(c, new):
+        new = new[:, 0, h_lo:h_lo + n_h].to(dt)
+        if n_s < smax:      # only the slot's rank writes it
+            new = torch.where(own, new, c[rows, slot])
+        return c.index_put((rows, slot), new)
+    k_cache, v_cache = write(cache["k"], k_new), write(cache["v"], v_new)
+    slot_pos = (ring_slot_pos(pos, smax) if window > 0 else
+                torch.arange(smax, device=x.device).expand(B, smax))
+    slot_pos = slot_pos[:, s_lo:s_lo + n_s]
+    hcfg = cfg if n_h == cfg.n_kv_heads else \
+        cfg.replace(n_heads=n_h * G, n_kv_heads=n_h)
+    qh = q[:, :, h_lo * G:(h_lo + n_h) * G]
+    if n_s < smax:
+        o = _merged_decode(hcfg, qh, k_cache, v_cache, pos, window, slot_pos,
+                           ctx)
+    else:
+        o = decode_attention(hcfg, qh, k_cache, v_cache, pos, window=window,
+                             slot_pos=slot_pos)
+    if n_h < cfg.n_kv_heads:
+        o = ctx.gather(o, 2)
+    return out_proj(cfg, p, o, ctx), {"k": k_cache, "v": v_cache}
+
+
+def _merged_decode(cfg, q, k_cache, v_cache, cur_pos, window, slot_pos, ctx):
+    """`decode_attention` over this rank's slots of a cache split along
+    the sequence: the max over 'model', then this rank's exp-sums and
+    P.V, summed over 'model' in one all_reduce."""
+    B, _, H, Dh = q.shape
+    KV, G = cfg.n_kv_heads, H // cfg.n_kv_heads
+    qg = q.reshape(B, 1, KV, G, Dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k_cache.float()) * _scale(cfg)
+    s = softcap(s, cfg.attn_softcap)
+    valid = (slot_pos <= cur_pos[:, None]) & (slot_pos >= 0)
+    if window > 0:
+        valid &= (cur_pos[:, None] - slot_pos) < window
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    m = ctx.model_max(s.amax(dim=-1, keepdim=True))
+    e = torch.exp(s - m)
+    o = torch.einsum("bkgqs,bskd->bkgqd", e.to(v_cache.dtype).float(),
+                     v_cache.float())
+    lo = C.all_reduce(torch.cat([e.sum(dim=-1)[..., None], o], dim=-1),
+                       ctx.mesh, "model")
+    o = lo[..., 1:] / lo[..., :1]
+    return o.reshape(B, KV * G, 1, Dh).transpose(1, 2).to(cfg.compute_dtype)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, seq: int, window: int = 0,

@@ -196,20 +196,19 @@ def prefill(cfg: ModelConfig, params: dict, tokens, frames, *,
     """Encode the frames and run the decoder over the prompt tokens [B,S].
     Returns (next-token logits [B,V] f32, the cache: the self K/V at slots
     0..S-1 of max_seq (default S), the cross K/V projected once)."""
-    B, S = tokens.shape
+    S = tokens.shape[1]
     max_seq = S if max_seq is None else max_seq
     if max_seq < S:
         raise ValueError(f"prefill: max_seq {max_seq} < the prompt's {S}")
     enc = encode(cfg, params, frames)
     x = _embed(cfg, params, tokens)
     positions = torch.arange(S, device=tokens.device)
-    blank = attn.init_kv_cache(cfg, B, max_seq, device=tokens.device)
     cache = []
     for lp in _layers(cfg, params["dec"], cfg.n_layers):
         h = _norm(cfg, lp["ln_self"], x)
         q = attn.project_q(cfg, lp["self_attn"], h, positions)
         k, v = attn.project_kv(cfg, lp["self_attn"], h, positions)
-        self_c = {"k": _fill(blank["k"], k), "v": _fill(blank["v"], v)}
+        self_c = {"k": _fill(cfg, k, max_seq), "v": _fill(cfg, v, max_seq)}
         o = attn.flash_attention(cfg, q, k, v, causal=True)
         x = x + attn.out_proj(cfg, lp["self_attn"], o)
         # the cross K/V depend on the encoder output only: projected here

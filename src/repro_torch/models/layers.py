@@ -10,7 +10,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.module import ParamSpec, fan_in_normal, normal, ones_init
+from repro_torch.models.module import (NULL_CTX, ParamSpec, ShardCtx,
+                                       fan_in_normal, normal, ones_init)
 
 
 def rmsnorm_spec(dim: int, dtype) -> ParamSpec:
@@ -90,19 +91,35 @@ def embedding_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def embed_tokens(cfg: ModelConfig, emb: dict, tokens: torch.Tensor) -> torch.Tensor:
-    x = emb["tok"][tokens].to(cfg.compute_dtype)
+def embed_tokens(cfg: ModelConfig, emb: dict, tokens: torch.Tensor,
+                 ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
+    """Table lookup.  A table split over 'model' by vocab (`ctx`) is
+    vocab-parallel: each rank looks up the tokens of its vocab range, the
+    others give zero rows, and the sum over 'model' is every row."""
+    tok = emb["tok"]
+    if tok.shape[0] == cfg.vocab_size:
+        x = tok[tokens].to(cfg.compute_dtype)
+    else:
+        n = tok.shape[0]
+        t = tokens - ctx.model_lo(n)
+        inside = ((t >= 0) & (t < n))[..., None]
+        x = ctx.reduce(torch.where(inside, tok[t.clamp(0, n - 1)], 0)
+                       .to(cfg.compute_dtype))
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype)
     return x
 
 
-def lm_logits(cfg: ModelConfig, emb: dict, x: torch.Tensor) -> torch.Tensor:
+def lm_logits(cfg: ModelConfig, emb: dict, x: torch.Tensor,
+              ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """f32 logits.  The reference multiplies compute-dtype operands with f32
     accumulation; here both operands are widened to f32 (TF32 is off in this
     package), which is the same products, exact in f32, summed in another
-    order."""
+    order.  A table split by vocab over 'model' gives the rank's vocab
+    slice of the logits."""
     table = emb["tok"].T if cfg.tie_embeddings else emb["head"]
+    if table.shape[-1] != cfg.vocab_size:
+        x = ctx.copy(x)
     logits = x.float() @ table.to(cfg.compute_dtype).float()
     return softcap(logits, cfg.logit_softcap)
 
@@ -135,8 +152,15 @@ def _act(cfg: ModelConfig, h: torch.Tensor, g: torch.Tensor | None) -> torch.Ten
     raise ValueError(cfg.mlp_act)
 
 
-def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor,
+        ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
+    """With d_ff split over 'model': wi/wg column-parallel, wo
+    row-parallel, the partial outputs summed over 'model'."""
     dt = cfg.compute_dtype
+    tp = p["wi"].shape[-1] != cfg.d_ff
+    if tp:
+        x = ctx.copy(x)
     h = x @ p["wi"].to(dt)
     g = x @ p["wg"].to(dt) if "wg" in p else None
-    return _act(cfg, h, g) @ p["wo"].to(dt)
+    out = _act(cfg, h, g) @ p["wo"].to(dt)
+    return ctx.reduce(out) if tp else out

@@ -25,6 +25,7 @@ from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
+from repro_torch import collectives as C
 from repro_torch.tree import tree_leaves, tree_map
 
 Tree = Any
@@ -267,11 +268,101 @@ def logical_constraint(x: torch.Tensor, axes: Sequence, rules: ShardingRules,
 # A context-free handle passed down the model call stack.
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
+    """The mesh and rules a model call runs under.  With a mesh the call
+    is explicit SPMD on this rank's local tensors: `use` gathers a
+    parameter subtree over the dims the rules shard for storage only (FSDP:
+    what is left is the rank's slice on 'model'), the layers read a
+    weight's 'model' split off its local shape, and the collectives below
+    (`collectives`' differentiable ones) run over 'model' or over `batch`,
+    the mesh dims this call's batch rows are split on.  Every method is
+    the identity without a mesh (`NULL_CTX`)."""
     mesh: Any
     rules: ShardingRules
+    batch: tuple = ()
+    seq: int = 0          # serving: the whole length of the decode cache
 
     def cons(self, x: torch.Tensor, axes: Sequence) -> torch.Tensor:
         return logical_constraint(x, axes, self.rules, self.mesh)
+
+    @property
+    def on(self) -> bool:
+        return self.mesh is not None
+
+    def model_lo(self, n_local: int) -> int:
+        """First index of this rank's slice of a dim split over 'model' in
+        slices of n_local."""
+        return self.mesh.get_local_rank("model") * n_local
+
+    def model_split(self, logical: str, size: int) -> bool:
+        """Whether the rules put 'model' on a dim `logical` of `size`."""
+        if not self.on:
+            return False
+        return pspec_for((logical,), (size,), self.rules, self.mesh) \
+            in (("model",),)
+
+    def copy(self, x):
+        return C.copy_to(x, self.mesh) if self.on else x
+
+    def reduce(self, x):
+        return C.reduce_from(x, self.mesh) if self.on else x
+
+    def gather(self, x, axis: int):
+        return C.gather_from(x, self.mesh, axis) if self.on else x
+
+    def split(self, x, axis: int):
+        return C.split_to(x, self.mesh, axis) if self.on else x
+
+    def keep(self, x, axis: int, n_local: int):
+        """This rank's slice (n_local wide) of a replicated x on a dim the
+        rules split over 'model'; no gradient flows (serving state)."""
+        if not self.on or x.shape[axis] == n_local:
+            return x
+        return x.narrow(axis, self.model_lo(n_local), n_local).contiguous()
+
+    def model_max(self, x):
+        """The max over 'model' (no gradient)."""
+        return C.all_reduce(x.detach(), self.mesh, "model", "max") \
+            if self.on else x
+
+    def reduce_batch(self, x):
+        """The sum over the batch's split dims: all_reduce forward, identity
+        backward (each rank differentiates its own rows' share)."""
+        return C.reduce_from(x, self.mesh, self.batch) \
+            if self.on and self.batch else x
+
+    def use(self, params: Tree, specs: Tree) -> Tree:
+        """The weights for use: every leaf gathered over the mesh dims its
+        spec puts on it other than 'model' (one all_gather a bucket)."""
+        if not self.on:
+            return params
+        leaves, plans = [], []
+
+        sizes = mesh_shape(self.mesh)
+
+        def plan(x, s):
+            spec = pspec_for(s.axes, s.shape, self.rules, self.mesh)
+            dims = [(d, (e,) if isinstance(e, str) else tuple(e))
+                    for d, e in enumerate(spec) if e is not None]
+            leaves.append(x)
+            plans.append([(d, names) for d, names in dims
+                          if "model" not in names
+                          and math.prod(sizes[n] for n in names) > 1])
+            return len(leaves) - 1
+
+        idx = tree_map(plan, params, specs)
+        out = C.gather_for_use(leaves, plans, self.mesh, self.batch)
+        return tree_map(lambda i: out[i], idx)
+
+    def use_top(self, params: dict, specs_fn: Callable) -> dict:
+        """A model's params with every top-level leaf but the units' for
+        use (`use`; specs_fn() gives the model's spec tree); the units are
+        gathered a unit at a time as they run."""
+        if not self.on:
+            return params
+        specs = specs_fn()
+        top = {k: v for k, v in params.items() if k != "units"}
+        return {**self.use(top, {k: specs[k] for k in top}),
+                "units": params["units"]}
 
 
 NULL_CTX = ShardCtx(None, ShardingRules({}))

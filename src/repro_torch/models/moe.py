@@ -227,8 +227,8 @@ def moe_block_shardmap(cfg: ModelConfig, p: dict, x: torch.Tensor,
         (and of the router, whose d_model dim the rules shard too);
       * one all_reduce over 'model' of the combined token outputs;
       * one all_reduce over the batch axes of the aux loss (its mean).
-    The collectives are not differentiated: this is the forward; the
-    sharded train step is ROADMAP item 17."""
+    The collectives are not differentiated: this is the forward; the MoE
+    steps over a mesh (this block's backward) wait for ROADMAP item 17."""
     from repro_torch import sharding as SH
     from repro_torch.models.module import mesh_shape
     mesh = ctx.mesh

@@ -333,7 +333,8 @@ def _attn_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, st):
     hin = _norm(cfg, p["ln_attn"], x)
     q = attn.project_q(cfg, p["attn"], hin, positions)
     k, v = attn.project_kv(cfg, p["attn"], hin, positions)
-    new = {"k": _fill(st["k"], k), "v": _fill(st["v"], v)}
+    smax = st["k"].shape[1]
+    new = {"k": _fill(cfg, k, smax), "v": _fill(cfg, v, smax)}
     o = attn.flash_attention(cfg, q, k, v, causal=True, window=cfg.local_window)
     return _mlp_residual(cfg, p, x + attn.out_proj(cfg, p["attn"], o)), new
 

@@ -18,6 +18,19 @@ Parameters keep the reference's tree: with ``cfg.scan_layers`` the layers'
 ``units`` are stacked ``[L, ...]`` tensors (looped over in Python, as
 ``lax.scan`` does), otherwise a list of per-layer dicts.  The remat policy
 wraps the layer.
+
+Under a mesh (`ShardCtx`, explicit SPMD on the rank's local tensors) each
+layer's weights are gathered for use over their storage-only dims as the
+layer runs.  W_rkvg is column-parallel over 'model' and Wo row-parallel.
+Where u splits by heads (H divides over 'model'), the rank's channels are
+whole heads: the WKV (K4 on the card) runs on the rank's heads, and w0,
+lora_w_b and the group norm's scale and bias are sliced to its channels.
+Otherwise r, k, v and g are gathered over 'model', every rank runs the
+WKV over all heads and keeps its channels for Wo.  In the channel mix Wk
+is column-parallel, Wv row-parallel, and rr (Wr's column slices) is
+gathered before rr * vv.  The decode state follows
+`sharding.cache_shardings`: S by heads, x_tm and x_cm by channels
+(gathered for the token shift; each rank keeps its own slice).
 """
 from __future__ import annotations
 
@@ -31,8 +44,9 @@ from repro_torch.kernels import wkv as WK
 from repro_torch.kernels.wkv import wkv_chunk  # noqa: F401  (re-exported)
 from repro_torch.models.layers import (embed_tokens, embedding_specs, lm_logits,
                                        rmsnorm_spec)
-from repro_torch.models.module import (ParamSpec, constant_init, fan_in_normal,
-                                       normal, ones_init, stack_specs, zeros_init)
+from repro_torch.models.module import (NULL_CTX, ParamSpec, ShardCtx,
+                                       constant_init, fan_in_normal, normal,
+                                       ones_init, stack_specs, zeros_init)
 from repro_torch.models.transformer import _maybe_remat, _norm, chunked_ce_loss
 from repro_torch.tree import stack, unstack
 
@@ -146,15 +160,19 @@ def _heads(x: torch.Tensor, H: int, D: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], H, D)
 
 
-def group_norm_heads(cfg: ModelConfig, p: dict, o: torch.Tensor) -> torch.Tensor:
-    """Per-head LayerNorm (GroupNorm with H groups) on [B,T,H,D]."""
+def group_norm_heads(cfg: ModelConfig, p: dict, o: torch.Tensor,
+                     ctx: ShardCtx = NULL_CTX, local: bool = False) -> torch.Tensor:
+    """Per-head LayerNorm (GroupNorm with H groups) on [B,T,H,D]; `local`:
+    the rank's heads, against its slice of the scale and bias."""
     of = o.float()
     mu = of.mean(dim=-1, keepdim=True)
     var = (of - mu).square().mean(dim=-1, keepdim=True)   # jnp.var, ddof 0
     of = (of - mu) * torch.rsqrt(var + 64e-5)
     flat = of.reshape(*o.shape[:-2], -1)
-    return (flat * p["ln_x_scale"].float()
-            + p["ln_x_bias"].float()).to(cfg.compute_dtype)
+    scale, bias = p["ln_x_scale"], p["ln_x_bias"]
+    if local:
+        scale, bias = ctx.split(scale, -1), ctx.split(bias, -1)
+    return (flat * scale.float() + bias.float()).to(cfg.compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -189,76 +207,120 @@ def wkv_step(r1, k1, v1, logw1, u, S):
 # Blocks
 # ---------------------------------------------------------------------------
 
-def decay_logw(cfg: ModelConfig, p: dict, xw: torch.Tensor) -> torch.Tensor:
-    """ww = w0 + lora_w(x_w); logw = -exp(ww) (clipped for safety)."""
+def decay_logw(cfg: ModelConfig, p: dict, xw: torch.Tensor,
+               ctx: ShardCtx = NULL_CTX, local: bool = False) -> torch.Tensor:
+    """ww = w0 + lora_w(x_w); logw = -exp(ww) (clipped for safety).
+    `local`: the rank's channels (w0 and lora_w_b sliced)."""
     dt = cfg.compute_dtype
-    lora = torch.einsum(
-        "btr,rd->btd",
-        torch.tanh(torch.einsum("btd,dr->btr", xw, p["lora_w_a"].to(dt))),
-        p["lora_w_b"].to(dt)).float()
-    ww = p["w0"] + lora
+    low = torch.tanh(torch.einsum("btd,dr->btr", xw, p["lora_w_a"].to(dt)))
+    w_b, w0 = p["lora_w_b"], p["w0"]
+    if local:
+        low, w_b, w0 = ctx.copy(low), ctx.split(w_b, -1), ctx.split(w0, -1)
+    lora = torch.einsum("btr,rd->btd", low, w_b.to(dt)).float()
+    ww = w0 + lora
     return -torch.exp(ww.clamp(-20.0, 10.0))
 
 
-def time_mix_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor, prev=None):
+def time_mix_inputs(cfg: ModelConfig, p: dict, x: torch.Tensor, prev=None,
+                    ctx: ShardCtx = NULL_CTX):
     """The time-mix operands of x [B,T,d]: ddlerp, then the fused r/k/v/g
     projection (one [d,4,d] einsum) and the decay.  Returns r, k, v, logw
-    [B,T,H,D] (logw f32) and g [B,T,d]."""
+    [B,T,H,D] (logw f32) and g [B,T,d], and whether they are the rank's
+    heads only (`local`; see the module docstring)."""
     H, D = n_heads(cfg), cfg.head_dim
     mixed = ddlerp_inputs(cfg, p, x, prev)
     mixed4 = torch.stack([mixed["r"], mixed["k"], mixed["v"], mixed["g"]], 2)
-    proj = torch.einsum("btcd,dce->btce", mixed4, p["W_rkvg"].to(cfg.compute_dtype))
+    W = p["W_rkvg"].to(cfg.compute_dtype)
+    local = False
+    if W.shape[-1] == cfg.d_model:
+        proj = torch.einsum("btcd,dce->btce", mixed4, W)
+    else:
+        proj = torch.einsum("btcd,dce->btce", ctx.copy(mixed4), W)
+        local = p["u"].shape[0] < H
+        if local:
+            H = p["u"].shape[0]
+        else:
+            proj = ctx.gather(proj, -1)
     r, k, v = (_heads(proj[:, :, i], H, D) for i in range(3))
-    logw = _heads(decay_logw(cfg, p, mixed["w"]), H, D)
-    return r, k, v, logw, F.silu(proj[:, :, 3])
+    logw = _heads(decay_logw(cfg, p, mixed["w"], ctx, local), H, D)
+    return r, k, v, logw, F.silu(proj[:, :, 3]), local
+
+
+def _out(cfg: ModelConfig, p: dict, y: torch.Tensor, ctx: ShardCtx,
+         local: bool) -> torch.Tensor:
+    """y [B,T,c] @ Wo: the rank's channels against its rows of Wo summed
+    over 'model' (`local`, or all channels kept to the rank's), else
+    whole."""
+    Wo = p["Wo"].to(cfg.compute_dtype)
+    if Wo.shape[0] == y.shape[-1]:
+        out = torch.einsum("btd,de->bte", y, Wo)
+        return ctx.reduce(out) if local else out
+    return ctx.reduce(torch.einsum("btd,de->bte", ctx.split(y, -1), Wo))
 
 
 def time_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, state=None, *,
-             plain=False):
+             plain=False, ctx: ShardCtx = NULL_CTX):
     """x: [B,T,d] -> (out [B,T,d], {"S": S_final, "x_tm": x_last})."""
     prev = None if state is None else state["x_tm"]
-    r, k, v, logw, g = time_mix_inputs(cfg, p, x, prev)
+    r, k, v, logw, g, local = time_mix_inputs(cfg, p, x, prev, ctx)
     S0 = None if state is None else state["S"]
     o, S = wkv_full(cfg, r, k, v, logw, p["u"], S0, plain=plain)
-    o = group_norm_heads(cfg, p, o)
-    out = torch.einsum("btd,de->bte", o * g, p["Wo"].to(cfg.compute_dtype))
-    return out, {"S": S, "x_tm": x[:, -1]}
+    o = group_norm_heads(cfg, p, o, ctx, local)
+    return _out(cfg, p, o * g, ctx, local), {"S": S, "x_tm": x[:, -1]}
 
 
-def channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, state=None):
+def channel_mix(cfg: ModelConfig, p: dict, x: torch.Tensor, state=None,
+                ctx: ShardCtx = NULL_CTX):
     dt = cfg.compute_dtype
     prev = None if state is None else state["x_cm"]
     sx = _shift(x, prev) - x
     xk = x + sx * p["mu_k"].to(dt)
     xr = x + sx * p["mu_r"].to(dt)
-    kk = F.relu(torch.einsum("btd,df->btf", xk, p["Wk"].to(dt))).square()
+    tp_k = p["Wk"].shape[-1] != cfg.d_ff
+    tp_r = p["Wr"].shape[-1] != cfg.d_model
+    kk = F.relu(torch.einsum("btd,df->btf", ctx.copy(xk) if tp_k else xk,
+                             p["Wk"].to(dt))).square()
     vv = torch.einsum("btf,fd->btd", kk, p["Wv"].to(dt))
-    rr = torch.sigmoid(torch.einsum("btd,de->bte", xr, p["Wr"].to(dt)))
+    rr = torch.sigmoid(torch.einsum("btd,de->bte",
+                                    ctx.copy(xr) if tp_r else xr,
+                                    p["Wr"].to(dt)))
+    if tp_k:
+        vv = ctx.reduce(vv)
+    if tp_r:
+        rr = ctx.gather(rr, -1)
     return rr * vv, {"x_cm": x[:, -1]}
 
 
-def run_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, plain=False):
-    h, _ = time_mix(cfg, p["tm"], _norm(cfg, p["ln1"], x), plain=plain)
+def run_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, plain=False,
+              ctx: ShardCtx = NULL_CTX):
+    if ctx.on:
+        p = ctx.use(p, layer_specs(cfg))
+    h, _ = time_mix(cfg, p["tm"], _norm(cfg, p["ln1"], x), plain=plain,
+                    ctx=ctx)
     x = x + h
-    h, _ = channel_mix(cfg, p["cm"], _norm(cfg, p["ln2"], x))
+    h, _ = channel_mix(cfg, p["cm"], _norm(cfg, p["ln2"], x), ctx=ctx)
     return x + h
 
 
-def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor, *, plain=False):
+def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor, *, plain=False,
+             ctx: ShardCtx = NULL_CTX):
     x = _norm(cfg, params["ln0"], x)
-    layer_fn = _maybe_remat(cfg, lambda lp, x: run_layer(cfg, lp, x, plain))
+    layer_fn = _maybe_remat(cfg, lambda lp, x: run_layer(cfg, lp, x, plain,
+                                                         ctx))
     for lp in _layers(cfg, params["units"]):
         x = layer_fn(lp, x)
     return _norm(cfg, params["ln_f"], x)
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            ctx: ShardCtx = NULL_CTX):
     """batch: tokens [B,S], labels [B,S] (-1 masked) -> the scalar chunked
     CE loss, through the plain WKV (`plain=True`: the kernel has no
     backward)."""
-    x = embed_tokens(cfg, params["emb"], batch["tokens"])
-    h = backbone(cfg, params, x, plain=True)
-    return chunked_ce_loss(cfg, params, h, batch["labels"])
+    params = ctx.use_top(params, lambda: rwkv_model_specs(cfg))
+    x = embed_tokens(cfg, params["emb"], batch["tokens"], ctx)
+    h = backbone(cfg, params, x, plain=True, ctx=ctx)
+    return chunked_ce_loss(cfg, params, h, batch["labels"], ctx=ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -283,53 +345,78 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device) -> Any:
                                for _ in range(cfg.n_layers)])
 
 
-def layer_decode(cfg: ModelConfig, p: dict, x, st):
+def _shift_width(cfg: ModelConfig, ctx: ShardCtx) -> int:
+    """The width of a rank's x_tm / x_cm state (split by 'lru')."""
+    d = cfg.d_model
+    return d // ctx.mesh["model"].size() if ctx.model_split("lru", d) else d
+
+
+def layer_decode(cfg: ModelConfig, p: dict, x, st, ctx: ShardCtx = NULL_CTX):
     """x: [B,1,d] one token."""
+    if ctx.on:
+        p = ctx.use(p, layer_specs(cfg))
+    d, n = cfg.d_model, st["x_tm"].shape[-1]
+    full = (lambda t: t) if n == d else (lambda t: ctx.gather(t, -1))
     xin = _norm(cfg, p["ln1"], x)
-    r, k, v, logw, g = time_mix_inputs(cfg, p["tm"], xin, st["x_tm"])
+    r, k, v, logw, g, local = time_mix_inputs(cfg, p["tm"], xin,
+                                              full(st["x_tm"]), ctx)
     r, k, v, logw = r[:, 0], k[:, 0], v[:, 0], logw[:, 0]
     o, S = wkv_step(r, k, v, logw, p["tm"]["u"], st["S"])
-    o = group_norm_heads(cfg, p["tm"], o[:, None, :, :])   # [B,1,H*D]
-    x = x + torch.einsum("btd,de->bte", o * g,
-                         p["tm"]["Wo"].to(cfg.compute_dtype))
+    o = group_norm_heads(cfg, p["tm"], o[:, None, :, :], ctx, local)
+    x = x + _out(cfg, p["tm"], o * g, ctx, local)
     x_tm = xin[:, -1]
     xin2 = _norm(cfg, p["ln2"], x)
-    h, _ = channel_mix(cfg, p["cm"], xin2, state={"x_cm": st["x_cm"]})
+    h, _ = channel_mix(cfg, p["cm"], xin2, state={"x_cm": full(st["x_cm"])},
+                       ctx=ctx)
     x = x + h
-    return x, {"S": S, "x_tm": x_tm, "x_cm": xin2[:, -1]}
+    return x, {"S": S, "x_tm": ctx.keep(x_tm, -1, n),
+               "x_cm": ctx.keep(xin2[:, -1], -1, n)}
 
 
-def decode_step(cfg: ModelConfig, params: dict, token, cache, pos):
-    """token: [B,1] ids -> (logits [B,V] f32, new cache)."""
+def decode_step(cfg: ModelConfig, params: dict, token, cache, pos,
+                ctx: ShardCtx = NULL_CTX):
+    """token: [B,1] ids -> (logits [B,V] f32, new cache).  Under a mesh:
+    this rank's rows, its vocab slice of the logits, its split of the
+    state."""
     del pos   # attention-free: position enters only through state
-    x = embed_tokens(cfg, params["emb"], token)
+    params = ctx.use_top(params, lambda: rwkv_model_specs(cfg))
+    x = embed_tokens(cfg, params["emb"], token, ctx)
     x = _norm(cfg, params["ln0"], x)
     new_cache = []
     for lp, lc in zip(_layers(cfg, params["units"]), _layers(cfg, cache)):
-        x, nc = layer_decode(cfg, lp, x, lc)
+        x, nc = layer_decode(cfg, lp, x, lc, ctx)
         new_cache.append(nc)
     h = _norm(cfg, params["ln_f"], x)
-    return lm_logits(cfg, params["emb"], h)[:, 0], _stack_layers(cfg, new_cache)
+    return (lm_logits(cfg, params["emb"], h, ctx)[:, 0],
+            _stack_layers(cfg, new_cache))
 
 
-def prefill(cfg: ModelConfig, params: dict, tokens, *, plain=False):
+def prefill(cfg: ModelConfig, params: dict, tokens, *, plain=False,
+            ctx: ShardCtx = NULL_CTX):
     """Full-seq forward collecting per-layer final states.
     tokens: [B,S] ids -> (last-position logits [B,V] f32, cache).  `plain`
     runs the plain WKV in place of the kernel wrapper (the dry-run's meta
-    tensors, which no kernel takes)."""
-    x = embed_tokens(cfg, params["emb"], tokens)
+    tensors, which no kernel takes).  Under a mesh: this rank's rows, its
+    vocab slice of the logits, its split of the state."""
+    params = ctx.use_top(params, lambda: rwkv_model_specs(cfg))
+    n = _shift_width(cfg, ctx) if ctx.on else cfg.d_model
+    x = embed_tokens(cfg, params["emb"], tokens, ctx)
     x = _norm(cfg, params["ln0"], x)
     cache = []
     for lp in _layers(cfg, params["units"]):
+        if ctx.on:
+            lp = ctx.use(lp, layer_specs(cfg))
         xin = _norm(cfg, lp["ln1"], x)
-        h, st_tm = time_mix(cfg, lp["tm"], xin, plain=plain)
+        h, st_tm = time_mix(cfg, lp["tm"], xin, plain=plain, ctx=ctx)
         x = x + h
         xin2 = _norm(cfg, lp["ln2"], x)
-        h, _ = channel_mix(cfg, lp["cm"], xin2)
+        h, _ = channel_mix(cfg, lp["cm"], xin2, ctx=ctx)
         x = x + h
         # copies of the last rows: a view would keep each layer's whole
         # [B, S, d] input alive until the cache is stacked
-        cache.append({"S": st_tm["S"], "x_tm": xin[:, -1].clone(),
-                      "x_cm": xin2[:, -1].clone()})
+        cache.append({"S": st_tm["S"],
+                      "x_tm": ctx.keep(xin[:, -1], -1, n).clone(),
+                      "x_cm": ctx.keep(xin2[:, -1], -1, n).clone()})
     h = _norm(cfg, params["ln_f"], x)
-    return lm_logits(cfg, params["emb"], h[:, -1:])[:, 0], _stack_layers(cfg, cache)
+    return (lm_logits(cfg, params["emb"], h[:, -1:], ctx)[:, 0],
+            _stack_layers(cfg, cache))

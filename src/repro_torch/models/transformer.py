@@ -21,6 +21,15 @@ followed by n decode steps equals the full forward over S + n.  The
 reference sizes the cache to exactly S and stores a local layer's last
 smax keys at slots 0..smax-1 (ROADMAP Queue 3, fault 7); with max_seq = S
 the global caches are the reference's.
+
+`loss_fn`, `prefill` and `decode_step` take a `ShardCtx`: under a mesh they
+run on this rank's local tensors (explicit SPMD).  Each unit's weights are
+gathered for use over their storage-only dims as the unit runs (inside
+its remat, so a recompute gathers again); the attention and the MLP are
+tensor-parallel over 'model' (`attention`, `layers.mlp`); the embedding,
+the logits and the cross entropy are vocab-parallel; the loss's sums and
+count are summed over the batch's split dims.  A MoE layer under a mesh
+is not ported (ROADMAP item 17).
 """
 from __future__ import annotations
 
@@ -36,7 +45,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (embed_tokens, embedding_specs, lm_logits,
                                        mlp, mlp_specs, rmsnorm, rmsnorm_spec)
-from repro_torch.models.module import ParamSpec, fan_in_normal, stack_specs
+from repro_torch.models.module import (NULL_CTX, ParamSpec, ShardCtx,
+                                       fan_in_normal, stack_specs)
+from repro_torch.sharding import MOE_MESH
 from repro_torch.tree import stack, unstack
 
 # the "dots" remat policy saves the outputs of the unbatched matmuls (the
@@ -120,14 +131,16 @@ def _zero_aux(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor):
+def _ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor, ctx=NULL_CTX):
     """The block's second half: (x + [post-norm] mlp(norm(x)), the MoE aux
     loss, 0 for a dense MLP)."""
     hin = _norm(cfg, lp["ln_mlp"], x)
+    if cfg.moe and ctx.on:
+        raise NotImplementedError(MOE_MESH)
     if cfg.moe:
         h, aux = moe_lib.moe_block(cfg, lp["mlp"], hin)
     else:
-        h, aux = mlp(cfg, lp["mlp"], hin), _zero_aux(x)
+        h, aux = mlp(cfg, lp["mlp"], hin, ctx), _zero_aux(x)
     if cfg.sandwich_norm:
         h = _norm(cfg, lp["ln_mlp_post"], h)
     return x + h, aux
@@ -139,18 +152,22 @@ def _attn_residual(cfg: ModelConfig, lp: dict, x, h):
     return x + h
 
 
-def run_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, kind: str):
+def run_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, kind: str,
+              ctx: ShardCtx = NULL_CTX):
     """Pre-norm block; returns (x, aux_loss)."""
     window = cfg.local_window if kind == "local" else 0
     h = attn.self_attention(cfg, p["attn"], _norm(cfg, p["ln_attn"], x),
-                            positions, causal=True, window=window)
-    return _ffn(cfg, p, _attn_residual(cfg, p, x, h))
+                            positions, causal=True, window=window, ctx=ctx)
+    return _ffn(cfg, p, _attn_residual(cfg, p, x, h), ctx)
 
 
-def run_unit(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
+def run_unit(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
+             ctx: ShardCtx = NULL_CTX):
+    if ctx.on:
+        p = ctx.use(p, unit_specs(cfg))
     aux = _zero_aux(x)
     for kind in unit_layout(cfg):
-        x, a = run_layer(cfg, p[kind], x, positions, kind)
+        x, a = run_layer(cfg, p[kind], x, positions, kind, ctx)
         aux = aux + a
     return x, aux
 
@@ -178,9 +195,12 @@ def _maybe_remat(cfg: ModelConfig, fn, policy: str | None = None):
     return wrapped
 
 
-def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor, positions):
-    """Embedded input -> (final-norm hidden states, aux_loss)."""
-    unit_fn = _maybe_remat(cfg, functools.partial(run_unit, cfg))
+def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor, positions,
+             ctx: ShardCtx = NULL_CTX):
+    """Embedded input -> (final-norm hidden states, aux_loss).  `params`'
+    top-level leaves are for use already (`_top`); the units' are
+    gathered a unit at a time."""
+    unit_fn = _maybe_remat(cfg, functools.partial(run_unit, cfg, ctx=ctx))
     aux = _zero_aux(x)
     for up in _units(cfg, params["units"]):
         x, a = unit_fn(up, x, positions)
@@ -189,10 +209,10 @@ def backbone(cfg: ModelConfig, params: dict, x: torch.Tensor, positions):
 
 
 def embed_inputs(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-                 patch_embeds=None):
+                 patch_embeds=None, ctx: ShardCtx = NULL_CTX):
     """Token embedding; for the VLM, the first n_patches positions come from
     the (stubbed) vision frontend through the projector."""
-    x = embed_tokens(cfg, params["emb"], tokens)
+    x = embed_tokens(cfg, params["emb"], tokens, ctx)
     if cfg.n_patches > 0 and patch_embeds is not None:
         dt = cfg.compute_dtype
         v = patch_embeds.to(dt) @ params["vproj"]["w1"].to(dt)
@@ -216,27 +236,43 @@ def forward_logits(cfg: ModelConfig, params: dict, tokens, patch_embeds=None,
 # Loss (sequence-chunked cross entropy)
 # ---------------------------------------------------------------------------
 
-def ce_chunk(cfg: ModelConfig, emb: dict, h_chunk: torch.Tensor, labels_chunk):
-    """h: [B,C,d], labels: [B,C] (-1 = masked) -> (sum_nll, sum_z2, n_valid)."""
-    logits = lm_logits(cfg, emb, h_chunk)                      # f32 [B,C,V]
-    lse = torch.logsumexp(logits, dim=-1)
+def ce_chunk(cfg: ModelConfig, emb: dict, h_chunk: torch.Tensor, labels_chunk,
+             ctx: ShardCtx = NULL_CTX):
+    """h: [B,C,d], labels: [B,C] (-1 = masked) -> (sum_nll, sum_z2, n_valid).
+    Logits split by vocab over 'model' take a vocab-parallel logsumexp:
+    the max over 'model' (no gradient), the sum of exponentials summed
+    over 'model', and the gold logit from the rank that holds it."""
+    logits = lm_logits(cfg, emb, h_chunk, ctx)                 # f32 [B,C,V]
     lbl = labels_chunk.clamp(min=0).long()
-    gold = logits.gather(-1, lbl[..., None])[..., 0]
+    if logits.shape[-1] == cfg.vocab_size:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lbl[..., None])[..., 0]
+    else:
+        n = logits.shape[-1]
+        m = ctx.model_max(logits.amax(dim=-1))
+        lse = torch.log(ctx.reduce(torch.exp(logits - m[..., None]).sum(-1))) + m
+        t = lbl - ctx.model_lo(n)
+        inside = (t >= 0) & (t < n)
+        pick = logits.gather(-1, t.clamp(0, n - 1)[..., None])[..., 0]
+        gold = ctx.reduce(torch.where(inside, pick, 0.0))
     valid = (labels_chunk >= 0).float()
     nll = (lse - gold) * valid
     return nll.sum(), (lse.square() * valid).sum(), valid.sum()
 
 
 def chunked_ce_loss(cfg: ModelConfig, params: dict, h: torch.Tensor, labels,
-                    chunk: int = 512, z_loss: float = 1e-4):
+                    chunk: int = 512, z_loss: float = 1e-4,
+                    ctx: ShardCtx = NULL_CTX):
     """Mean next-token CE plus z_loss * mean(lse^2), `chunk` positions at a
     time, each chunk checkpointed whole under either remat policy.  As in the
     reference, with S > chunk only the first (S // chunk) * chunk
-    positions count."""
+    positions count.  Under a mesh the sums and the count are the whole
+    batch's (summed over the batch's split dims)."""
     S = h.shape[1]
     chunk = min(chunk, S)
     n = S // chunk
-    fn = _maybe_remat(cfg, functools.partial(ce_chunk, cfg, params["emb"]),
+    fn = _maybe_remat(cfg, functools.partial(ce_chunk, cfg, params["emb"],
+                                             ctx=ctx),
                       "none" if cfg.remat == "none" else "full")
     if n == 1:
         nll, z2, cnt = fn(h, labels)
@@ -245,19 +281,22 @@ def chunked_ce_loss(cfg: ModelConfig, params: dict, h: torch.Tensor, labels,
         for i in range(0, n * chunk, chunk):
             a, b, c = fn(h[:, i:i + chunk], labels[:, i:i + chunk])
             nll, z2, cnt = nll + a, z2 + b, cnt + c
+    nll, z2, cnt = (ctx.reduce_batch(t) for t in (nll, z2, cnt))
     denom = cnt.clamp(min=1.0)
     return nll / denom + z_loss * z2 / denom
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            ctx: ShardCtx = NULL_CTX):
     """batch: tokens [B,S] int, labels [B,S] int (-1 masked), optional
     patch_embeds [B,P,4096].  Returns the scalar loss (CE + z + 0.01 * the
     MoE aux loss, which is 0 for a dense model)."""
     tokens, labels = batch["tokens"], batch["labels"]
-    x = embed_inputs(cfg, params, tokens, batch.get("patch_embeds"))
+    params = ctx.use_top(params, lambda: decoder_specs(cfg))
+    x = embed_inputs(cfg, params, tokens, batch.get("patch_embeds"), ctx)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h, aux = backbone(cfg, params, x, positions)
-    return chunked_ce_loss(cfg, params, h, labels) + 0.01 * aux
+    h, aux = backbone(cfg, params, x, positions, ctx)
+    return chunked_ce_loss(cfg, params, h, labels, ctx=ctx) + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
@@ -275,72 +314,98 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> Any:
     return _restack(cfg, [unit() for _ in range(n_units(cfg))])
 
 
-def unit_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos):
+def unit_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos,
+                ctx: ShardCtx = NULL_CTX):
+    if ctx.on:
+        p = ctx.use(p, unit_specs(cfg))
     new_cache = {}
     for kind in unit_layout(cfg):
         lp = p[kind]
         window = cfg.local_window if kind == "local" else 0
         h, new_cache[kind] = attn.self_attention_decode(
             cfg, lp["attn"], _norm(cfg, lp["ln_attn"], x), cache[kind], pos,
-            window=window)
-        x, _ = _ffn(cfg, lp, _attn_residual(cfg, lp, x, h))
+            window=window, ctx=ctx)
+        x, _ = _ffn(cfg, lp, _attn_residual(cfg, lp, x, h), ctx)
     return x, new_cache
 
 
-def decode_step(cfg: ModelConfig, params: dict, token, cache, pos):
-    """token: [B,1] int; pos: [B] int -> (logits [B,V] f32, new_cache)."""
-    x = embed_tokens(cfg, params["emb"], token)
+def decode_step(cfg: ModelConfig, params: dict, token, cache, pos,
+                ctx: ShardCtx = NULL_CTX):
+    """token: [B,1] int; pos: [B] int -> (logits [B,V] f32, new_cache).
+    Under a mesh: this rank's rows, its vocab slice of the logits, and
+    its split of the cache (`ctx.seq` its whole length)."""
+    params = ctx.use_top(params, lambda: decoder_specs(cfg))
+    x = embed_tokens(cfg, params["emb"], token, ctx)
     new_cache = []
     for up, uc in zip(_units(cfg, params["units"]), _units(cfg, cache)):
-        x, nc = unit_decode(cfg, up, x, uc, pos)
+        x, nc = unit_decode(cfg, up, x, uc, pos, ctx)
         new_cache.append(nc)
     h = _norm(cfg, params["ln_f"], x)
-    return lm_logits(cfg, params["emb"], h)[:, 0], _restack(cfg, new_cache)
+    return (lm_logits(cfg, params["emb"], h, ctx)[:, 0],
+            _restack(cfg, new_cache))
 
 
-def _fill(c: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
-    """A copy of cache c [B, smax, ...] holding the S new entries' last
-    min(S, smax) positions p at slots p % smax."""
-    S, smax = new.shape[1], c.shape[1]
+def _fill(cfg: ModelConfig, new: torch.Tensor, smax: int,
+          ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
+    """A [B, smax, KV, Dh] cache in the compute dtype holding the S new
+    entries' [B, S, KV, Dh] last min(S, smax) positions p at slots
+    p % smax, zero elsewhere; under a mesh this rank's split of it
+    (`attention.cache_split`), from every head's new entries."""
+    s_lo, n_s, h_lo, n_h = attn.cache_split(cfg, smax, ctx)
+    B, S = new.shape[:2]
+    c = new.new_zeros((B, n_s, n_h, cfg.head_dim), dtype=cfg.compute_dtype)
     first = max(0, S - smax)
-    slots = torch.arange(first, S, device=c.device) % smax
-    out = c.clone()
-    out[:, slots] = new[:, first:].to(c.dtype)
-    return out
+    if n_s < smax:
+        # the positions whose slots this rank holds, picked on the host
+        # (no device sync: the slots are static)
+        p = torch.arange(first, S)
+        p = p[(p % smax >= s_lo) & (p % smax < s_lo + n_s)].to(new.device)
+    else:
+        p = torch.arange(first, S, device=new.device)
+    c[:, p % smax - s_lo] = new[:, p, h_lo:h_lo + n_h].to(c.dtype)
+    return c
 
 
-def unit_prefill(cfg: ModelConfig, p: dict, x, positions, cache):
-    """Like run_unit, but also fills the KV cache (see the module
-    docstring for the slots)."""
+def unit_prefill(cfg: ModelConfig, p: dict, x, positions,
+                 ctx: ShardCtx = NULL_CTX, max_seq: int = 0):
+    """Like run_unit, but also makes the unit's KV cache with room for
+    max_seq positions (see the module docstring for the slots); under a
+    mesh the rank's split of it."""
+    if ctx.on:
+        p = ctx.use(p, unit_specs(cfg))
     new_cache = {}
     for kind in unit_layout(cfg):
         lp = p[kind]
         window = cfg.local_window if kind == "local" else 0
         h = _norm(cfg, lp["ln_attn"], x)
-        q = attn.project_q(cfg, lp["attn"], h, positions)
-        k, v = attn.project_kv(cfg, lp["attn"], h, positions)
-        new_cache[kind] = {"k": _fill(cache[kind]["k"], k),
-                           "v": _fill(cache[kind]["v"], v)}
-        o = attn.flash_attention(cfg, q, k, v, causal=True, window=window)
-        x, _ = _ffn(cfg, lp, _attn_residual(cfg, lp, x,
-                                            attn.out_proj(cfg, lp["attn"], o)))
+        q, k, v, hcfg, local = attn.project_qkv(cfg, lp["attn"], h, positions,
+                                                ctx)
+        smax = min(max_seq, window) if window > 0 else max_seq
+        new_cache[kind] = {n: _fill(cfg, ctx.gather(t, 2) if local else t,
+                                    smax, ctx)
+                           for n, t in (("k", k), ("v", v))}
+        o = attn.flash_attention(hcfg, q, k, v, causal=True, window=window)
+        h = attn.out_proj(cfg, lp["attn"], o, ctx, local)
+        x, _ = _ffn(cfg, lp, _attn_residual(cfg, lp, x, h), ctx)
     return x, new_cache
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens, patch_embeds=None, *,
-            max_seq: int | None = None):
+            max_seq: int | None = None, ctx: ShardCtx = NULL_CTX):
     """tokens: [B,S] -> (next-token logits [B,V] f32, cache with room for
-    max_seq positions (default S))."""
-    B, S = tokens.shape
+    max_seq positions (default S)).  Under a mesh: this rank's rows, its
+    vocab slice of the logits and its split of the cache."""
+    S = tokens.shape[1]
     max_seq = S if max_seq is None else max_seq
     if max_seq < S:
         raise ValueError(f"prefill: max_seq {max_seq} < the prompt's {S}")
-    x = embed_inputs(cfg, params, tokens, patch_embeds)
+    params = ctx.use_top(params, lambda: decoder_specs(cfg))
+    x = embed_inputs(cfg, params, tokens, patch_embeds, ctx)
     positions = torch.arange(S, device=tokens.device)
     cache = []
-    for up, uc in zip(_units(cfg, params["units"]),
-                      _units(cfg, init_cache(cfg, B, max_seq, tokens.device))):
-        x, nc = unit_prefill(cfg, up, x, positions, uc)
+    for up in _units(cfg, params["units"]):
+        x, nc = unit_prefill(cfg, up, x, positions, ctx, max_seq)
         cache.append(nc)
     h = _norm(cfg, params["ln_f"], x)
-    return lm_logits(cfg, params["emb"], h[:, -1:])[:, 0], _restack(cfg, cache)
+    return (lm_logits(cfg, params["emb"], h[:, -1:], ctx)[:, 0],
+            _restack(cfg, cache))

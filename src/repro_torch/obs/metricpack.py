@@ -37,6 +37,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.collectives import all_reduce
 from repro_torch.kernels._build import is_transformed
 from repro_torch.tree import tree_leaves
 
@@ -45,7 +46,7 @@ Tree = Any
 _NAN = float("nan")
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, *, mesh=None, rep=None) -> torch.Tensor:
     """sqrt(sum of squares) over every tensor leaf, in float32 — THE clip
     norm of the stream guard, so the packed `grad_norm` equals the norm the
     clip decision used.  A multi-tensor reduction (`get_total_norm`, the
@@ -54,7 +55,17 @@ def global_norm(tree) -> torch.Tensor:
     widened to float32 first, as the reference widens every leaf).  Under
     `torch.func.vmap` (a stream fleet's slots), which has no batching rule
     for the foreach kernels, the same two stages run one reduction a leaf,
-    each slot getting its own norm."""
+    each slot getting its own norm.
+
+    Under a mesh, `tree` holds each rank's local shards and `rep` (a tree
+    of the same leaves) how many ranks hold each leaf's shard alike: the
+    local sums of squares, each over its leaf's `rep`, summed over the
+    whole mesh in one all_reduce, count every element of the whole tree
+    once."""
+    if mesh is not None:
+        sq = sum(torch.linalg.vector_norm(x.float()).square() / r
+                 for x, r in zip(tree_leaves(tree), tree_leaves(rep)))
+        return all_reduce(sq, mesh, tuple(mesh.mesh_dim_names)).sqrt()
     leaves = [x if x.dtype == torch.float32 else x.float()
               for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
     if not leaves:

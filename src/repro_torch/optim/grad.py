@@ -12,11 +12,13 @@ from repro_torch.tree import tree_leaves, tree_map
 Tree = Any
 
 
-def clip_by_global_norm(tree: Tree, max_norm: float) -> tuple[Tree, torch.Tensor]:
+def clip_by_global_norm(tree: Tree, max_norm: float, *, mesh=None,
+                        rep=None) -> tuple[Tree, torch.Tensor]:
     """Scale every leaf by min(1, max_norm / norm) (in f32, back to its
     dtype); returns (clipped tree, norm).  The norm is the package's one
-    clip norm (`obs.metricpack.global_norm`, the stream guard's)."""
-    norm = global_norm(tree)
+    clip norm (`obs.metricpack.global_norm`, the stream guard's); under a
+    mesh that of the whole tree of local shards (`rep`: see there)."""
+    norm = global_norm(tree, mesh=mesh, rep=rep)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
 

@@ -34,6 +34,9 @@ class Optimizer:
     # ([S] host update counts, device) -> the step argument of a vmapped
     # update, one entry a slot along axis 0
     slot_steps: Callable[[Any, Any], Tree] = None
+    # a leaf's update reads only that leaf's own elements (a mesh updates
+    # each rank's shards alone); adafactor's factored moments read rows
+    elementwise: bool = True
 
     def __post_init__(self):
         if self.slot_steps is None:
@@ -192,7 +195,7 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0) -> Optimizer:
         pairs = tree_map(lambda _: next(outs), params)
         return _pick(pairs, 0), {"f": _pick(pairs, 1)}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, elementwise=False)
 
 
 def _state_leaves(state, params) -> list:
@@ -242,7 +245,7 @@ def masked(opt: Optimizer, mask: Tree) -> Optimizer:
                                   params, step)
         return apply_mask_tree(mask, p_new), s_new
 
-    return Optimizer(opt.init, update, opt.slot_steps)
+    return Optimizer(opt.init, update, opt.slot_steps, opt.elementwise)
 
 
 def masked_dynamic(opt: Optimizer, mask0: Tree) -> Optimizer:
@@ -260,7 +263,7 @@ def masked_dynamic(opt: Optimizer, mask0: Tree) -> Optimizer:
                                   state["inner"], params, step)
         return apply_mask_tree(mk, p_new), {"inner": s_new, "mask": mk}
 
-    return Optimizer(init, update, opt.slot_steps)
+    return Optimizer(init, update, opt.slot_steps, opt.elementwise)
 
 
 def set_opt_mask(state: Tree, new_mask: Tree) -> Tree:

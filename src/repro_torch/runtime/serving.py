@@ -19,6 +19,18 @@ host each step, never the [B, V] logits.  With temperature > 0 the gumbel
 noise comes from a torch.Generator seeded from `ServeConfig.seed`; it
 cannot equal `jax.random`'s draws, so the two packages agree on greedy
 decoding only.
+
+`Engine(..., mesh=)` serves over a mesh (the RWKV6 and dense-decoder
+families): each rank holds its shards of the parameters (placed by the
+rules) and its split of the cache (`sharding.cache_shardings`), and runs
+the decode step on them (`models.module.ShardCtx`).  The greedy token is
+the argmax over the vocab shards (each rank's max and index, gathered
+over 'model'; a tie goes to the lowest index, as `torch.argmax` breaks
+it); with a temperature every rank draws the whole [B, V] noise from the
+same generator and adds its own slice, so the tokens are the one-rank
+Engine's.  The sampled ids are gathered over the batch's split dims, so
+every rank keeps the whole host bookkeeping.  A slot is zeroed on the
+ranks that hold its rows.
 """
 from __future__ import annotations
 
@@ -27,11 +39,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import sharding as SH
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import get_model
 from repro_torch.models.module import materialize
-from repro_torch.tree import tree_flatten_with_path
+from repro_torch.tree import tree_flatten_with_path, tree_map
 
 
 def _batch_axes(api, cfg: ModelConfig, seq: int) -> dict[tuple, int]:
@@ -66,35 +79,95 @@ class ServeConfig:
 
 class Engine:
     """`params=None` draws the model from torch.Generator(seed 0) on the
-    device.  The device is CUDA unless `device="cpu"` is asked for."""
+    device.  The device is CUDA unless `device="cpu"` is asked for; with a
+    `mesh`, the mesh's.  Over a mesh `params` are whole (placed here) or
+    placed already."""
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params=None,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = cfg
         self.scfg = scfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.device_type)
         self.api = get_model(self.cfg)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
             params = materialize(self.api.specs(self.cfg), gen)
-        self.params = params
         B, S = scfg.batch_slots, scfg.max_seq
-        self.cache = self.api.init_cache(self.cfg, B, S, self.device)
         self.batch_axes = _batch_axes(self.api, self.cfg, S)
+        if mesh is None:
+            self.params = params
+            self.cache = self.api.init_cache(self.cfg, B, S, self.device)
+        else:
+            self._place(params)
         self.pos = np.zeros((B,), np.int32)
         self.live = np.zeros((B,), bool)
         self.tokens: list[list[int]] = [[] for _ in range(B)]
         self.slot_steps = np.zeros((B,), np.int64)   # engine steps while live
         self.failed_requests: set[int] = set()
 
+    def _place(self, params) -> None:
+        """The rank's shards of `params` and a zero split of the cache (its
+        rows, on the rows' mesh dims: `self.rows`)."""
+        SH.refuse_on_mesh(self.cfg, "Engine")
+        B, S = self.scfg.batch_slots, self.scfg.max_seq
+        sh, self.ctx, self.rows = SH.serve_layout(self.cfg, self.api, B, S,
+                                                  self.mesh)
+        self.params = SH.local_tree(tree_map(
+            lambda x, s: x if SH.is_dtensor(x) else SH.place(x, s),
+            params, sh["params"]))
+
+        def zeros(x, s):
+            idx = SH.local_index(x.shape, s.placements,
+                                 self.mesh.get_coordinate(), self.mesh.shape)
+            return torch.zeros([i.stop - i.start for i in idx], dtype=x.dtype,
+                               device=self.device)
+        self.cache = tree_map(zeros, self.api.init_cache(self.cfg, B, S, "meta"),
+                              sh["cache"])
+        self.row_lo = 0
+        if self.rows:
+            self.row_lo = SH.group_index(self.mesh, self.rows) * (
+                B // SH.group_size(self.mesh, self.rows))
+
     @torch.no_grad()
     def _decode(self, token, pos, gen):
+        if self.mesh is not None:
+            return self._decode_split(token, pos, gen)
         logits, self.cache = self.api.decode_step(self.cfg, self.params, token,
                                                   self.cache, pos)
         if self.scfg.temperature > 0.0:
             gumbel = -torch.empty_like(logits).exponential_(generator=gen).log()
             logits = logits / self.scfg.temperature + gumbel
         return logits.argmax(dim=-1).reshape(-1)              # [B]
+
+    def _decode_split(self, token, pos, gen):
+        """`_decode` over the mesh: the rank's rows and vocab slice, the
+        argmax over the vocab shards, the ids of every row."""
+        B, V = self.scfg.batch_slots, self.cfg.vocab_size
+        nb = B // SH.group_size(self.mesh, self.rows) if self.rows else B
+        rows = slice(self.row_lo, self.row_lo + nb)
+        logits, self.cache = self.api.decode_step(
+            self.cfg, self.params, token[rows], self.cache, pos[rows],
+            ctx=self.ctx)
+        nv = logits.shape[-1]
+        v_lo = self.ctx.model_lo(nv) if nv < V else 0
+        if self.scfg.temperature > 0.0:
+            noise = torch.empty((B, V), dtype=logits.dtype,
+                                device=logits.device).exponential_(generator=gen)
+            gumbel = -noise[rows, v_lo:v_lo + nv].log()
+            logits = logits / self.scfg.temperature + gumbel
+        val, idx = logits.max(dim=-1)
+        if nv < V:      # the first of the largest over the vocab shards
+            both = SH.all_gather(torch.stack([val.double(),
+                                              (idx + v_lo).double()]),
+                                 self.mesh, "model", axis=1)      # [2, M*nb]
+            both = both.view(2, -1, nb)
+            best = both[0].argmax(dim=0)
+            idx = both[1].gather(0, best[None])[0].long()
+        if self.rows:
+            idx = SH.all_gather(idx, self.mesh, self.rows)
+        return idx.reshape(-1)
 
     # -- slot management ------------------------------------------------------
 
@@ -106,7 +179,10 @@ class Engine:
             return None
         slot = int(free[0])
         for path, leaf in tree_flatten_with_path(self.cache):
-            leaf.select(self.batch_axes[path], slot).zero_()
+            ax = self.batch_axes[path]
+            row = slot - (self.row_lo if self.mesh is not None else 0)
+            if 0 <= row < leaf.shape[ax]:       # the rows this rank holds
+                leaf.select(ax, row).zero_()
         self.live[slot] = True
         self.pos[slot] = 0
         self.slot_steps[slot] = 0

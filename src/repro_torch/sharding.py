@@ -31,34 +31,36 @@ code a replicated leaf is the local tensor every rank holds whole (the
 parameters and the optimizer state), so code that is not mesh-aware runs
 on it as it is.
 
-Collectives: GSPMD has no counterpart in torch.  Where the reference
-leaves collectives to XLA, the port's SPMD code runs on each rank's local
-shard and calls every collective itself, through `all_reduce` and
-`all_gather` here, each over named mesh dims.  The gloo backend (the CPU
-group, and the one-card two-rank check of `chip_smoke.py`) has no CUDA
-path for every collective, so over a gloo group a CUDA tensor is copied to
-the host, reduced or gathered there and copied back; compute stays on the
-card.  `counts` tallies the collectives by name.
+Collectives: the counted and the differentiable ones live in
+`collectives`, which knows nothing of models or rules; they are
+re-exported here (`all_reduce`, `all_gather`, `counts`, ...), so the
+callers of `sharding.all_reduce` and the rest stay as they are.
+
+Serving over a mesh (`serve_layout`, `refuse_on_mesh`): the shardings,
+the ShardCtx and the batch split that the serve step builders
+(`launch.steps`) and the serving engine (`runtime.serving`) share.
 """
 from __future__ import annotations
 
-import collections
+import math
 from typing import Any
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
+from repro_torch.collectives import (  # noqa: F401  (re-exported)
+    BUCKET_BYTES, all_gather, all_reduce, barrier, copy_to, counts,
+    gather_for_use, gather_from, group_index, group_size, reduce_from,
+    reduce_grads, split_to)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.module import (NamedSharding, ShardCtx, ShardingRules,
-                                       mesh_shape, pspec_for)
-from repro_torch.tree import tree_map_with_path
+                                       mesh_shape, pspec_for, tree_shardings)
+from repro_torch.tree import tree_map, tree_map_with_path
 
 Tree = Any
 
-# collectives issued through `all_reduce` / `all_gather`, by name (tests
-# and chip_smoke read it around a region)
-counts: collections.Counter = collections.Counter()
+MOE_MESH = ("a MoE layer under a mesh is not ported: the MoE steps over a "
+            "mesh (moe_block_shardmap's backward) wait for ROADMAP item 17")
 
 
 def batch_axes(mesh) -> tuple:
@@ -158,6 +160,47 @@ def cache_shardings(cache_abs: Tree, cfg: ModelConfig, mesh) -> Tree:
 
 
 # ---------------------------------------------------------------------------
+# Serving over a mesh
+# ---------------------------------------------------------------------------
+
+def refuse_on_mesh(cfg: ModelConfig, what: str = "step") -> None:
+    """The families whose steps are not ported under a mesh raise."""
+    if cfg.family in ("rglru", "encdec"):
+        raise NotImplementedError(
+            f"the {cfg.family} {what} under a mesh is not ported: it waits "
+            "for ROADMAP item 17")
+    if cfg.moe:
+        raise NotImplementedError(MOE_MESH)
+
+
+def split_dims(mesh, axes: tuple, rows: int) -> tuple:
+    """The mesh dims of `axes` that split `rows` rows: trailing ones shed
+    until they divide (`launch.steps.batch_shardings`' rule)."""
+    sizes = mesh_shape(mesh)
+    while axes and rows % math.prod(sizes[a] for a in axes):
+        axes = axes[:-1]
+    return axes
+
+
+def serve_layout(cfg: ModelConfig, api, batch: int, seq: int, mesh):
+    """The shardings of a serve step over a mesh (the rules without pure
+    DP) for `batch` rows and a cache of `seq` positions: {"params",
+    "cache", "logits", "rows"}; its ShardCtx; and the mesh dims the rows
+    split on.  `api` is the model's (`models.get_model`)."""
+    rules = make_rules(cfg, mesh)
+    dims = split_dims(mesh, batch_axes(mesh), batch)
+    row = dims if len(dims) > 1 else (dims[0] if dims else None)
+    vocab = "model" if cfg.vocab_size % mesh_shape(mesh)["model"] == 0 \
+        else None
+    sh = {"params": tree_shardings(api.specs(cfg), rules, mesh),
+          "cache": cache_shardings(api.init_cache(cfg, batch, seq, "meta"),
+                                   cfg, mesh),
+          "logits": NamedSharding(mesh, (row, vocab)),
+          "rows": NamedSharding(mesh, (row,))}
+    return sh, ShardCtx(mesh, rules, batch=dims, seq=seq), dims
+
+
+# ---------------------------------------------------------------------------
 # Placement: the port's device_put
 # ---------------------------------------------------------------------------
 
@@ -216,53 +259,31 @@ def to_local(x):
     return x.to_local() if is_dtensor(x) else x
 
 
-# ---------------------------------------------------------------------------
-# Collectives over named mesh dims
-# ---------------------------------------------------------------------------
-
-def _group(mesh, dims):
-    """The process group of `dims` (one name, or a tuple of names in mesh
-    order) of the mesh, and its size."""
-    dims = (dims,) if isinstance(dims, str) else tuple(dims)
-    sub = mesh[dims] if len(dims) > 1 else mesh[dims[0]]
-    if len(dims) > 1:
-        sub = sub._flatten()
-    return sub.get_group(), sub.size()
+def placed_dims(sharding: NamedSharding) -> tuple:
+    """The mesh dims that shard a leaf of `sharding`, in mesh order."""
+    names = tuple(mesh_shape(sharding.mesh))
+    used = set()
+    for e in sharding.spec:
+        if e is not None:
+            used.update((e,) if isinstance(e, str) else e)
+    return tuple(n for n in names if n in used)
 
 
-def _staged(t: torch.Tensor, group) -> bool:
-    return t.is_cuda and dist.get_backend(group) == "gloo"
+def from_local(local: torch.Tensor, sharding: NamedSharding):
+    """A rank's local shard as the leaf `place` would have made: a DTensor,
+    or the tensor itself where every placement replicates."""
+    from torch.distributed.tensor import DTensor
+    if is_replicated(sharding):
+        return local
+    return DTensor.from_local(local, sharding.mesh, sharding.placements,
+                              run_check=False)
 
 
-def all_reduce(t: torch.Tensor, mesh, dims, op: str = "sum") -> torch.Tensor:
-    """Sum (or max) of `t` over the ranks of mesh dims `dims`: one
-    all_reduce, into a new tensor."""
-    group, size = _group(mesh, dims)
-    if size == 1:
-        return t.clone()
-    counts[f"all_reduce_{op}"] += 1
-    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    buf = t.detach().to("cpu", copy=True) if _staged(t, group) \
-        else t.detach().clone()
-    dist.all_reduce(buf, op=red, group=group)
-    return buf.to(t.device)
+def place_tree(tree: Tree, shardings: Tree) -> Tree:
+    return tree_map(place, tree, shardings)
 
 
-def all_gather(t: torch.Tensor, mesh, dims, axis: int = 0) -> torch.Tensor:
-    """The ranks' `t` of mesh dims `dims` concatenated along `axis`, in
-    rank order of those dims: one all_gather."""
-    group, size = _group(mesh, dims)
-    if size == 1:
-        return t.clone()
-    counts["all_gather"] += 1
-    src = t.detach().movedim(axis, 0).contiguous()
-    if _staged(t, group):
-        src = src.cpu()
-    out = src.new_empty((size * src.shape[0],) + tuple(src.shape[1:]))
-    dist.all_gather_into_tensor(out, src, group=group)
-    return out.to(t.device).movedim(0, axis)
-
-
-def barrier() -> None:
-    if dist.is_initialized():
-        dist.barrier()
+def local_tree(tree: Tree) -> Tree:
+    """Every leaf's local tensor (the DTensor's own storage)."""
+    with torch.no_grad():
+        return tree_map(to_local, tree)

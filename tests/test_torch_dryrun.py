@@ -10,8 +10,9 @@ on meta as on real CPU tensors, at `--smoke` for each family.  The serve
 steps are the models' own `prefill` / `decode_step` (bitwise on the
 CPU), `run_cell` writes `status: ok` records, the reckoning of a long
 prefill is the count at the length it reckons, and `--mesh single|multi`
-refuses, naming ROADMAP item 17 (the LM's sharded steps; the test keeps
-its name from when the refusal named item 13).
+refuses, naming ROADMAP item 17 (the dry-run of the sharded steps on a
+fake process group; the test keeps its name from when the refusal named
+item 13).
 """
 import json
 
@@ -244,7 +245,8 @@ def test_reckoned_long_prefill_equals_the_count_at_its_length(arch):
 def test_the_reference_meshes_refuse_naming_item_13(mesh, tmp_path, capsys):
     code = dryrun.main(["--arch", "rwkv6-3b", "--shape", "long_500k",
                         "--mesh", mesh, "--out", str(tmp_path)])
-    assert code != 0 and "item 17" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert code != 0 and "item 17" in err and "fake process group" in err
     assert not list(tmp_path.iterdir())
     code = dryrun_all.main(["--mesh", mesh, "--out", str(tmp_path)])
     assert code != 0 and "item 17" in capsys.readouterr().err

@@ -34,6 +34,7 @@ EXPECTED = {
     "runtime.guard", "runtime.online", "runtime.serving", "runtime.trainer",
     "sparsity", "sparsity.migrate", "sparsity.schedule", "tree", "weights",
     "sharding", "launch.mesh", "runtime.compression", "data.pipeline",
+    "collectives",
 }
 
 
@@ -73,7 +74,7 @@ def test_package_mirrors_reference_module_paths():
               for m in pkgutil.walk_packages(repro_torch.__path__,
                                              "repro_torch.")}
     own = {"repro.device", "repro.tree", "repro.weights",
-           "repro.kernels._build"}
+           "repro.kernels._build", "repro.collectives"}
     for name in sorted(ported - own):
         rel = Path(*name.split("."))
         assert (SRC / rel).is_dir() or (SRC / rel.with_suffix(".py")).is_file(), \
