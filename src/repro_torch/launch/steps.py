@@ -17,9 +17,9 @@ parameters and optimizer state are placed by the `BuiltStep`'s
 `shardings` (`sharding.place_tree`, and `init_opt_state`), its batch is
 given whole and each rank takes its rows, and it returns its outputs
 placed (DTensors, or plain tensors where a sharding replicates).  The
-train step picks pure data parallelism as the reference does.  The MoE
-decoders, the RG-LRU LM and the encoder-decoder are not ported under a
-mesh (ROADMAP item 17).
+train step picks pure data parallelism as the reference does.  Every
+family runs under a mesh; adafactor's factored moments do not (ROADMAP
+item 17).
 """
 from __future__ import annotations
 
@@ -240,7 +240,6 @@ def _sharded_train_step(cfg, api, opt, shape, mesh) -> BuiltStep:
     if shape is None:
         raise ValueError("a train step over a mesh needs the shape (its "
                          "global batch picks the layout)")
-    SH.refuse_on_mesh(cfg, "train step")
     if not opt.elementwise:
         raise NotImplementedError(
             "adafactor's factored moments over a mesh need each leaf's whole "
@@ -299,7 +298,7 @@ def _prefill_callable(cfg: ModelConfig, api, max_seq: int, plain: bool,
                       ctx=None):
     """prefill(params, batch) -> (last-position logits, cache with room for
     max_seq positions); `plain` takes RWKV6's plain WKV (K4's wrapper
-    refuses a meta tensor); `ctx` a mesh's (decoder and RWKV6 only)."""
+    refuses a meta tensor); `ctx` a mesh's."""
     kw = {} if ctx is None else {"ctx": ctx}
     if cfg.family == "decoder":
         def f(params, batch):
@@ -309,14 +308,15 @@ def _prefill_callable(cfg: ModelConfig, api, max_seq: int, plain: bool,
     elif cfg.family == "encdec":
         def f(params, batch):
             return api.prefill(cfg, params, batch["tokens"], batch["frames"],
-                               max_seq=max_seq)
+                               max_seq=max_seq, **kw)
     elif cfg.family == "rwkv6":
         def f(params, batch):            # the state does not grow with S
             return api.prefill(cfg, params, batch["tokens"], plain=plain,
                                **kw)
     else:
         def f(params, batch):
-            return api.prefill(cfg, params, batch["tokens"], max_seq=max_seq)
+            return api.prefill(cfg, params, batch["tokens"], max_seq=max_seq,
+                               **kw)
     return f
 
 
@@ -333,7 +333,6 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeSuite,
     if mesh is None:
         fn = _prefill_callable(icfg, api, shape.seq_len, _on_meta(device))
         return BuiltStep(fn, args)
-    SH.refuse_on_mesh(icfg, "prefill")
     sh, ctx, dims = SH.serve_layout(icfg, api, shape.global_batch,
                                     shape.seq_len, mesh)
     inner = _prefill_callable(icfg, api, shape.seq_len, False, ctx)
@@ -367,7 +366,6 @@ def make_decode_step(cfg: ModelConfig, shape: ShapeSuite,
         def fn(params, token, cache, pos):
             return api.decode_step(icfg, params, token, cache, pos)
         return BuiltStep(fn, args)
-    SH.refuse_on_mesh(icfg, "decode step")
     sh, ctx, dims = SH.serve_layout(icfg, api, shape.global_batch,
                                     shape.seq_len, mesh)
 

@@ -122,16 +122,17 @@ load-balance loss.  The flags this path does not read (the spiral's and
 the online LM's) are refused before anything is written.
 
 Under a process group (`torchrun --nproc-per-node N -m
-repro_torch.launch.train ...`, or `launch.mesh.spawn`) the RWKV6 and
-dense-decoder archs train over `make_host_mesh()` (N x 1) across its
-ranks, as the reference does, through the step's mesh form (FSDP or pure
-data parallelism as the rules and the config pick); `--production-mesh`
-takes `make_production_mesh()` (16 x 16), which needs 256 ranks and
-raises on another world size.  The parameters are drawn whole and each
-rank keeps its shards; checkpoints are written shard by shard and
-restore onto the run's own mesh (`Trainer(shardings=...)`); rank 0
-prints the summary.  The MoE, RG-LRU and encoder-decoder archs under a
-mesh are refused before anything is written (ROADMAP item 17).
+repro_torch.launch.train ...`, or `launch.mesh.spawn`) every LM arch
+trains over `make_host_mesh()` (N x 1) across its ranks, as the reference
+does, through the step's mesh form (FSDP or pure data parallelism as the
+rules and the config pick; the MoE decoders' expert parallelism over
+'model'); `--production-mesh` takes `make_production_mesh()` (16 x 16),
+which needs 256 ranks and raises on another world size.  The parameters
+are drawn whole and each rank keeps its shards; checkpoints are written
+shard by shard and restore onto the run's own mesh
+(`Trainer(shardings=...)`); rank 0 prints the summary.  An optimizer
+whose state is not elementwise (adafactor) is refused over a mesh before
+anything is written (ROADMAP item 17).
 """
 from __future__ import annotations
 

@@ -62,12 +62,6 @@ def _scale(cfg: ModelConfig) -> float:
     return cfg.attn_logits_scale or cfg.head_dim ** -0.5
 
 
-def project_q(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, *,
-              rope: bool = True) -> torch.Tensor:
-    """-> [B, S, H, Dh]"""
-    return _q_heads(cfg, p, x @ p["wq"].to(cfg.compute_dtype), positions, rope)
-
-
 def _q_heads(cfg, p, q, positions, rope=True):
     """Projected queries [..., n * Dh] -> heads [..., n, Dh], normed and
     rotated."""
@@ -238,17 +232,20 @@ def out_proj(cfg: ModelConfig, p: dict, attn_out: torch.Tensor,
 
 
 def project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
-                ctx: ShardCtx = NULL_CTX):
-    """(q [B,S,n,Dh], k, v [B,S,nkv,Dh], the cfg of their heads, local):
+                ctx: ShardCtx = NULL_CTX, kv_x: torch.Tensor | None = None):
+    """(q [B,S,n,Dh], k, v [B,Skv,nkv,Dh], the cfg of their heads, local):
     the rank's own heads (local=True) where its column slices of wq and
     wk/wv are whole heads of aligned GQA groups, else every head (the
-    split projections gathered over 'model')."""
+    split projections gathered over 'model').  `kv_x` is the keys' and
+    values' input where it is not x (a cross-attention's encoder output)."""
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     wq, wk, wv = (p[k].to(cfg.compute_dtype) for k in ("wq", "wk", "wv"))
+    kx = x if kv_x is None else kv_x
     if wq.shape[-1] == H * Dh and wk.shape[-1] == KV * Dh:
         q = _q_heads(cfg, p, x @ wq, positions)
-        return (q, *_kv_heads(cfg, p, x @ wk, x @ wv, positions), cfg, False)
+        return (q, *_kv_heads(cfg, p, kx @ wk, kx @ wv, positions), cfg, False)
     xin = ctx.copy(x)
+    kin = xin if kv_x is None else ctx.copy(kv_x)
     m = H * Dh // wq.shape[-1]
     if (wq.shape[-1] * m == H * Dh and wk.shape[-1] * m == KV * Dh
             and H % m == 0 and KV % m == 0):
@@ -257,13 +254,14 @@ def project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions,
         p = {k: ctx.copy(v) if k in ("q_norm", "k_norm") else v
              for k, v in p.items()}
         q = _q_heads(cfg, p, xin @ wq, positions)
-        k, v = _kv_heads(cfg, p, xin @ wk, xin @ wv, positions)
+        k, v = _kv_heads(cfg, p, kin @ wk, kin @ wv, positions)
         return q, k, v, cfg.replace(n_heads=H // m, n_kv_heads=KV // m), True
 
-    def proj(w, full):
-        return x @ w if w.shape[-1] == full else ctx.gather(xin @ w, -1)
-    q = _q_heads(cfg, p, proj(wq, H * Dh), positions)
-    k, v = _kv_heads(cfg, p, proj(wk, KV * Dh), proj(wv, KV * Dh), positions)
+    def proj(w, full, src, src_in):
+        return src @ w if w.shape[-1] == full else ctx.gather(src_in @ w, -1)
+    q = _q_heads(cfg, p, proj(wq, H * Dh, x, xin), positions)
+    k, v = _kv_heads(cfg, p, proj(wk, KV * Dh, kx, kin),
+                     proj(wv, KV * Dh, kx, kin), positions)
     return q, k, v, cfg, False
 
 
@@ -293,24 +291,45 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, positions, *,
 
 
 def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                    enc: torch.Tensor):
+                    enc: torch.Tensor, ctx: ShardCtx = NULL_CTX):
     """The decoder's cross-attention (whisper): queries from x [B,S,d],
-    keys and values from the encoder output enc [B,Se,d]; no rope, no
-    mask."""
-    q = project_q(cfg, p, x, None, rope=False)
-    k, v = project_kv(cfg, p, enc, None, rope=False)
-    return out_proj(cfg, p, flash_attention(cfg, q, k, v, causal=False,
-                                            window=0))
+    keys and values from the encoder output enc [B,Se,d]; no rope (the
+    cross specs have no qk-norm), no mask.  Under a mesh tensor parallel
+    as `self_attention` is."""
+    q, k, v, hcfg, local = project_qkv(cfg, p, x, None, ctx, kv_x=enc)
+    o = flash_attention(hcfg, q, k, v, causal=False, window=0)
+    return out_proj(cfg, p, o, ctx, local)
 
 
-def cross_attention_decode(cfg: ModelConfig, p: dict, x, enc_kv: dict):
+def cross_attention_decode(cfg: ModelConfig, p: dict, x, enc_kv: dict,
+                           ctx: ShardCtx = NULL_CTX):
     """Cross-attention of one decode token x [B,1,d] over the encoder K/V
-    projected once at prefill ({'k','v': [B,Se,KV,Dh]})."""
-    B, Se = x.shape[0], enc_kv["k"].shape[1]
-    q = project_q(cfg, p, x, None, rope=False)
-    o = decode_attention(cfg, q, enc_kv["k"], enc_kv["v"],
-                         torch.full((B,), Se - 1, device=x.device))
-    return out_proj(cfg, p, o)
+    projected once at prefill ({'k','v': [B,Se,KV,Dh]}).  Under a mesh
+    the K/V are this rank's split of them (`cache_split` of Se =
+    cfg.enc_seq): along the encoder positions, each rank attends over its
+    own and the partial softmaxes merge (`_merged_decode`, every slot
+    valid), else by kv heads."""
+    B, H, KV, Dh = x.shape[0], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # a split's length does not tell whether the positions were split:
+    # under a mesh the whole length is the config's
+    Se = cfg.enc_seq if ctx.on else enc_kv["k"].shape[1]
+    s_lo, n_s, h_lo, n_h = cache_split(cfg, Se, ctx)
+    wq = p["wq"].to(cfg.compute_dtype)
+    qf = x @ wq if wq.shape[-1] == H * Dh else ctx.gather(x @ wq, -1)
+    q = _q_heads(cfg, p, qf, None, rope=False)           # every head
+    G = H // KV
+    qh = q[:, :, h_lo * G:(h_lo + n_h) * G]
+    hcfg = cfg if n_h == KV else cfg.replace(n_heads=n_h * G, n_kv_heads=n_h)
+    cur = torch.full((B,), Se - 1, device=x.device)
+    slot_pos = torch.arange(s_lo, s_lo + n_s, device=x.device).expand(B, n_s)
+    if n_s < Se:
+        o = _merged_decode(hcfg, qh, enc_kv["k"], enc_kv["v"], cur, 0,
+                           slot_pos, ctx)
+    else:
+        o = decode_attention(hcfg, qh, enc_kv["k"], enc_kv["v"], cur)
+    if n_h < KV:
+        o = ctx.gather(o, 2)
+    return out_proj(cfg, p, o, ctx)
 
 
 def ring_slot_pos(pos: torch.Tensor, smax: int) -> torch.Tensor:

@@ -16,6 +16,18 @@ decode steps equals the full forward over S + n.  The reference adds the
 position-0 sinusoid to every decode token (ROADMAP Queue 3, fault 10) and
 sizes the self cache to exactly S, so its first decode overwrites the last
 prompt token's slot (fault 11).
+
+`loss_fn`, `prefill` and `decode_step` take a `ShardCtx`: under a mesh
+they run on this rank's rows of the tokens and frames (explicit SPMD, as
+`models.transformer` does).  Each layer's weights are gathered for use
+over their storage-only dims as it runs (inside its remat); the encoder's
+and the decoder's attention (self and cross) and MLPs are tensor-parallel
+over 'model'; the embedding, the logits and the cross entropy are
+vocab-parallel.  The decode caches split as `sharding.cache_shardings`
+splits them: the self cache and the cross K/V (both rank-4 `k`/`v`
+leaves) along the sequence over 'model' where it divides, so the cross
+K/V of the 1,500 encoder positions are 750 a rank at 'model' 2, and a
+decode merges the ranks' partial softmaxes.
 """
 from __future__ import annotations
 
@@ -30,7 +42,7 @@ from repro_torch.models.layers import (embed_tokens, embedding_specs,
                                        lm_logits, mlp, mlp_specs,
                                        rmsnorm_spec, sinusoid_at,
                                        sinusoidal_pos_emb)
-from repro_torch.models.module import stack_specs
+from repro_torch.models.module import NULL_CTX, ShardCtx, stack_specs
 from repro_torch.models.transformer import (_fill, _maybe_remat, _norm,
                                             chunked_ce_loss)
 from repro_torch.tree import stack, unstack
@@ -88,20 +100,25 @@ def _restack(cfg: ModelConfig, per_layer: list):
 # Encoder
 # ---------------------------------------------------------------------------
 
-def enc_layer(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def enc_layer(cfg: ModelConfig, p: dict, x: torch.Tensor,
+              ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
+    if ctx.on:
+        p = ctx.use(p, enc_layer_specs(cfg))
     h = attn.self_attention(cfg, p["attn"], _norm(cfg, p["ln_attn"], x),
-                            None, causal=False, window=0)
+                            None, causal=False, window=0, ctx=ctx)
     x = x + h
-    return x + mlp(cfg, p["mlp"], _norm(cfg, p["ln_mlp"], x))
+    return x + mlp(cfg, p["mlp"], _norm(cfg, p["ln_mlp"], x), ctx)
 
 
-def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor):
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
+           ctx: ShardCtx = NULL_CTX):
     """frames: [B, enc_seq, d_model] (the stub frontend's output) ->
-    the encoder's final-norm output."""
+    the encoder's final-norm output.  `params`' top-level leaves are for
+    use already under a mesh (`_top`)."""
     x = frames.to(cfg.compute_dtype)
     x = x + sinusoidal_pos_emb(x.shape[1], cfg.d_model, cfg.compute_dtype,
                                x.device)[None]
-    layer_fn = _maybe_remat(cfg, functools.partial(enc_layer, cfg))
+    layer_fn = _maybe_remat(cfg, functools.partial(enc_layer, cfg, ctx=ctx))
     for lp in _layers(cfg, params["enc"], cfg.enc_layers):
         x = layer_fn(lp, x)
     return _norm(cfg, params["ln_enc_f"], x)
@@ -112,37 +129,48 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def dec_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, enc: torch.Tensor,
-              positions) -> torch.Tensor:
+              positions, ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
+    if ctx.on:
+        p = ctx.use(p, dec_layer_specs(cfg))
     h = attn.self_attention(cfg, p["self_attn"], _norm(cfg, p["ln_self"], x),
-                            positions, causal=True, window=0)
+                            positions, causal=True, window=0, ctx=ctx)
     x = x + h
     x = x + attn.cross_attention(cfg, p["cross_attn"],
-                                 _norm(cfg, p["ln_cross"], x), enc)
-    return x + mlp(cfg, p["mlp"], _norm(cfg, p["ln_mlp"], x))
+                                 _norm(cfg, p["ln_cross"], x), enc, ctx)
+    return x + mlp(cfg, p["mlp"], _norm(cfg, p["ln_mlp"], x), ctx)
 
 
-def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
-    x = embed_tokens(cfg, params["emb"], tokens)
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+           ctx: ShardCtx = NULL_CTX):
+    x = embed_tokens(cfg, params["emb"], tokens, ctx)
     return x + sinusoidal_pos_emb(tokens.shape[1], cfg.d_model,
                                   cfg.compute_dtype, x.device)[None]
 
 
+def _top(cfg: ModelConfig, params: dict, ctx: ShardCtx) -> dict:
+    """The top-level leaves for use; the layers are gathered one at a time
+    as they run."""
+    return ctx.use_top(params, lambda: encdec_specs(cfg), ("enc", "dec"))
+
+
 def decode_train(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-                 enc: torch.Tensor) -> torch.Tensor:
+                 enc: torch.Tensor, ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """Teacher-forced decoder over tokens [B,S] -> final-norm hidden states."""
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, ctx)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    layer_fn = _maybe_remat(cfg, functools.partial(dec_layer, cfg))
+    layer_fn = _maybe_remat(cfg, functools.partial(dec_layer, cfg, ctx=ctx))
     for lp in _layers(cfg, params["dec"], cfg.n_layers):
         x = layer_fn(lp, x, enc, positions)
     return _norm(cfg, params["ln_f"], x)
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            ctx: ShardCtx = NULL_CTX):
     """batch: frames [B,enc_seq,d], tokens [B,S], labels [B,S] (-1 masked)."""
-    enc = encode(cfg, params, batch["frames"])
-    h = decode_train(cfg, params, batch["tokens"], enc)
-    return chunked_ce_loss(cfg, params, h, batch["labels"])
+    params = _top(cfg, params, ctx)
+    enc = encode(cfg, params, batch["frames"], ctx)
+    h = decode_train(cfg, params, batch["tokens"], enc, ctx)
+    return chunked_ce_loss(cfg, params, h, batch["labels"], ctx=ctx)
 
 
 def forward_logits(cfg: ModelConfig, params: dict, tokens, frames,
@@ -167,58 +195,85 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> Any:
         for _ in range(cfg.n_layers)])
 
 
-def dec_layer_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos):
+def dec_layer_decode(cfg: ModelConfig, p: dict, x, cache: dict, pos,
+                     ctx: ShardCtx = NULL_CTX):
+    if ctx.on:
+        p = ctx.use(p, dec_layer_specs(cfg))
     h, self_c = attn.self_attention_decode(
-        cfg, p["self_attn"], _norm(cfg, p["ln_self"], x), cache["self"], pos)
+        cfg, p["self_attn"], _norm(cfg, p["ln_self"], x), cache["self"], pos,
+        ctx=ctx)
     x = x + h
     x = x + attn.cross_attention_decode(
-        cfg, p["cross_attn"], _norm(cfg, p["ln_cross"], x), cache["cross"])
-    x = x + mlp(cfg, p["mlp"], _norm(cfg, p["ln_mlp"], x))
+        cfg, p["cross_attn"], _norm(cfg, p["ln_cross"], x), cache["cross"],
+        ctx)
+    x = x + mlp(cfg, p["mlp"], _norm(cfg, p["ln_mlp"], x), ctx)
     return x, {"self": self_c, "cross": cache["cross"]}
 
 
-def decode_step(cfg: ModelConfig, params: dict, token, cache, pos):
+def decode_step(cfg: ModelConfig, params: dict, token, cache, pos,
+                ctx: ShardCtx = NULL_CTX):
     """token: [B,1] int; pos: [B] int -> (logits [B,V] f32, new_cache).
-    The token's sinusoid is taken at its own position pos[b]."""
-    x = embed_tokens(cfg, params["emb"], token)
+    The token's sinusoid is taken at its own position pos[b].  Under a
+    mesh: this rank's rows, its vocab slice of the logits, and its split of
+    the caches (`ctx.seq` the self cache's whole length)."""
+    params = _top(cfg, params, ctx)
+    x = embed_tokens(cfg, params["emb"], token, ctx)
     x = x + sinusoid_at(pos, cfg.d_model, cfg.compute_dtype)[:, None]
     new_cache = []
     for lp, lc in zip(_layers(cfg, params["dec"], cfg.n_layers),
                       _layers(cfg, cache, cfg.n_layers)):
-        x, nc = dec_layer_decode(cfg, lp, x, lc, pos)
+        x, nc = dec_layer_decode(cfg, lp, x, lc, pos, ctx)
         new_cache.append(nc)
     h = _norm(cfg, params["ln_f"], x)
-    return lm_logits(cfg, params["emb"], h)[:, 0], _restack(cfg, new_cache)
+    return lm_logits(cfg, params["emb"], h, ctx)[:, 0], \
+        _restack(cfg, new_cache)
+
+
+def _prefill_layer(cfg: ModelConfig, lp: dict, x, enc, positions, max_seq,
+                   ctx: ShardCtx):
+    """One decoder layer over the prompt: (x, its cache: the self K/V in
+    max_seq slots and the cross K/V, projected here once for this prompt
+    and every decode step after it; under a mesh the rank's split of
+    them)."""
+    if ctx.on:
+        lp = ctx.use(lp, dec_layer_specs(cfg))
+    h = _norm(cfg, lp["ln_self"], x)
+    q, k, v, hcfg, local = attn.project_qkv(cfg, lp["self_attn"], h,
+                                            positions, ctx)
+    self_c = {n: _fill(cfg, ctx.gather(t, 2) if local else t, max_seq, ctx)
+              for n, t in (("k", k), ("v", v))}
+    o = attn.flash_attention(hcfg, q, k, v, causal=True)
+    x = x + attn.out_proj(cfg, lp["self_attn"], o, ctx, local)
+    cq, ck, cv, hcfg, local = attn.project_qkv(
+        cfg, lp["cross_attn"], _norm(cfg, lp["ln_cross"], x), None, ctx,
+        kv_x=enc)
+    cross = {n: _fill(cfg, ctx.gather(t, 2) if local else t, cfg.enc_seq,
+                      ctx) for n, t in (("k", ck), ("v", cv))}
+    o = attn.flash_attention(hcfg, cq, ck, cv, causal=False)
+    x = x + attn.out_proj(cfg, lp["cross_attn"], o, ctx, local)
+    x = x + mlp(cfg, lp["mlp"], _norm(cfg, lp["ln_mlp"], x), ctx)
+    return x, {"self": self_c, "cross": cross}
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens, frames, *,
-            max_seq: int | None = None):
+            max_seq: int | None = None, ctx: ShardCtx = NULL_CTX):
     """Encode the frames and run the decoder over the prompt tokens [B,S].
     Returns (next-token logits [B,V] f32, the cache: the self K/V at slots
-    0..S-1 of max_seq (default S), the cross K/V projected once)."""
+    0..S-1 of max_seq (default S), the cross K/V projected once).  Under a
+    mesh: this rank's rows, its vocab slice of the logits and its split of
+    the caches."""
     S = tokens.shape[1]
     max_seq = S if max_seq is None else max_seq
     if max_seq < S:
         raise ValueError(f"prefill: max_seq {max_seq} < the prompt's {S}")
-    enc = encode(cfg, params, frames)
-    x = _embed(cfg, params, tokens)
+    params = _top(cfg, params, ctx)
+    enc = encode(cfg, params, frames, ctx)
+    x = _embed(cfg, params, tokens, ctx)
     positions = torch.arange(S, device=tokens.device)
     cache = []
     for lp in _layers(cfg, params["dec"], cfg.n_layers):
-        h = _norm(cfg, lp["ln_self"], x)
-        q = attn.project_q(cfg, lp["self_attn"], h, positions)
-        k, v = attn.project_kv(cfg, lp["self_attn"], h, positions)
-        self_c = {"k": _fill(cfg, k, max_seq), "v": _fill(cfg, v, max_seq)}
-        o = attn.flash_attention(cfg, q, k, v, causal=True)
-        x = x + attn.out_proj(cfg, lp["self_attn"], o)
-        # the cross K/V depend on the encoder output only: projected here
-        # once, for this prompt and every decode step after it
-        ck, cv = attn.project_kv(cfg, lp["cross_attn"], enc, None, rope=False)
-        cq = attn.project_q(cfg, lp["cross_attn"],
-                            _norm(cfg, lp["ln_cross"], x), None, rope=False)
-        o = attn.flash_attention(cfg, cq, ck, cv, causal=False)
-        x = x + attn.out_proj(cfg, lp["cross_attn"], o)
-        x = x + mlp(cfg, lp["mlp"], _norm(cfg, lp["ln_mlp"], x))
-        cache.append({"self": self_c, "cross": {"k": ck, "v": cv}})
+        x, c = _prefill_layer(cfg, lp, x, enc, positions, max_seq, ctx)
+        cache.append(c)
     h = _norm(cfg, params["ln_f"], x)
-    return lm_logits(cfg, params["emb"], h[:, -1:])[:, 0], _restack(cfg, cache)
+    return lm_logits(cfg, params["emb"], h[:, -1:], ctx)[:, 0], \
+        _restack(cfg, cache)

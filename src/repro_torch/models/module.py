@@ -353,16 +353,17 @@ class ShardCtx:
         out = C.gather_for_use(leaves, plans, self.mesh, self.batch)
         return tree_map(lambda i: out[i], idx)
 
-    def use_top(self, params: dict, specs_fn: Callable) -> dict:
-        """A model's params with every top-level leaf but the units' for
-        use (`use`; specs_fn() gives the model's spec tree); the units are
-        gathered a unit at a time as they run."""
+    def use_top(self, params: dict, specs_fn: Callable,
+                layers: tuple = ("units",)) -> dict:
+        """A model's params with every top-level leaf but the `layers`
+        subtrees' for use (`use`; specs_fn() gives the model's spec tree);
+        those are gathered a unit or a layer at a time as they run."""
         if not self.on:
             return params
         specs = specs_fn()
-        top = {k: v for k, v in params.items() if k != "units"}
+        top = {k: v for k, v in params.items() if k not in layers}
         return {**self.use(top, {k: specs[k] for k in top}),
-                "units": params["units"]}
+                **{k: params[k] for k in layers}}
 
 
 NULL_CTX = ShardCtx(None, ShardingRules({}))

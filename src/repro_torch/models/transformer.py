@@ -28,8 +28,9 @@ gathered for use over their storage-only dims as the unit runs (inside
 its remat, so a recompute gathers again); the attention and the MLP are
 tensor-parallel over 'model' (`attention`, `layers.mlp`); the embedding,
 the logits and the cross entropy are vocab-parallel; the loss's sums and
-count are summed over the batch's split dims.  A MoE layer under a mesh
-is not ported (ROADMAP item 17).
+count are summed over the batch's split dims.  A MoE layer runs its
+block's mesh form (`moe.moe_block_sharded`: expert parallelism over
+'model').
 """
 from __future__ import annotations
 
@@ -47,7 +48,6 @@ from repro_torch.models.layers import (embed_tokens, embedding_specs, lm_logits,
                                        mlp, mlp_specs, rmsnorm, rmsnorm_spec)
 from repro_torch.models.module import (NULL_CTX, ParamSpec, ShardCtx,
                                        fan_in_normal, stack_specs)
-from repro_torch.sharding import MOE_MESH
 from repro_torch.tree import stack, unstack
 
 # the "dots" remat policy saves the outputs of the unbatched matmuls (the
@@ -135,10 +135,8 @@ def _ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor, ctx=NULL_CTX):
     """The block's second half: (x + [post-norm] mlp(norm(x)), the MoE aux
     loss, 0 for a dense MLP)."""
     hin = _norm(cfg, lp["ln_mlp"], x)
-    if cfg.moe and ctx.on:
-        raise NotImplementedError(MOE_MESH)
     if cfg.moe:
-        h, aux = moe_lib.moe_block(cfg, lp["mlp"], hin)
+        h, aux = moe_lib.moe_block(cfg, lp["mlp"], hin, ctx)
     else:
         h, aux = mlp(cfg, lp["mlp"], hin, ctx), _zero_aux(x)
     if cfg.sandwich_norm:

@@ -20,17 +20,19 @@ noise comes from a torch.Generator seeded from `ServeConfig.seed`; it
 cannot equal `jax.random`'s draws, so the two packages agree on greedy
 decoding only.
 
-`Engine(..., mesh=)` serves over a mesh (the RWKV6 and dense-decoder
-families): each rank holds its shards of the parameters (placed by the
-rules) and its split of the cache (`sharding.cache_shardings`), and runs
-the decode step on them (`models.module.ShardCtx`).  The greedy token is
+`Engine(..., mesh=)` serves over a mesh (every family the Engine serves:
+RWKV6, the dense and MoE decoders, the RG-LRU LM): each rank holds its
+shards of the parameters (placed by the rules) and its split of the cache
+(`sharding.cache_shardings`), and runs the decode step on them
+(`models.module.ShardCtx`).  The greedy token is
 the argmax over the vocab shards (each rank's max and index, gathered
 over 'model'; a tie goes to the lowest index, as `torch.argmax` breaks
 it); with a temperature every rank draws the whole [B, V] noise from the
 same generator and adds its own slice, so the tokens are the one-rank
 Engine's.  The sampled ids are gathered over the batch's split dims, so
 every rank keeps the whole host bookkeeping.  A slot is zeroed on the
-ranks that hold its rows.
+ranks that hold its rows, each in its own split of the leaf (the RG-LRU's
+h and conv channels, a decoder's cache slots).
 """
 from __future__ import annotations
 
@@ -110,7 +112,6 @@ class Engine:
     def _place(self, params) -> None:
         """The rank's shards of `params` and a zero split of the cache (its
         rows, on the rows' mesh dims: `self.rows`)."""
-        SH.refuse_on_mesh(self.cfg, "Engine")
         B, S = self.scfg.batch_slots, self.scfg.max_seq
         sh, self.ctx, self.rows = SH.serve_layout(self.cfg, self.api, B, S,
                                                   self.mesh)

@@ -36,9 +36,9 @@ Collectives: the counted and the differentiable ones live in
 re-exported here (`all_reduce`, `all_gather`, `counts`, ...), so the
 callers of `sharding.all_reduce` and the rest stay as they are.
 
-Serving over a mesh (`serve_layout`, `refuse_on_mesh`): the shardings,
-the ShardCtx and the batch split that the serve step builders
-(`launch.steps`) and the serving engine (`runtime.serving`) share.
+Serving over a mesh (`serve_layout`): the shardings, the ShardCtx and the
+batch split that the serve step builders (`launch.steps`) and the serving
+engine (`runtime.serving`) share.
 """
 from __future__ import annotations
 
@@ -58,10 +58,6 @@ from repro_torch.models.module import (NamedSharding, ShardCtx, ShardingRules,
 from repro_torch.tree import tree_map, tree_map_with_path
 
 Tree = Any
-
-MOE_MESH = ("a MoE layer under a mesh is not ported: the MoE steps over a "
-            "mesh (moe_block_shardmap's backward) wait for ROADMAP item 17")
-
 
 def batch_axes(mesh) -> tuple:
     return ("pod", "data") if "pod" in mesh_shape(mesh) else ("data",)
@@ -149,12 +145,17 @@ def cache_pspec(path_leafname: str, shape, rules: ShardingRules, mesh,
 
 def cache_shardings(cache_abs: Tree, cfg: ModelConfig, mesh) -> Tree:
     """NamedSharding tree for a cache tree (of meta tensors, or any leaves
-    with a shape)."""
+    with a shape).  With `cfg.scan_layers` a leaf has a leading layer dim,
+    but for the RG-LRU LM's remainder layers (`rem`), which are a list in
+    either layout: the reference reads their [B, w] state as stacked too,
+    and so replicates it (ROADMAP Queue 3, fault 12); here it splits by
+    channel as the units' state does."""
     rules = make_rules(cfg, mesh)
 
     def leaf(path, x):
+        scanned = cfg.scan_layers and path[0] != "rem"
         return NamedSharding(mesh, cache_pspec(str(path[-1]), tuple(x.shape),
-                                               rules, mesh, cfg.scan_layers))
+                                               rules, mesh, scanned))
 
     return tree_map_with_path(leaf, cache_abs)
 
@@ -162,16 +163,6 @@ def cache_shardings(cache_abs: Tree, cfg: ModelConfig, mesh) -> Tree:
 # ---------------------------------------------------------------------------
 # Serving over a mesh
 # ---------------------------------------------------------------------------
-
-def refuse_on_mesh(cfg: ModelConfig, what: str = "step") -> None:
-    """The families whose steps are not ported under a mesh raise."""
-    if cfg.family in ("rglru", "encdec"):
-        raise NotImplementedError(
-            f"the {cfg.family} {what} under a mesh is not ported: it waits "
-            "for ROADMAP item 17")
-    if cfg.moe:
-        raise NotImplementedError(MOE_MESH)
-
 
 def split_dims(mesh, axes: tuple, rows: int) -> tuple:
     """The mesh dims of `axes` that split `rows` rows: trailing ones shed

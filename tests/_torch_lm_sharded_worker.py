@@ -206,9 +206,9 @@ def _train_sharded(case, mesh) -> dict:
 
 
 def _refusals(mesh, out_dir) -> dict:
-    """Each family or optimizer not ported under a mesh: its error, from
-    the step builders, the Engine and the launcher (which writes
-    nothing)."""
+    """The families once refused under a mesh, and adafactor, which still
+    is: each build's error (None where it builds), from the step builders,
+    the Engine and the launcher (which writes nothing)."""
     shape = ShapeSuite("t", 16, 4, "train")
     out = {}
     for name, cfg, opt in (
