@@ -389,7 +389,14 @@ checkout, it exits non-zero and prints no result.  Phases:
      the largest output, run to run bitwise, the ms of each; (h5)
      `compressed_psum` over a 2-rank pod group, the accumulated
      deviation over 8 steps under 0.05, and (h3)'s carry written sharded
-     by both ranks and restored on one rank, bitwise;
+     by both ranks and restored on one rank, bitwise; (h6) (h1)'s
+     configuration through `OnlineTrainer` on the placed carry: 2 windows
+     of 8 steps (masked adamw), K1 8 launches a rank a window on its
+     57,920 columns, the windows' losses and the parameters within 1e-5
+     of the one-rank trainer's (rank 0, the other idle), each rank's
+     window ms from the trainer's clock beside the one-rank window's, a
+     run crashed after update 1 (a sharded checkpoint) resumed by a new
+     trainer on the mesh, bitwise the uncrashed run;
  19. the LM's sharded steps on two ranks of one gloo group that share the
      card, as phase 18 runs them (a (data 1, model 2) mesh, a join timeout
      of 420 s that fails the phase), each check with the counts set to 0
@@ -412,7 +419,12 @@ checkout, it exits non-zero and prints no result.  Phases:
      over 'model'; 2 steps, loss and grad norm within 1e-5 and the
      gathered parameters within 1e-5 (rwkv6-3b 2e-4) of each leaf's
      largest entry against the one-rank step, each step's ms and
-     collectives, each rank's peak bytes beside the one-rank step's;
+     collectives, each rank's peak bytes beside the one-rank step's; then
+     rank 0's (m1) peak held within 10 % of the dry-run's reckoning of
+     the same step on the same mesh (`dryrun_lib.count_rank` on rank 0's
+     meta shards over a one-process fake group of 2 ranks, counted by a
+     second helper process that phase 1 starts, `chip_smoke.py
+     --reckon-sharded PATH`);
  20. the MoE decoders', the RG-LRU LM's and the encoder-decoder's
      sharded steps, run by phase 19's group after its own checks (one
      spawn for both phases; its join timeout of 420 s covers both, and
@@ -446,8 +458,9 @@ checkout, it exits non-zero and prints no result.  Phases:
      "guard" and K2's with a "rewire" entry for phase 9's, both with a
      "telemetry" entry for phase 10's, a "fleet" entry for phase 11's and
      an "lm" entry for phase 12's, K1's with a "scaled" entry for phase
-     15's and a "sharded" entry for phase 18's, K4's with a "long" entry
-     for phase 17's and a "sharded" entry for phase 19's, then the result
+     15's and a "sharded" entry for phase 18's (its "trainer" entry
+     (h6)'s launches), K4's with a "long" entry for phase 17's and a
+     "sharded" entry for phase 19's, then the result
      line {"ok": true, "device": {...}}.
 
 Tolerances: a float32 kernel result is within 1e-5 of the largest
@@ -5362,10 +5375,41 @@ def reckon_main(path):
     return 0
 
 
-def start_reckoning():
-    """Phase 1 starts `reckon_main` in a helper process, which phase 17
-    waits for: its counts are single-threaded CPU work (minutes) that
-    overlaps phases 2-16."""
+def reckon_sharded_main(path):
+    """`chip_smoke.py --reckon-sharded PATH` (started by phase 1 as a
+    second helper process, on the CPU): rank 0's dry-run count of phase
+    19's (m1) prefill step on the same (data 1, model 2) mesh, over a
+    one-process fake group of 2 ranks (`dryrun_lib.count_rank` on the
+    rank's local meta shards), written to PATH as JSON."""
+    sys.path.insert(0, str(ROOT / "src"))
+    os.nice(19)
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSuite
+    from repro_torch.launch import dryrun_lib as D
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.time()
+    B, T = M1_PREFILL
+    with D.fake_group(2):
+        mesh = make_host_mesh(1, 2, device="cpu")
+        built = D.build_step(get_config("rwkv6-3b"),
+                             ShapeSuite("p", T, B, "prefill"), "meta",
+                             mesh=mesh)
+        c = D.count_rank(built, "prefill", mesh)
+    out = {k: c[k] for k in ("flops", "bytes", "peak_bytes", "collectives",
+                             "collectives_raw")}
+    out["argument_bytes"] = D.argument_bytes("prefill", c["args"])
+    out["s"] = time.time() - t0
+    Path(path).write_text(json.dumps(out))
+    return 0
+
+
+def start_reckoning(flag="--reckon"):
+    """Phase 1 starts `reckon_main` (`flag` --reckon) and
+    `reckon_sharded_main` (--reckon-sharded) in helper processes, which
+    phases 17 and 19 wait for: their counts are single-threaded CPU work
+    (minutes) that overlaps phases 2-16."""
     import tempfile
     fd, path = tempfile.mkstemp(prefix="chip_smoke_reckon_", suffix=".json")
     os.close(fd)
@@ -5373,7 +5417,7 @@ def start_reckoning():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     with open(log_path, "w") as logf:
         proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
-                                 "--reckon", path], stdout=logf,
+                                 flag, path], stdout=logf,
                                 stderr=subprocess.STDOUT, env=env)
     return {"proc": proc, "path": path, "log": log_path, "t0": time.time()}
 
@@ -5389,16 +5433,22 @@ def stop_reckoning(job):
         Path(p).unlink(missing_ok=True)
 
 
-def read_reckoning(job, timeout=900):
+def helper_result(job, label, timeout=900):
+    """A reckoning helper's JSON, once it has ended (0, or the phase
+    fails), and the seconds this waited for it."""
     t0 = time.perf_counter()
     try:
         rc = job["proc"].wait(timeout=timeout)
     except subprocess.TimeoutExpired:
         rc = None
     waited = time.perf_counter() - t0
-    check(rc == 0, f"phase 17: the dry-run helper ended with {rc}: "
+    check(rc == 0, f"{label}: the dry-run helper ended with {rc}: "
                    + Path(job["log"]).read_text()[-2000:])
-    out = json.loads(Path(job["path"]).read_text())
+    return json.loads(Path(job["path"]).read_text()), waited
+
+
+def read_reckoning(job, timeout=900):
+    out, waited = helper_result(job, "phase 17", timeout)
     log(f"(dry-run) the helper's counts took {time.time() - job['t0']:.1f} s "
         f"of wall time beside phases 2-16 (phase 17 waited {waited:.1f} s); "
         + ", ".join(f"{k} {v['s']:.1f} s" for k, v in out["prefill"].items()))
@@ -6190,6 +6240,108 @@ def sharded_compression(torch, SH, rank, dev):
     return {"deviation": dev_, "collectives": colls}
 
 
+def sharded_trainer(torch, SH, mesh, rank, dev, root):
+    """(h6) the scaled engine at (s1)'s configuration (n 1,024, capacity 1,
+    compact_fused) through `OnlineTrainer` on a (data 1, model 2) carry
+    (`ScaledLearner.place`): 2 windows of 8 steps (masked adamw), K1
+    counted (8 a rank a window, each on the rank's column half); the
+    windows' losses and the parameters against the one-rank trainer's
+    (rank 0, the other idle; 1e-5); each rank's window ms from the
+    trainer's clock beside the one-rank window's; a run crashed after
+    update 1 (a sharded checkpoint, each rank its shards) and resumed by
+    a new trainer on the mesh (restored by the learner's target
+    shardings), bitwise the uncrashed run's carry, parameters and
+    optimizer state."""
+    import numpy as np
+    from repro_torch.core import scaled_rtrl as SR
+    from repro_torch.core.learner import LearnerSpec, make_learner
+    from repro_torch.optim import optimizers as O
+    from repro_torch.runtime import online as ON
+    from repro_torch.runtime.trainer import InjectedFailure
+    cfg, params, masks, _, _ = scaled_setup(torch, SR, dev, n=H1_N)
+    k, windows = 8, 2
+    ys = (np.arange(cfg.batch) % cfg.n_out).astype(np.int32)
+
+    def stream(t):
+        rng = np.random.default_rng(1000 + t)
+        return (rng.standard_normal((cfg.batch, cfg.n_in)).astype(np.float32),
+                ys)
+
+    def make(sharded, ckpt_every=0, fail_at=-1):
+        lr = make_learner(LearnerSpec(engine="scaled", cfg=cfg,
+                                      backend="compact_fused"))
+        tr = ON.OnlineTrainer(
+            ON.OnlineTrainerConfig(total_steps=windows * k, update_every=k,
+                                   ckpt_every=ckpt_every, keep=1,
+                                   ckpt_dir=str(Path(root) / "h6"),
+                                   fail_at_update=fail_at, log_every=1),
+            lr, O.masked(O.adamw(lr=1e-3), masks), params, masks, stream,
+            device=dev)
+        if sharded:
+            tr.carry = lr.place(tr.carry, mesh)
+            tr.shardings = {"carry": lr.shardings(tr.carry, mesh)}
+        return tr
+    tr = make(True)
+    SH.barrier()
+    reset_counts()
+    tr.run()
+    counts = read_counts()
+    check_counts(counts, {"compact_fused": windows * k},
+                 f"(h6) rank {rank} trainer")
+    losses = [w["loss"] for w in tr.windows]
+    ms = [w["ms"] for w in tr.windows]
+    local = tuple(SH.to_local(tr.carry["state"]["vals"]).shape)
+    check(local[-1] * 2 == tr.learner._cl.Pc_pad,
+          f"(h6) rank {rank}: local vals {local}")
+    # a crash after update 1 and the resume, on the same mesh
+    crashed = make(True, ckpt_every=1, fail_at=1)
+    try:
+        crashed.run()
+        check(False, "(h6) the injected failure did not fire")
+    except InjectedFailure:
+        pass
+    del crashed
+    resumed = make(True, ckpt_every=windows)
+    ok = resumed.try_resume() and (resumed.step, resumed.update) == (k, 1)
+    resumed.run()
+    same = ok and all(bitwise(torch, tree_leaves_of(a), tree_leaves_of(b))
+                      for a, b in ((tr.learner.gather(tr.carry),
+                                    resumed.learner.gather(resumed.carry)),
+                                   (tr.opt_state, resumed.opt_state)))
+    check(same, f"(h6) rank {rank}: the resumed run differs from the "
+                "uncrashed one")
+    del resumed
+    res = {"launches": counts["compact_fused"], "windows": windows,
+           "local_vals": local, "losses": losses, "window_ms": ms,
+           "resumed_bitwise": same}
+    SH.barrier()
+    if rank == 0:
+        one = make(False)
+        one.run()
+        one_losses = [w["loss"] for w in one.windows]
+        lerr = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
+        perr = device_gap(tr.carry["params"], one.carry["params"])
+        check(lerr <= F32_REL and perr[0] <= F32_REL,
+              f"(h6) trainer vs one rank: losses {lerr:.3e}, params {perr}")
+        res.update(loss_vs_one=lerr, params_vs_one=perr[0],
+                   one_rank_window_ms=[w["ms"] for w in one.windows])
+        del one
+    SH.barrier()
+    rank_log(rank, f"(h6) OnlineTrainer on (1, 2), n {cfg.n}: {windows} "
+             f"windows of {k} steps, K1 {counts['compact_fused']} launches "
+             f"on vals {local}; losses {[f'{x:.6f}' for x in losses]}, "
+             f"window ms {[f'{x:.2f}' for x in ms]} (the trainer's clock, "
+             "both ranks at once); crash after update 1 and resume: "
+             f"bitwise {same}" + ("" if rank else
+                                  f"; vs the one-rank trainer: losses "
+                                  f"{res['loss_vs_one']:.2e}, parameters "
+                                  f"{res['params_vs_one']:.2e}, its window "
+                                  f"ms {[f'{x:.2f}' for x in res['one_rank_window_ms']]}"))
+    del tr
+    torch.cuda.empty_cache()
+    return res
+
+
 def sharded_rank(rank, world, out_dir):
     """One rank of phase 18: both ranks on card 0, in a gloo group."""
     import torch
@@ -6207,7 +6359,9 @@ def sharded_rank(rank, world, out_dir):
             ("h3", lambda: sharded_rewire(torch, SH, mesh, rank, dev, H3_N,
                                           out_dir)),
             ("h4", lambda: sharded_moe(torch, SH, mesh, rank, dev)),
-            ("h5", lambda: sharded_compression(torch, SH, rank, dev))):
+            ("h5", lambda: sharded_compression(torch, SH, rank, dev)),
+            ("h6", lambda: sharded_trainer(torch, SH, mesh, rank, dev,
+                                           out_dir))):
         res[name] = fn()
         parts[name] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -6240,8 +6394,11 @@ def sharded_phase(torch):
         shutil.rmtree(root, ignore_errors=True)
     h1, h2 = ranks[0]["h1"], ranks[0]["h2"]
     for r in ranks:
-        check(r["h1"]["launches"] == 8 and r["h2"]["launches"] == 16,
-              f"phase 18 launches {r['h1']['launches']}, {r['h2']['launches']}")
+        check(r["h1"]["launches"] == 8 and r["h2"]["launches"] == 16
+              and r["h6"]["launches"] == 16,
+              f"phase 18 launches {r['h1']['launches']}, "
+              f"{r['h2']['launches']}, {r['h6']['launches']}")
+    h6 = ranks[0]["h6"]
     log(f"phase 18 group: {wall:.1f} s wall (spawn, CUDA init and the checks)"
         f"; seconds by part (rank 0): " + ", ".join(
             f"{k} {v:.1f}" for k, v in ranks[0]["seconds"].items()))
@@ -6258,6 +6415,15 @@ def sharded_phase(torch):
             "alone_window_ms": [r["h1"]["alone_window_ms"] for r in ranks],
             "one_rank_window_ms": h1["one_rank_window_ms"],
             "idle": [r["h1"].get("idle") for r in ranks],
+            "trainer": {"launches_per_rank": [r["h6"]["launches"]
+                                              for r in ranks],
+                        "windows": h6["windows"],
+                        "window_ms": [r["h6"]["window_ms"] for r in ranks],
+                        "one_rank_window_ms": h6["one_rank_window_ms"],
+                        "loss_vs_one": h6["loss_vs_one"],
+                        "params_vs_one": h6["params_vs_one"],
+                        "resumed_bitwise": all(r["h6"]["resumed_bitwise"]
+                                               for r in ranks)},
             "group_s": wall}
 
 
@@ -6266,6 +6432,11 @@ def sharded_phase(torch):
 # ---------------------------------------------------------------------------
 
 LM_SHARDED_TIMEOUT = 420   # s: the group's join timeout, a failure past it
+# (m1)'s prefill (batch, tokens), and how far rank 0's measured peak may lie
+# from the dry-run's reckoning of it (phase 17's one-card reckonings met the
+# card within 1.1-8.4 %)
+M1_PREFILL = (4, 512)
+PEAK_RECKON_REL = 0.10
 
 
 def whole_leaf(SH, x):
@@ -6307,7 +6478,7 @@ def lm_sharded_prefill(torch, SH, mesh, rank, dev):
     from repro_torch.models.module import ShardCtx, materialize
     cfg = get_config("rwkv6-3b")
     H, L = RW.n_heads(cfg), cfg.n_layers
-    B, T = 4, 512
+    B, T = M1_PREFILL
     tokens = torch.randint(0, cfg.vocab_size, (B, T),
                            generator=torch.Generator().manual_seed(1)).to(dev)
     out = {}
@@ -6321,8 +6492,9 @@ def lm_sharded_prefill(torch, SH, mesh, rank, dev):
     calls = []
     batch = {"tokens": tokens}
     pre.fn(params, batch)                       # warm: the kernel's load
-    runs = []
+    runs, logits, cache = [], None, None
     for i in range(2):
+        del logits, cache           # the peak is the run's, as reckoned
         SH.barrier()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -6634,10 +6806,12 @@ def lm_sharded_rank(rank, world, out_dir):
         json.dump(res, f)
 
 
-def lm_sharded_phase(torch):
+def lm_sharded_phase(torch, job):
     """Phase 19 (module docstring): the two-rank group's run, which runs
-    phase 20's parts too, then the ranks' results read back.  Returns the
-    ranks' results and K4's "sharded" entry of the kernels line."""
+    phase 20's parts too, then the ranks' results read back, and rank 0's
+    (m1) peak held to the helper's reckoning of it (`job`,
+    `reckon_sharded_main`; within PEAK_RECKON_REL).  Returns the ranks'
+    results and K4's "sharded" entry of the kernels line."""
     import shutil
     import tempfile
     from repro_torch.launch.mesh import spawn
@@ -6653,6 +6827,18 @@ def lm_sharded_phase(torch):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     m1 = [r["m1"] for r in ranks]
+    reck, waited = helper_result(job, "phase 19")
+    peak = m1[0]["peak_bytes"]
+    reck_rel = abs(peak - reck["peak_bytes"]) / peak
+    log(f"(m1) rank 0's prefill peak {peak / 1e9:.4f} GB measured "
+        f"(max_memory_allocated) against {reck['peak_bytes'] / 1e9:.4f} GB "
+        f"reckoned on meta (its arguments {reck['argument_bytes']['total'] / 1e9:.4f} GB;"
+        f" collectives {reck['collectives']}, result bytes "
+        f"{reck['collectives_raw']}; FLOPs {reck['flops']:.4g}): "
+        f"{100 * reck_rel:.2f} % apart (bound {100 * PEAK_RECKON_REL:.0f} %); "
+        f"the helper took {reck['s']:.1f} s, phase 19 waited {waited:.1f} s")
+    check(reck_rel <= PEAK_RECKON_REL,
+          f"(m1) peak {peak} vs reckoned {reck['peak_bytes']}")
     parts = ranks[0]["seconds"]["19"]
     log(f"phases 19 and 20 group: {wall:.1f} s wall; phase 19's seconds by "
         "part (rank 0): " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
@@ -6665,6 +6851,8 @@ def lm_sharded_phase(torch):
             "prefill_ms": [m["prefill_ms"] for m in m1],
             "one_rank_prefill_ms": m1[0]["one_rank_prefill_ms"],
             "peak_bytes": [m["peak_bytes"] for m in m1],
+            "reckoned_peak_bytes": reck["peak_bytes"],
+            "peak_vs_reckoned": reck_rel,
             "one_rank_peak_bytes": m1[0]["one_rank_peak_bytes"],
             "f32_logits_rel": m1[0]["f32_logits_rel"],
             "engine_ms_per_step": ranks[0]["m2"]["ms_per_step"],
@@ -6905,11 +7093,12 @@ def main():
               "from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    job = start_reckoning()
+    jobs = (start_reckoning(), start_reckoning("--reckon-sharded"))
     try:
-        return run_phases(torch, job)
+        return run_phases(torch, *jobs)
     finally:
-        stop_reckoning(job)
+        for job in jobs:
+            stop_reckoning(job)
 
 
 def phase_time(n, what, t0) -> float:
@@ -6920,7 +7109,7 @@ def phase_time(n, what, t0) -> float:
     return t
 
 
-def run_phases(torch, job):
+def run_phases(torch, job, sharded_job):
     from repro_torch import checkpoint as CKP
     from repro_torch.core import bptt as BP, costs as CO, rtrl as RT
     from repro_torch.core import sparse_rtrl as SP, stacked_rtrl as ST
@@ -7158,7 +7347,7 @@ def run_phases(torch, job):
     # one group for both: phase 19 RWKV6 and the dense decoders, phase 20
     # the MoE decoders, the RG-LRU LM and the encoder-decoder
     t19 = time.perf_counter()
-    ranks, lm_sharded = lm_sharded_phase(torch)
+    ranks, lm_sharded = lm_sharded_phase(torch, sharded_job)
     s20 = families_sharded_phase(ranks)
     log(f"phase 19 (the LM's sharded steps, 2 ranks): "
         f"{time.perf_counter() - t19 - s20:.1f} s")
@@ -7208,4 +7397,6 @@ def run_phases(torch, job):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--reckon"]:
         sys.exit(reckon_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--reckon-sharded"]:
+        sys.exit(reckon_sharded_main(sys.argv[2]))
     sys.exit(main())

@@ -41,8 +41,16 @@ import torch
 import torch.distributed as dist
 
 # collectives issued through `all_reduce` / `all_gather`, by name (tests
-# and chip_smoke read it around a region)
+# and chip_smoke read it around a region), and the bytes of their results
+# by the same names (the reference dry-run's `collectives_raw`: result-shape
+# bytes a kind)
 counts: collections.Counter = collections.Counter()
+counts_bytes: collections.Counter = collections.Counter()
+
+
+def _count(name: str, result: torch.Tensor) -> None:
+    counts[name] += 1
+    counts_bytes[name] += result.numel() * result.element_size()
 
 
 def _group(mesh, dims):
@@ -61,11 +69,16 @@ def _staged(t: torch.Tensor, group) -> bool:
 
 def all_reduce(t: torch.Tensor, mesh, dims, op: str = "sum") -> torch.Tensor:
     """Sum (or max) of `t` over the ranks of mesh dims `dims`: one
-    all_reduce, into a new tensor."""
+    all_reduce, into a new tensor.  On the meta device (the dry-run) it is
+    counted and returns a meta result; no rank is asked."""
     group, size = _group(mesh, dims)
     if size == 1:
         return t.clone()
-    counts[f"all_reduce_{op}"] += 1
+    if t.is_meta:
+        out = torch.empty_like(t)
+        _count(f"all_reduce_{op}", out)
+        return out
+    _count(f"all_reduce_{op}", t)
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     buf = t.detach().to("cpu", copy=True) if _staged(t, group) \
         else t.detach().clone()
@@ -75,16 +88,18 @@ def all_reduce(t: torch.Tensor, mesh, dims, op: str = "sum") -> torch.Tensor:
 
 def all_gather(t: torch.Tensor, mesh, dims, axis: int = 0) -> torch.Tensor:
     """The ranks' `t` of mesh dims `dims` concatenated along `axis`, in
-    rank order of those dims: one all_gather."""
+    rank order of those dims: one all_gather (on the meta device counted,
+    with a meta result, and no rank asked)."""
     group, size = _group(mesh, dims)
     if size == 1:
         return t.clone()
-    counts["all_gather"] += 1
     src = t.detach().movedim(axis, 0).contiguous()
     if _staged(t, group):
         src = src.cpu()
     out = src.new_empty((size * src.shape[0],) + tuple(src.shape[1:]))
-    dist.all_gather_into_tensor(out, src, group=group)
+    _count("all_gather", out)
+    if not t.is_meta:
+        dist.all_gather_into_tensor(out, src, group=group)
     return out.to(t.device).movedim(0, axis)
 
 

@@ -110,6 +110,13 @@ class _LearnerBase:
         """The current parameters in the structure the optimizer sees."""
         return carry["params"]
 
+    def read_window(self, carry: Tree, stats: dict, grads: bool = True):
+        """(loss, gradients or None, stats) at the end of an update window:
+        the whole batch's, on every rank of a sharded carry.  `stats` are
+        the window's per-step stats stacked (`runtime.online.stream_grads`).
+        One device's carry holds them as they are."""
+        return carry["loss"], (self.grads(carry) if grads else None), stats
+
     def _freeze_static(self, **kv):
         """Bind init-derived static structure (masks, layouts) to this
         learner instance ONCE; re-initialising with different structure
@@ -851,11 +858,14 @@ class ScaledLearner(_LearnerBase):
     batch mean (DTensor `Partial` over the batch axes).  `grads` issues
     the update's two collectives (`sharding`): one all_reduce over the
     batch axes of the accumulators, one all_gather over 'model' of the
-    flat gradient's columns.  A rewire event on a sharded carry issues one
+    flat gradient's columns.  `read_window` (an update window's end, the
+    `OnlineTrainer`'s) folds the loss, the window's stats and each
+    example's live-row count into that one all_reduce, so every rank reads
+    the whole batch's.  A rewire event on a sharded carry issues one
     all_gather over 'model' (every buffer's columns, then each rank keeps
     its new columns) and, with more than one batch shard, one all_reduce
-    of the RigL scores over the batch axes.  Stats (overflow) are this
-    rank's rows'."""
+    of the RigL scores over the batch axes.  A step's stats (overflow) are
+    this rank's rows'."""
 
     def __init__(self, spec: LearnerSpec):
         self.fused = spec.backend == "compact_fused"
@@ -986,14 +996,40 @@ class ScaledLearner(_LearnerBase):
             grads = self._finish_gw(carry["gw"])
             grads["out"] = carry["gout"]
             return grads
-        # the update's two collectives: the accumulators summed over the
-        # batch axes (one all_reduce), the columns gathered over 'model'
+        return self.read_window(carry, {})[1]
+
+    def read_window(self, carry, stats, grads=True):
+        """On a sharded carry the update's two collectives: the
+        accumulators, the loss, the stats and the live-row counts summed
+        over the batch axes in one all_reduce (each rank's stats and counts
+        in its own slot of a zero buffer, so the sum holds every rank's),
+        then the gradient's columns gathered over 'model'.  The stats come
+        back whole: overflow the max over the ranks' rows, every other
+        stat the mean of the ranks' means; ``stats["kb"]`` the live rows of
+        every example ([L * B], layer-major, in batch order) for the
+        metric pack, whose carry holds only this rank's rows."""
+        self._sync(carry)
+        mesh = _carry_mesh(carry)
+        if mesh is None:
+            return super().read_window(carry, stats, grads)
         sh = self._shards(mesh)
         local = sh.local(carry)
-        gw, gout = sh.reduce_batch((local["gw"], local["gout"]))
-        grads = self._finish_gw(SH.all_gather(gw, mesh, "model"))
-        grads["out"] = gout
-        return grads
+        idx = local["state"]["idx"]
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        kb = torch.stack([(i >= 0).sum(dim=-1) for i in idx]).float()
+        acc = (local["gw"], local["gout"]) if grads else ()
+        acc, loss, slots = sh.reduce_batch(
+            (acc, local["loss"], tree_map(sh.slot, (dict(stats), kb))))
+        every, kb = slots
+        stats = {k: v.amax(dim=0) if k == "overflow" else v.mean(dim=0)
+                 for k, v in every.items()}
+        stats["kb"] = kb.movedim(0, 1).reshape(-1)
+        if not grads:
+            return loss, None, stats
+        gw, gout = acc
+        out = self._finish_gw(SH.all_gather(gw, mesh, "model"))
+        out["out"] = gout
+        return loss, out, stats
 
     def reset_grads(self, carry, params=None):
         mesh = _carry_mesh(carry)
@@ -1188,6 +1224,7 @@ class _Shards:
         bi = 0
         for a in self.batch_dims:
             bi = bi * sizes[a] + self.coord[a]
+        self.bi = bi
         self.B = cfg.batch // self.n_batch
         self.r0 = bi * self.B
         # the rank that keeps a whole (replicated) accumulator's value
@@ -1304,6 +1341,14 @@ class _Shards:
                     CF.fused_segments(lay, cl, layer=l)
             self._local_cl = cl
         return cl
+
+    def slot(self, x):
+        """`x` in this rank's slot (its batch index) of a zero [n_batch,
+        ...] buffer: summed over the batch axes, the buffer holds every
+        batch shard's `x`."""
+        out = x.new_zeros((self.n_batch,) + tuple(x.shape))
+        out[self.bi] = x
+        return out
 
     # -- collectives --------------------------------------------------------
 

@@ -25,11 +25,16 @@ Not ported: the reference's XLA half (`cost_analysis_dict`,
 cost analysis counts a loop body once, and the reference corrects that by
 lowering each loop body alone and composing the counts; it reads the
 collectives' bytes from HLO text.  The dispatch mode sees every op that
-runs, each trip of every loop included, so no correction is needed, and
-one card has no collectives.
+runs, each trip of every loop included, so no correction is needed; on a
+mesh the port's SPMD code issues every collective itself, and
+`collectives.counts_bytes` keeps their result bytes by kind.
 
 The card: one H100 SXM's published peaks (NVIDIA's data sheet), at its
-700 W maximum power limit; a card set lower runs slower under load.
+700 W maximum power limit; a card set lower runs slower under load.  A
+mesh's collectives are reckoned against its NVLink 4: 450 GB/s a
+direction (900 GB/s both ways) between the 8 cards of one HGX H100 node.
+A 16-wide mesh axis spans two such nodes, whose link is the nodes'
+network, slower than NVLink: the collective time is a lower bound.
 """
 from __future__ import annotations
 
@@ -52,6 +57,8 @@ F32_FLOP_S = 67e12        # f32 on the CUDA cores
 HBM_BYTES_S = 3.35e12     # HBM3 bytes/s
 CARD_BYTES = 80e9         # device memory, the "80 GB" of the card's name
 POWER_LIMIT_W = 700.0     # the limit these peaks are published at
+NVLINK_BYTES_S = 450e9    # NVLink 4, one direction (900 GB/s both ways)
+NVLINK_CARDS = 8          # cards an NVLink switch joins in one HGX H100 node
 
 
 # ---------------------------------------------------------------------------
@@ -341,16 +348,30 @@ def count_step(fn: Callable, *args, tagged: list = (), peak: bool = False,
 
 
 def roofline(flops: float, nbytes: float, model_flops_global: float,
-             params: dict) -> dict:
+             params: dict, n_chips: int = 1,
+             collective_bytes: float = 0.0) -> dict:
     """The step's least times on one card, reckoned against the published
     peaks (not measured): the counted FLOPs over the bf16 tensor-core
-    peak, the counted bytes over HBM bandwidth."""
+    peak, the counted bytes over HBM bandwidth.  On a mesh of `n_chips`
+    the counts are one rank's, and its collectives' result bytes over
+    NVLink's one-direction rate give `collective_s` (a lower bound where
+    a mesh axis is wider than one node's 8 cards)."""
     compute_s = flops / BF16_FLOP_S
     memory_s = nbytes / HBM_BYTES_S
-    return {"n_chips": 1, "compute_s": compute_s, "memory_s": memory_s,
-            "dominant": "compute_s" if compute_s >= memory_s else "memory_s",
-            "model_flops_global": model_flops_global, "params": params,
-            "useful_flops_ratio": (model_flops_global / flops) if flops else 0.0,
-            "basis": "reckoned against one H100 SXM's published peaks "
-                     f"({BF16_FLOP_S:.3g} bf16 FLOP/s, {HBM_BYTES_S:.3g} "
-                     f"HBM bytes/s, at {POWER_LIMIT_W:.0f} W), not measured"}
+    out = {"n_chips": n_chips, "compute_s": compute_s, "memory_s": memory_s}
+    basis = ("reckoned against one H100 SXM's published peaks "
+             f"({BF16_FLOP_S:.3g} bf16 FLOP/s, {HBM_BYTES_S:.3g} HBM "
+             f"bytes/s, at {POWER_LIMIT_W:.0f} W)")
+    if n_chips > 1:
+        out["collective_s"] = collective_bytes / NVLINK_BYTES_S
+        basis += (f" and NVLink 4's {NVLINK_BYTES_S:.3g} bytes/s a "
+                  f"direction; a 16-wide mesh axis spans two {NVLINK_CARDS}"
+                  "-card nodes, so collective_s is a lower bound")
+    terms = [k for k in ("compute_s", "memory_s", "collective_s") if k in out]
+    out.update(
+        dominant=max(terms, key=lambda k: out[k]),
+        model_flops_global=model_flops_global, params=params,
+        useful_flops_ratio=(model_flops_global / (flops * n_chips)
+                            if flops else 0.0),
+        basis=basis + "; not measured")
+    return out

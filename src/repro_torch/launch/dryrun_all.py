@@ -7,10 +7,10 @@
 One subprocess a cell (`launch.dryrun`), so one cell's failure does not
 end the sweep; `--jobs` runs that many at once (the counts are
 single-threaded Python; a full-size cell with a long plain-WKV loop takes
-minutes).  Records land in `<out>/<arch>_<shape>_card.json`.  `--mesh`
-takes `card` only: the reference's `single` / `multi` / `both` meshes wait
-for the dry-run of the sharded steps on a fake process group, ROADMAP
-item 17.
+minutes).  Records land in `<out>/<arch>_<shape>_<mesh>.json`.  `--mesh`
+takes `card` (one card, the default), the reference's `single` (16 x 16)
+or `multi` (2 x 16 x 16), each rank 0 of the sharded step on a fake
+process group, or `both` of those two.
 """
 from __future__ import annotations
 
@@ -24,12 +24,11 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from repro_torch.configs import ARCHS, cells_for
-from repro_torch.launch.dryrun import MESH_REFUSAL
 
 
-def cell_cmd(arch, shape, out, skip_parts=False):
+def cell_cmd(arch, shape, out, skip_parts=False, mesh="card"):
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-           "--shape", shape, "--mesh", "card", "--out", out]
+           "--shape", shape, "--mesh", mesh, "--out", out]
     if skip_parts:
         cmd.append("--skip-parts")
     return cmd
@@ -58,24 +57,21 @@ def main(argv=None) -> int:
     ap.add_argument("--timeout", type=int, default=3600)
     ap.add_argument("--jobs", type=int, default=1)
     args = ap.parse_args(argv)
-    if args.mesh != "card":
-        print(MESH_REFUSAL.format(mesh=args.mesh, chips="256- and 512" if
-                                  args.mesh == "both" else
-                                  {"single": 256, "multi": 512}[args.mesh]),
-              file=sys.stderr)
-        return 2
 
     archs = args.only.split(",") if args.only else list(ARCHS)
+    meshes = ("single", "multi") if args.mesh == "both" else (args.mesh,)
     todo = []
-    for arch in archs:
-        for shape in cells_for(arch):
-            name = f"{arch}_{shape}_card"
-            path = Path(args.out) / f"{name}.json"
-            if args.skip_existing and path.exists():
-                if json.loads(path.read_text()).get("status") == "ok":
-                    print(f"[skip] {name} (ok)")
-                    continue
-            todo.append((name, cell_cmd(arch, shape, args.out)))
+    for mesh in meshes:
+        for arch in archs:
+            for shape in cells_for(arch):
+                name = f"{arch}_{shape}_{mesh}"
+                path = Path(args.out) / f"{name}.json"
+                if args.skip_existing and path.exists():
+                    if json.loads(path.read_text()).get("status") == "ok":
+                        print(f"[skip] {name} (ok)")
+                        continue
+                todo.append((name, cell_cmd(arch, shape, args.out,
+                                            mesh=mesh)))
     results = []
     with ThreadPoolExecutor(max_workers=max(1, args.jobs)) as pool:
         futs = [pool.submit(run_one, name, cmd, args.timeout)

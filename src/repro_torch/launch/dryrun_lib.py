@@ -1,13 +1,22 @@
 """Dry-run cell runner of the port (counterpart of `repro.launch.dryrun_lib`).
 
-A cell is one (arch, shape) pair of the shape suite on one card.
-`run_cell` builds the cell's step on the `meta` device
-(`launch.steps`), runs it once there under the counter
-(`launch.costing.count_step`: FLOPs, bytes, parts, and the peak that
-torch's `MemTracker` follows), and writes the record to
-`<out>/<arch>_<shape>_card[_tag].json`.  Nothing is allocated and nothing
-is drawn: a full-size model (kimi-k2's 1.03 T parameters) runs as shapes.
-No kernel wrapper takes a meta tensor; the steps take the plain versions.
+A cell is one (arch, shape) pair of the shape suite, on one card or on
+one of the reference's production meshes.  `run_cell` builds the cell's
+step on the `meta` device (`launch.steps`), runs it once there under the
+counter (`launch.costing.count_step`: FLOPs, bytes, parts, and the peak
+that torch's `MemTracker` follows), and writes the record to
+`<out>/<arch>_<shape>_<mesh>[_tag].json`.  Nothing is allocated and
+nothing is drawn: a full-size model (kimi-k2's 1.03 T parameters) runs as
+shapes.  No kernel wrapper takes a meta tensor; the steps take the plain
+versions.
+
+On a mesh (`single`: 16 x 16, `multi`: 2 x 16 x 16) the step is the
+sharded one (`make_*_step(..., mesh=)`), built over a one-process `fake`
+process group of 256 or 512 ranks (`fake_group`) and run on rank 0's
+local shards (`rank_args`): its FLOPs, bytes, peak and arguments are one
+rank's, and its collectives are counted with their result bytes by kind
+(`collectives.counts_bytes`; on meta a collective asks no rank).
+`count_rank` is the same count on any mesh, a real group's included.
 
 The record keeps the reference's keys where they mean the same thing
 (`arch`, `shape`, `mesh`, `mesh_shape`, `kind`, `overrides`, `tag`,
@@ -19,6 +28,7 @@ least times reckoned against the card's published peaks.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 
@@ -26,12 +36,15 @@ import torch
 import traceback
 from pathlib import Path
 
+from repro_torch import collectives
+
 from repro_torch.configs import SHAPES, ShapeSuite, get_config, smoke_config
 from repro_torch.launch import costing
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import get_model
 from repro_torch.models.module import abstract
-from repro_torch.tree import tree_leaves
+from repro_torch.sharding import local_index, to_local
+from repro_torch.tree import tree_leaves, tree_map
 
 COUNTS = ("FlopCounterMode: the matmul-class aten ops (mm, bmm, addmm, "
           "baddbmm, convolution, attention), 2 FLOPs a multiply-add, no "
@@ -44,12 +57,63 @@ PEAK_HOW = ("torch.distributed._tools.mem_tracker.MemTracker over the step on "
             "fragmentation")
 
 
-def build_step(cfg, shape, device="meta") -> steps_lib.BuiltStep:
+# the reference's production meshes: name -> multi_pod
+MESHES = {"single": False, "multi": True}
+COLLECTIVE_HOW = ("each collective the rank's step issues through "
+                  "`collectives.all_reduce` / `all_gather`, its result's "
+                  "bytes (the reference's result-shape bytes a kind)")
+
+
+def build_step(cfg, shape, device="meta", mesh=None) -> steps_lib.BuiltStep:
     if shape.kind == "train":
-        return steps_lib.make_train_step(cfg, shape=shape)
+        return steps_lib.make_train_step(cfg, shape=shape, mesh=mesh)
     if shape.kind == "prefill":
-        return steps_lib.make_prefill_step(cfg, shape, device)
-    return steps_lib.make_decode_step(cfg, shape, device)
+        return steps_lib.make_prefill_step(cfg, shape, device, mesh=mesh)
+    return steps_lib.make_decode_step(cfg, shape, device, mesh=mesh)
+
+
+@contextlib.contextmanager
+def fake_group(world: int):
+    """A one-process `fake` process group of `world` ranks, this process
+    rank 0, destroyed on exit: a mesh over it builds, and a collective on
+    it returns without talking to anyone (the dry-run's collectives run on
+    meta tensors and do not reach it)."""
+    import torch.distributed as dist
+    # registers the "fake" backend (torch's own, in its testing package)
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised: the "
+                           "dry-run's fake group would replace it")
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _local_meta(x, sharding, mesh):
+    """Rank `mesh.get_coordinate()`'s shard of a meta leaf, as a meta
+    tensor of its own (no view of the whole)."""
+    idx = local_index(x.shape, sharding.placements, mesh.get_coordinate(),
+                      mesh.shape)
+    return torch.empty([sl.stop - sl.start for sl in idx], dtype=x.dtype,
+                       device="meta")
+
+
+def rank_args(built: steps_lib.BuiltStep, kind: str, mesh) -> tuple:
+    """A sharded step's meta arguments as this rank holds them: the
+    parameters, optimizer state and cache its local shards (by the
+    `BuiltStep`'s shardings), the batch and decode inputs whole (the
+    sharded steps take them whole and cut their rows)."""
+    sh, a = built.shardings, built.args_abstract
+    local = lambda tree, shs: tree_map(
+        lambda x, s: _local_meta(x, s, mesh), tree, shs)
+    if kind == "train":
+        return (local(a[0], sh["params"]), local(a[1], sh["opt"]), a[2], a[3])
+    if kind == "prefill":
+        return (local(a[0], sh["params"]), a[1])
+    return (local(a[0], sh["params"]), a[1], local(a[2], sh["cache"]), a[3])
 
 
 def argument_bytes(kind: str, args: tuple) -> dict:
@@ -74,11 +138,11 @@ def _tags(kind: str, args: tuple) -> list:
     return tags
 
 
-def count_cell(built: steps_lib.BuiltStep, kind: str) -> dict:
-    """Run the built step once on its meta arguments under the counter,
-    with MemTracker's peak where that runs on the step (else
-    peak_bytes None and the reason)."""
-    args = built.args_abstract
+def count_cell(built: steps_lib.BuiltStep, kind: str, args=None) -> dict:
+    """Run the built step once on its meta arguments (`args`, default the
+    whole ones) under the counter, with MemTracker's peak where that runs
+    on the step (else peak_bytes None and the reason)."""
+    args = built.args_abstract if args is None else args
     tags = _tags(kind, args)
     try:
         return costing.count_step(built.fn, *args, tagged=tags, peak=True,
@@ -90,55 +154,54 @@ def count_cell(built: steps_lib.BuiltStep, kind: str) -> dict:
         return res
 
 
+def count_rank(built: steps_lib.BuiltStep, kind: str, mesh,
+               args=None) -> dict:
+    """`count_cell` of a sharded step on this rank of `mesh` (its local
+    meta shards, `rank_args`, unless `args` are given: a real group's
+    placed tensors), with the collectives it issued: "collectives"
+    {kind: count} and "collectives_raw" {kind: result bytes}."""
+    args = rank_args(built, kind, mesh) if args is None else args
+    collectives.counts.clear()
+    collectives.counts_bytes.clear()
+    c = count_cell(built, kind, args)
+    c["args"] = args
+    c["collectives"] = dict(collectives.counts)
+    c["collectives_raw"] = dict(collectives.counts_bytes)
+    return c
+
+
 def run_cell(arch: str, shape_name: str, out_dir: str,
              with_parts: bool = True, cfg_overrides: dict | None = None,
-             tag: str = "", smoke: bool = False) -> dict:
+             tag: str = "", smoke: bool = False, mesh: str = "card") -> dict:
     """Count one cell on meta and write its record (see the module
     docstring).  `smoke` takes the arch's reduced `smoke_config` at the
-    shape's batch and length (a CPU test's size: the record says so)."""
+    shape's batch and length (a CPU test's size: the record says so).
+    `mesh` is "card" (one card), or "single" / "multi": the reference's
+    16 x 16 / 2 x 16 x 16 meshes over a fake process group, rank 0's
+    count."""
     shape = SHAPES[shape_name]
     cfg = get_config(arch)
     if smoke:
         cfg = smoke_config(cfg)
     if cfg_overrides:
         cfg = cfg.replace(**cfg_overrides)
-    rec: dict = {"arch": arch, "shape": shape_name, "mesh": "card",
+    rec: dict = {"arch": arch, "shape": shape_name, "mesh": mesh,
                  "mesh_shape": {"card": 1}, "kind": shape.kind,
                  "overrides": cfg_overrides or {}, "tag": tag,
                  "smoke": smoke}
     t0 = time.time()
     try:
-        built = build_step(cfg, shape)
-        rec["build_s"] = round(time.time() - t0, 1)
-        t1 = time.time()
-        c = count_cell(built, shape.kind)
-        rec["count_s"] = round(time.time() - t1, 1)
-        args = built.args_abstract
-        arg_ids = {id(t) for t in tree_leaves(list(args))}
-        new_out = [t for t in tree_leaves(c["out"])
-                   if id(t) not in arg_ids]
-        rec["cost_analysis"] = {"flops": float(c["flops"]),
-                                "bytes": float(c["bytes"]), "ops": c["ops"],
-                                "counts": COUNTS}
-        if with_parts:
-            rec["parts"] = c["parts"]
-        peak = c["peak_bytes"]
-        arg_b = argument_bytes(shape.kind, args)
-        out_b = costing.tree_bytes(new_out)
-        fits = (peak <= costing.CARD_BYTES if peak is not None
-                else (False if arg_b["total"] + out_b > costing.CARD_BYTES
-                      else None))
-        rec["memory"] = {"argument_bytes": arg_b, "output_bytes": out_b,
-                         "peak_bytes": peak,
-                         "peak_how": PEAK_HOW if peak is not None
-                         else f"not reckoned: {c['peak_error']}",
-                         "card_bytes": costing.CARD_BYTES,
-                         "fits_one_card": fits}
-        rec["roofline"] = costing.roofline(
-            c["flops"], c["bytes"], costing.model_flops(cfg, shape),
-            costing.model_param_counts(cfg))
-        print({k: rec["cost_analysis"][k] for k in ("flops", "bytes")},
-              {"peak_bytes": peak, "fits_one_card": fits})
+        if mesh == "card":
+            _count_into(rec, cfg, shape, with_parts, t0)
+        else:
+            from repro_torch.launch.mesh import (PRODUCTION_WORLD,
+                                                 make_production_mesh)
+            multi = MESHES[mesh]
+            with fake_group(PRODUCTION_WORLD[multi]):
+                m = make_production_mesh(multi_pod=multi, device="cpu")
+                rec["mesh_shape"] = dict(zip(m.mesh_dim_names, m.shape))
+                rec["rank"] = 0
+                _count_into(rec, cfg, shape, with_parts, t0, m)
         rec["status"] = "ok"
     except Exception as e:                          # noqa: BLE001
         rec["status"] = "error"
@@ -149,11 +212,57 @@ def run_cell(arch: str, shape_name: str, out_dir: str,
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     suffix = f"_{tag}" if tag else ""
-    path = out / f"{arch}_{shape_name}_card{suffix}.json"
+    path = out / f"{arch}_{shape_name}_{mesh}{suffix}.json"
     path.write_text(json.dumps(rec, indent=1, default=str))
-    print(f"[dryrun] {arch} {shape_name} card -> {rec['status']} "
+    print(f"[dryrun] {arch} {shape_name} {mesh} -> {rec['status']} "
           f"({rec['total_s']}s) {path}")
     return rec
+
+
+def _count_into(rec: dict, cfg, shape, with_parts: bool, t0: float,
+                mesh=None) -> None:
+    """Build and count the cell's step (one card, or this rank of `mesh`)
+    and write its counts into `rec`."""
+    built = build_step(cfg, shape, mesh=mesh)
+    rec["build_s"] = round(time.time() - t0, 1)
+    t1 = time.time()
+    if mesh is None:
+        c = count_cell(built, shape.kind)
+        args = built.args_abstract
+    else:
+        c = count_rank(built, shape.kind, mesh)
+        args = c["args"]
+        rec["collectives"] = c["collectives"]
+        rec["collectives_raw"] = c["collectives_raw"]
+    rec["count_s"] = round(time.time() - t1, 1)
+    arg_ids = {id(t) for t in tree_leaves(list(args))}
+    new_out = [t for t in tree_leaves(c["out"]) if id(t) not in arg_ids]
+    rec["cost_analysis"] = {"flops": float(c["flops"]),
+                            "bytes": float(c["bytes"]), "ops": c["ops"],
+                            "counts": COUNTS}
+    if mesh is not None:
+        rec["cost_analysis"]["collectives"] = COLLECTIVE_HOW
+    if with_parts:
+        rec["parts"] = c["parts"]
+    peak = c["peak_bytes"]
+    arg_b = argument_bytes(shape.kind, args)
+    out_b = costing.tree_bytes([to_local(t) for t in new_out])
+    fits = (peak <= costing.CARD_BYTES if peak is not None
+            else (False if arg_b["total"] + out_b > costing.CARD_BYTES
+                  else None))
+    rec["memory"] = {"argument_bytes": arg_b, "output_bytes": out_b,
+                     "peak_bytes": peak,
+                     "peak_how": PEAK_HOW if peak is not None
+                     else f"not reckoned: {c['peak_error']}",
+                     "card_bytes": costing.CARD_BYTES,
+                     "fits_one_card": fits}
+    n_chips = 1 if mesh is None else mesh.size()
+    rec["roofline"] = costing.roofline(
+        c["flops"], c["bytes"], costing.model_flops(cfg, shape),
+        costing.model_param_counts(cfg), n_chips=n_chips,
+        collective_bytes=sum(c.get("collectives_raw", {}).values()))
+    print({k: rec["cost_analysis"][k] for k in ("flops", "bytes")},
+          {"peak_bytes": peak, "fits_one_card": fits})
 
 
 def reckon_prefill(cfg, batch: int, T: int, max_seq: int, points: tuple,

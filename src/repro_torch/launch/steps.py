@@ -18,8 +18,9 @@ parameters and optimizer state are placed by the `BuiltStep`'s
 given whole and each rank takes its rows, and it returns its outputs
 placed (DTensors, or plain tensors where a sharding replicates).  The
 train step picks pure data parallelism as the reference does.  Every
-family runs under a mesh; adafactor's factored moments do not (ROADMAP
-item 17).
+family runs under a mesh, with every optimizer: adafactor's factored
+moments are kept as slices like their leaves' and reduced where a mean
+crosses a split dim (`optim.adafactor`'s `sharded_update`).
 """
 from __future__ import annotations
 
@@ -108,14 +109,16 @@ def _size(mesh, axes) -> int:
     return n
 
 
-def mirror_opt_shardings(opt_abs: dict, params_abs: Tree, params_sh: Tree,
-                         mesh) -> dict:
+def _spec(sharding: NamedSharding, ndim: int) -> tuple:
+    return tuple(sharding.spec) + (None,) * (ndim - len(sharding.spec))
+
+
+def _opt_shardings(opt_abs: dict, params_abs: Tree, params_sh: Tree,
+                   other) -> dict:
     """Opt state sharded leaf for leaf like the params where the structure
-    and shapes match (adamw/lion/sgdm moments); other state (adafactor's
-    factored vr/vc, step counters) replicates."""
+    and shapes match; any other state leaf takes `other(path)`."""
     p_leaves = tree_flatten_with_path(params_abs)
     sh_leaves = dict(tree_flatten_with_path(params_sh))
-    rep = NamedSharding(mesh, ())
 
     def sub(sub_abs):
         leaves = tree_flatten_with_path(sub_abs)
@@ -125,9 +128,39 @@ def mirror_opt_shardings(opt_abs: dict, params_abs: Tree, params_sh: Tree,
         if same:
             return tree_map_with_path(lambda path, _: sh_leaves[path],
                                       sub_abs)
-        return tree_map_with_path(lambda path, _: rep, sub_abs)
+        return tree_map_with_path(lambda path, _: other(path), sub_abs)
 
     return {k: sub(v) for k, v in opt_abs.items()}
+
+
+def mirror_opt_shardings(opt_abs: dict, params_abs: Tree, params_sh: Tree,
+                         mesh) -> dict:
+    """Opt state sharded leaf for leaf like the params where the structure
+    and shapes match (adamw/lion/sgdm moments); other state (adafactor's
+    factored vr/vc, step counters) replicates."""
+    rep = NamedSharding(mesh, ())
+    return _opt_shardings(opt_abs, params_abs, params_sh, lambda _: rep)
+
+
+def sliced_opt_shardings(opt_abs: dict, params_abs: Tree, params_sh: Tree,
+                         mesh) -> dict:
+    """The sharded train step's opt state shardings: `mirror_opt_shardings`',
+    but adafactor's factored moments of a leaf split like the dims they
+    keep (vr [..., n] its leading dims, vc [..., m] its leading dims and
+    last, v all), since each rank updates its own slices of them (the
+    reference replicates them and leaves their sums to GSPMD)."""
+    p_abs = dict(tree_flatten_with_path(params_abs))
+    sh_leaves = dict(tree_flatten_with_path(params_sh))
+    rep = NamedSharding(mesh, ())
+
+    def factored(path):
+        leaf, kind = path[:-1], path[-1]
+        if leaf not in sh_leaves or kind not in ("vr", "vc", "v"):
+            return rep
+        spec = _spec(sh_leaves[leaf], p_abs[leaf].dim())
+        keep = {"vr": spec[:-1], "vc": spec[:-2] + spec[-1:], "v": spec}
+        return NamedSharding(mesh, keep[kind])
+    return _opt_shardings(opt_abs, params_abs, params_sh, factored)
 
 
 @dataclasses.dataclass
@@ -194,6 +227,24 @@ def update_in_place(opt, grads: Tree, state: dict, params: Tree, step) -> None:
             old.copy_(new)
 
 
+def update_sharded_in_place(opt, grads: Tree, state: dict, params: Tree,
+                            step, splits: list, shapes: list, mesh) -> None:
+    """A non-elementwise optimizer's update over the mesh
+    (`opt.sharded_update` on the local shards, its sums over split dims
+    one all_reduce a bucket, `collectives.reduce_grads`), copied into the
+    old parameter and state buffers."""
+    names = tuple(mesh.mesh_dim_names)
+
+    def reduce(items):
+        dims = [tuple(d for d in names if d in ds) for _, ds in items]
+        return SH.reduce_grads([x for x, _ in items], dims, mesh)
+    new_p, new_s = opt.sharded_update(grads, state, params, step, splits,
+                                      shapes, reduce)
+    for old, new in zip(tree_leaves(params) + tree_leaves(state),
+                        tree_leaves(new_p) + tree_leaves(new_s)):
+        old.copy_(new)
+
+
 def make_train_step(cfg: ModelConfig, opt=None, shape: ShapeSuite = None, *,
                     mesh=None):
     """train_step(params, opt_state, batch, step) -> (params, opt_state,
@@ -236,20 +287,22 @@ def _sharded_train_step(cfg, api, opt, shape, mesh) -> BuiltStep:
     on the local shards.  So loss, grad_norm and parameters are the
     one-rank step's.  The batch leaves come whole; the params and state
     placed by `shardings` ("params", "opt"; "batch" says how the rows
-    split)."""
+    split).  A non-elementwise optimizer (adafactor) updates through its
+    `sharded_update`, its sums over a split dim reduced over the mesh
+    dims that split it."""
     if shape is None:
         raise ValueError("a train step over a mesh needs the shape (its "
                          "global batch picks the layout)")
-    if not opt.elementwise:
+    if not (opt.elementwise or opt.sharded_update):
         raise NotImplementedError(
-            "adafactor's factored moments over a mesh need each leaf's whole "
-            "rows and columns: ROADMAP item 17")
+            "this optimizer reads more than a leaf's own elements and has "
+            "no update over a mesh's local shards (`sharded_update`)")
     pure_dp = pure_dp_for(cfg, mesh, shape)
     rules = SH.make_rules(cfg, mesh, pure_dp=pure_dp)
     specs = api.specs(cfg)
     params_sh = tree_shardings(specs, rules, mesh)
     params_abs = abstract(specs)
-    opt_sh = mirror_opt_shardings(opt.init(params_abs), params_abs, params_sh,
+    opt_sh = sliced_opt_shardings(opt.init(params_abs), params_abs, params_sh,
                                   mesh)
     b_sh = batch_shardings(cfg, shape, mesh, pure_dp=pure_dp)
     axes = SH.batch_axes(mesh) + (("model",) if pure_dp else ())
@@ -258,6 +311,11 @@ def _sharded_train_step(cfg, api, opt, shape, mesh) -> BuiltStep:
     rep = tree_map(lambda s: math.prod(n for d, n in sizes.items()
                                        if d not in SH.placed_dims(s)),
                    params_sh)
+    # the mesh dims splitting each tensor dim of each leaf, and its shape
+    shapes = [tuple(x.shape) for x in tree_leaves(params_abs)]
+    splits = [tuple(() if e is None else (e,) if isinstance(e, str)
+                    else tuple(e) for e in _spec(sh, len(shp)))
+              for sh, shp in zip(tree_leaves(params_sh), shapes)]
 
     def train_step(params, opt_state, batch, step):
         lp, ls = SH.local_tree(params), SH.local_tree(opt_state)
@@ -277,7 +335,11 @@ def _sharded_train_step(cfg, api, opt, shape, mesh) -> BuiltStep:
         grads = tree_map(lambda _: next(it), grads)
         grads, gnorm = clip_by_global_norm(
             grads, 1.0, mesh=mesh, rep=tree_map(lambda _, r: r, grads, rep))
-        update_in_place(opt, grads, ls, lp, step)
+        if opt.elementwise:
+            update_in_place(opt, grads, ls, lp, step)
+        else:
+            update_sharded_in_place(opt, grads, ls, lp, step, splits, shapes,
+                                    mesh)
         return params, opt_state, {"loss": lv.float(), "grad_norm": gnorm}
 
     args = (params_abs, opt.init(params_abs), batch_abstract(cfg, shape), 0)
@@ -335,7 +397,8 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeSuite,
         return BuiltStep(fn, args)
     sh, ctx, dims = SH.serve_layout(icfg, api, shape.global_batch,
                                     shape.seq_len, mesh)
-    inner = _prefill_callable(icfg, api, shape.seq_len, False, ctx)
+    inner = _prefill_callable(icfg, api, shape.seq_len, _on_meta(device),
+                              ctx)
 
     def fn(params, batch):
         with torch.no_grad():

@@ -130,9 +130,7 @@ rules and the config pick; the MoE decoders' expert parallelism over
 which needs 256 ranks and raises on another world size.  The parameters
 are drawn whole and each rank keeps its shards; checkpoints are written
 shard by shard and restore onto the run's own mesh
-(`Trainer(shardings=...)`); rank 0 prints the summary.  An optimizer
-whose state is not elementwise (adafactor) is refused over a mesh before
-anything is written (ROADMAP item 17).
+(`Trainer(shardings=...)`); rank 0 prints the summary.
 """
 from __future__ import annotations
 

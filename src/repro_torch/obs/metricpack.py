@@ -25,7 +25,10 @@ instrumented chunk's carry / optimizer state are BITWISE the bare ones
 field whose source is absent for this engine (no compact `idx` buffer, no
 rewirable column mask) packs NaN, built on the loss's device — `unpack`
 surfaces it as NaN and the JSONL writer drops it, so one pack definition
-serves every engine.
+serves every engine.  On a sharded carry every field is the whole
+batch's, the same on every rank: the chunk's loss, gradients and stats
+are (`learner.read_window`), and the K_b fields read the whole batch's
+live-row counts from ``stats["kb"]``.
 
 This module imports nothing from `repro_torch.runtime` (the runtime
 imports it).
@@ -165,9 +168,13 @@ def _kb_counts(carry):
 
 def _f_kb(reduce):
     def fn(env):
-        # the three K_b fields share one count per pack call
+        # the three K_b fields share one count per pack call; a sharded
+        # carry's learner hands the whole batch's counts in the stats (its
+        # carry holds this rank's rows only)
         if "_kb" not in env:
-            env["_kb"] = _kb_counts(env.get("carry"))
+            stats = env.get("stats") or {}
+            env["_kb"] = stats["kb"] if "kb" in stats \
+                else _kb_counts(env.get("carry"))
         kb = env["_kb"]
         if kb is None:
             return _full(env, _NAN)

@@ -17,6 +17,7 @@ lr (`optim.schedules`).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import numpy as np
@@ -37,6 +38,10 @@ class Optimizer:
     # a leaf's update reads only that leaf's own elements (a mesh updates
     # each rank's shards alone); adafactor's factored moments read rows
     elementwise: bool = True
+    # a non-elementwise optimizer's update on a mesh rank's local shards:
+    # sharded_update(grads, state, params, step, splits, shapes, reduce),
+    # see `adafactor`
+    sharded_update: Callable | None = None
 
     def __post_init__(self):
         if self.slot_steps is None:
@@ -152,7 +157,14 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0) -> Optimizer:
     """Factored second moment for a leaf of rank >= 2 (row and column
     means of g^2 + eps: O(n + m) state for [n, m]), a full one below; the
     update is clipped to RMS <= clip_threshold.  beta = 1 - t^-decay with
-    t = step + 1, float32 on the host."""
+    t = step + 1, float32 on the host.
+
+    Over a mesh (`sharded_update`) each rank updates its local shards,
+    its moments the slices of the one-device moments (vr split like the
+    leaf's leading dims, vc like its leading dims and last): every mean
+    over a dim sums the ranks' partial sums over the mesh dims that split
+    that dim, in three rounds whatever the number of leaves (the row and
+    column sums of g^2; vr's; the update's sum of squares)."""
     lr_fn = _sched(lr)
 
     def init(params):
@@ -165,29 +177,38 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0) -> Optimizer:
             return {"v": z(p.shape)}
         return {"f": tree_map(leaf, params)}
 
-    def update(grads, state, params, step):
+    def coefficients(step):
         t = np.float32(step) + np.float32(1.0)
         beta = np.float32(1.0) - t ** np.float32(-decay)
-        b, nb = float(beta), float(np.float32(1.0) - beta)
-        lr_t = lr_fn(step)
+        return float(beta), float(np.float32(1.0) - beta), lr_fn(step)
+
+    def scaled(g, s, b, nb, vr, vc, vr_mean):
+        """The unclipped update of one leaf from its new moments."""
+        if g.dim() >= 2:
+            denom = (vr[..., None] * vc[..., None, :]
+                     / vr_mean[..., None].clamp(min=eps))
+            return g * torch.rsqrt(denom.clamp(min=eps)), {"vr": vr, "vc": vc}
+        v = b * s["v"] + nb * (g.square() + eps)
+        return g * torch.rsqrt(v.clamp(min=eps)), {"v": v}
+
+    def finish(p, upd, rms, lr_t):
+        upd = upd / torch.clamp(rms / clip_threshold, min=1.0)
+        return (p.float() - lr_t * upd).to(p.dtype)
+
+    def update(grads, state, params, step):
+        b, nb, lr_t = coefficients(step)
 
         def leaf(g, p, s):
             g = g.float()
-            g2 = g.square() + eps
+            vr = vc = vr_mean = None
             if g.dim() >= 2:
+                g2 = g.square() + eps
                 vr = b * s["vr"] + nb * g2.mean(dim=-1)
                 vc = b * s["vc"] + nb * g2.mean(dim=-2)
-                denom = (vr[..., None] * vc[..., None, :]
-                         / vr.mean(dim=-1, keepdim=True)[..., None].clamp(min=eps))
-                upd = g * torch.rsqrt(denom.clamp(min=eps))
-                new_s = {"vr": vr, "vc": vc}
-            else:
-                v = b * s["v"] + nb * g2
-                upd = g * torch.rsqrt(v.clamp(min=eps))
-                new_s = {"v": v}
+                vr_mean = vr.mean(dim=-1, keepdim=True)
+            upd, new_s = scaled(g, s, b, nb, vr, vc, vr_mean)
             rms = torch.sqrt(upd.square().mean() + 1e-12)
-            upd = upd / torch.clamp(rms / clip_threshold, min=1.0)
-            return (p.float() - lr_t * upd).to(p.dtype), new_s
+            return finish(p, upd, rms, lr_t), new_s
 
         flat_g, flat_p = tree_leaves(grads), tree_leaves(params)
         flat_s = _state_leaves(state["f"], params)
@@ -195,7 +216,45 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0) -> Optimizer:
         pairs = tree_map(lambda _: next(outs), params)
         return _pick(pairs, 0), {"f": _pick(pairs, 1)}
 
-    return Optimizer(init, update, elementwise=False)
+    def sharded_update(grads, state, params, step, splits, shapes, reduce):
+        """`update` on a mesh rank's local shards.  splits: for each leaf
+        (params' leaf order) a tuple, a tensor dim each, of the mesh dims
+        that split that dim; shapes: each leaf's whole shape; reduce([(x,
+        mesh dims)]) -> each x summed over its mesh dims (a dims tuple of
+        () leaves x as it is).  The means divide by the whole dims."""
+        b, nb, lr_t = coefficients(step)
+        flat_g = [g.float() for g in tree_leaves(grads)]
+        flat_p = tree_leaves(params)
+        flat_s = _state_leaves(state["f"], params)
+        over = lambda sp, dims: tuple(m for d in dims for m in sp[d])
+        fact = [i for i, g in enumerate(flat_g) if g.dim() >= 2]
+        # round 1: the row and column sums of g^2 + eps
+        sums = reduce([item for i in fact for item in (
+            ((flat_g[i].square() + eps).sum(dim=-1), over(splits[i], (-1,))),
+            ((flat_g[i].square() + eps).sum(dim=-2), over(splits[i], (-2,))))])
+        moments = {}
+        for j, i in enumerate(fact):
+            s, shape = flat_s[i], shapes[i]
+            moments[i] = (b * s["vr"] + nb * sums[2 * j] / shape[-1],
+                          b * s["vc"] + nb * sums[2 * j + 1] / shape[-2])
+        # round 2: vr's sums over its last dim (the leaf's rows)
+        vr_sums = reduce([(moments[i][0].sum(dim=-1, keepdim=True),
+                           over(splits[i], (-2,))) for i in fact])
+        vr_means = {i: x / shapes[i][-2] for i, x in zip(fact, vr_sums)}
+        ups = [scaled(g, st, b, nb, *(moments[i] + (vr_means[i],)
+                                      if i in moments else (None,) * 3))
+               for i, (g, st) in enumerate(zip(flat_g, flat_s))]
+        # round 3: each update's sum of squares over the whole leaf
+        sq = reduce([(u.square().sum(), over(sp, range(len(sp))))
+                     for (u, _), sp in zip(ups, splits)])
+        outs = iter([
+            (finish(p, u, torch.sqrt(q / math.prod(shape) + 1e-12), lr_t), st)
+            for p, (u, st), q, shape in zip(flat_p, ups, sq, shapes)])
+        pairs = tree_map(lambda _: next(outs), params)
+        return _pick(pairs, 0), {"f": _pick(pairs, 1)}
+
+    return Optimizer(init, update, elementwise=False,
+                     sharded_update=sharded_update)
 
 
 def _state_leaves(state, params) -> list:

@@ -39,6 +39,12 @@ in place or not — can reach a snapshot (torch tensors are mutable, unlike
 the JAX package's arrays, which its ring holds by reference).
 `corrupt_carry` builds a new tensor as well.
 
+A sharded carry (`ScaledLearner.place`): the verdict is the group's (each
+rank checks its own shards, then one all_reduce of the three fault bits
+over the whole mesh), so a fault in one rank's rows rolls every rank back
+to the same snapshot; a snapshot keeps each rank's local shards as they
+are, ungathered.
+
 Telemetry (`repro_torch.obs`): with a `MetricPack` the guarded chunk folds
 its verdict into the window's packed vector, so one readback serves the
 guard and the exporters; the guard's counts live on the telemetry
@@ -57,6 +63,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.collectives import all_reduce
 from repro_torch.obs import Telemetry
 from repro_torch.obs.metricpack import global_norm
 from repro_torch.runtime.online import stream_grads
@@ -172,9 +179,21 @@ def health_bits(loss, grads, carry) -> torch.Tensor:
     of both trees, with no copy of either.  The three sources (loss, grads,
     carry: bits 0, 1, 2) are padded to one length with repeats of their
     smallest member, so their three verdicts come out of one [3, m]
-    reduction: about ten device ops, whatever the number of leaves."""
+    reduction: about ten device ops, whatever the number of leaves.
+
+    A sharded leaf (a DTensor) is checked on this rank's shard, and the
+    three bits are then the group's: one all_reduce (max) over its mesh."""
+    from repro_torch.sharding import is_dtensor
     loss = torch.as_tensor(loss)
-    sources = [[loss], _floating(grads), _floating(carry)]
+    mesh = None
+
+    def local(xs):
+        nonlocal mesh
+        for i, x in enumerate(xs):
+            if is_dtensor(x):
+                mesh, xs[i] = x.device_mesh, x.to_local()
+        return xs
+    sources = [[loss], local(_floating(grads)), local(_floating(carry))]
     if not all(sources):                    # advance_chunk has no grads
         zero = loss.new_zeros(())
         sources = [s or [zero] for s in sources]
@@ -183,6 +202,9 @@ def health_bits(loss, grads, carry) -> torch.Tensor:
             for x in s + [min(s, key=torch.numel)] * (m - len(s))]
     amax = torch.stack(_amax_each(flat)).view(3, m).amax(dim=1)
     bad = ~(amax < math.inf)                # NaN < inf is False as well
+    if mesh is not None:
+        bad = all_reduce(bad.float(), mesh, tuple(mesh.mesh_dim_names),
+                         op="max") > 0
     bit = torch.arange(3, dtype=torch.int32, device=loss.device)
     return (bad.int() << bit).sum(dtype=torch.int32)
 
@@ -243,16 +265,16 @@ def advance_chunk(learner, carry: Tree, xs: torch.Tensor, ys: torch.Tensor):
     """The 'skip_update' degradation: drive the learner through the window
     and drop the accumulated gradient WITHOUT touching params or the
     optimizer — the stream advances, the influence stays exact."""
-    overflow = []
+    per_step = []
     for t in range(xs.shape[0]):
         carry, out = learner.step(carry, xs[t], ys[t])
-        if "overflow" in out.stats:
-            overflow.append(out.stats["overflow"])
-    loss = carry["loss"]
+        per_step.append(out.stats)
+    stats = {k: torch.stack([s[k] for s in per_step]) for k in per_step[0]}
+    loss, _, stats = learner.read_window(carry, stats, grads=False)
     carry = learner.reset_grads(carry, None)
     metrics = {"loss": loss, "health": health_bits(loss, (), carry)}
-    if overflow:
-        metrics["overflow"] = torch.stack(overflow).max()
+    if "overflow" in stats:
+        metrics["overflow"] = stats["overflow"].max()
     metrics["verdict"] = _pack_verdict(metrics)
     return carry, metrics
 
@@ -263,12 +285,20 @@ def advance_chunk(learner, carry: Tree, xs: torch.Tensor, ys: torch.Tensor):
 
 def _own(tree: Tree, device=None) -> Tree:
     """A copy of `tree` that shares no storage with it: tensors cloned (or
-    copied to `device`), numpy values copied."""
-    if device is None:
-        return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
-                        else copy.copy(x), tree)
-    return tree_map(lambda x: x.to(device, copy=True)
-                    if isinstance(x, torch.Tensor) else copy.copy(x), tree)
+    copied to `device`), numpy values copied.  A DTensor's copy is its
+    local shard's, wrapped with the same mesh and placements (no
+    collective: each rank keeps its own shards)."""
+    from torch.distributed.tensor import DTensor
+
+    def own(x):
+        if isinstance(x, DTensor):
+            return DTensor.from_local(own(x.to_local()), x.device_mesh,
+                                      x.placements, run_check=False,
+                                      shape=x.shape, stride=x.stride())
+        if isinstance(x, torch.Tensor):
+            return x.clone() if device is None else x.to(device, copy=True)
+        return copy.copy(x)
+    return tree_map(own, tree)
 
 
 @dataclasses.dataclass
@@ -527,17 +557,30 @@ def corrupt_carry(carry: Tree, value: float = math.nan) -> Tree:
     """Poison one element of the carried influence (the cosmic-ray /
     bad-DMA fault): NaN * 0 = NaN, so the poison spreads through every
     later influence contraction.  Returns a new carry whose poisoned
-    buffer is a new tensor; no existing tensor is written."""
+    buffer is a new tensor; no existing tensor is written.  On a sharded
+    buffer the element is the whole buffer's first, in the shard of the
+    rank that holds it."""
+    from repro_torch.sharding import is_dtensor
     new = dict(carry)
     for k in ("vals", "M", "state"):
         if k not in new:
             continue
         for path, leaf in tree_flatten_with_path(new[k]):
             if isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
-                poisoned = leaf.clone()
-                poisoned[(0,) * leaf.ndim] = value
+                poisoned = _own(leaf)
+                local = poisoned.to_local() if is_dtensor(leaf) else poisoned
+                if not is_dtensor(leaf) or _holds_first(leaf):
+                    local[(0,) * leaf.ndim] = value
                 new[k] = tree_map_with_path(
                     lambda p, x: poisoned if p == path else x, new[k])
                 return new
     raise ValueError("carry holds no influence buffer to corrupt "
                      f"(keys: {list(carry)})")
+
+
+def _holds_first(x) -> bool:
+    """Whether this rank's shard of DTensor `x` holds its element 0."""
+    from torch.distributed.tensor import Shard
+    return all(c == 0 for p, c in zip(x.placements,
+                                      x.device_mesh.get_coordinate())
+               if isinstance(p, Shard))

@@ -45,13 +45,16 @@ def stream_grads(learner, carry: Tree, xs: torch.Tensor, ys: torch.Tensor):
     """Drive the learner over a [k]-step window and read out the gradient.
 
     Returns (carry, loss, grads, stats) with every stat stacked over the
-    window — the online code path's gradient, without the optimizer."""
+    window — the online code path's gradient, without the optimizer.  On a
+    sharded carry loss, grads and stats are the whole batch's on every
+    rank (`read_window`: in the gradient's own collectives)."""
     per_step = []
     for t in range(xs.shape[0]):
         carry, out = learner.step(carry, xs[t], ys[t])
         per_step.append(out.stats)
     stats = {k: torch.stack([s[k] for s in per_step]) for k in per_step[0]}
-    return carry, carry["loss"], learner.grads(carry), stats
+    loss, grads, stats = learner.read_window(carry, stats)
+    return carry, loss, grads, stats
 
 
 def online_update_chunk(learner, opt, carry: Tree, opt_state: Tree,
@@ -350,13 +353,17 @@ class OnlineTrainer:
         'ragged_utilization' = Sigma_b K_b / (B * K_max), pooled over the
         layers of a stacked carry as in the JAX package, whose per-layer
         stats follow under 'layers'.  Also reports the carry dtype.  The
-        scaled learner's buffers are read under carry["state"]."""
+        scaled learner's buffers are read under carry["state"]; a sharded
+        carry reports its whole batch, as one device would."""
+        from repro_torch.sharding import full_value
         holder = self.carry.get("state") or self.carry
         idx, vals = holder.get("idx"), holder.get("vals")
         if idx is None:
             return None
         stacked = isinstance(idx, tuple)
-        idxs = idx if stacked else (idx,)
+        # a sharded carry's rows gathered (one all_gather a layer's idx
+        # over the batch axes): the whole batch's stats on every rank
+        idxs = tuple(full_value(i) for i in (idx if stacked else (idx,)))
         kbs = [(i >= 0).sum(dim=1).cpu().numpy() for i in idxs]
 
         def stats(kb, cap):

@@ -50,8 +50,8 @@ import torch
 
 from repro_torch.collectives import (  # noqa: F401  (re-exported)
     BUCKET_BYTES, all_gather, all_reduce, barrier, copy_to, counts,
-    gather_for_use, gather_from, group_index, group_size, reduce_from,
-    reduce_grads, split_to)
+    counts_bytes, gather_for_use, gather_from, group_index, group_size,
+    reduce_from, reduce_grads, split_to)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.module import (NamedSharding, ShardCtx, ShardingRules,
                                        mesh_shape, pspec_for, tree_shardings)
@@ -268,6 +268,26 @@ def from_local(local: torch.Tensor, sharding: NamedSharding):
         return local
     return DTensor.from_local(local, sharding.mesh, sharding.placements,
                               run_check=False)
+
+
+def full_value(x):
+    """A DTensor's whole value on every rank, as a plain tensor, through
+    the counted collectives: one all_gather a mesh dim that shards it
+    (minor dims first, which rebuilds a dim split major to minor), one
+    all_reduce a dim it is a partial sum over.  Any other leaf as it is."""
+    from torch.distributed.tensor import Partial, Shard
+    if not is_dtensor(x):
+        return x
+    mesh, names = x.device_mesh, x.device_mesh.mesh_dim_names
+    out = x.to_local()
+    partial = tuple(a for a, p in zip(names, x.placements)
+                    if isinstance(p, Partial))
+    if partial:
+        out = all_reduce(out, mesh, partial)
+    for a, p in reversed(list(zip(names, x.placements))):
+        if isinstance(p, Shard):
+            out = all_gather(out, mesh, a, axis=p.dim)
+    return out
 
 
 def place_tree(tree: Tree, shardings: Tree) -> Tree:

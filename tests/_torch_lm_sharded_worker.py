@@ -69,7 +69,10 @@ def train_one(case) -> dict:
     for i, b in enumerate(_batches(case)):
         params, state, m = step(params, state, b, i)
         out.append((float(m["loss"]), float(m["grad_norm"])))
-    return {"metrics": out, "params": _whole(params)}
+    res = {"metrics": out, "params": _whole(params)}
+    if case.get("opt") == "adafactor":
+        res["opt"] = _whole(state)
+    return res
 
 
 def _serve_shape(case):
@@ -201,14 +204,20 @@ def _train_sharded(case, mesh) -> dict:
         out.append((float(m["loss"]), float(m["grad_norm"])))
     local = sum(SH.to_local(x).numel() for _, x in
                 tree_flatten_with_path(params))
-    return {"metrics": out, "params": _whole(params), "counts": counts,
-            "pure_dp": sh["pure_dp"], "local_numel": local}
+    res = {"metrics": out, "params": _whole(params), "counts": counts,
+           "pure_dp": sh["pure_dp"], "local_numel": local}
+    if case.get("opt") == "adafactor":
+        # the moments gathered whole, and each leaf's local and whole size
+        res["opt"] = _whole(state)
+        res["opt_numel"] = [(SH.to_local(x).numel(), x.numel()) for _, x in
+                            tree_flatten_with_path(state)]
+    return res
 
 
 def _refusals(mesh, out_dir) -> dict:
-    """The families once refused under a mesh, and adafactor, which still
-    is: each build's error (None where it builds), from the step builders,
-    the Engine and the launcher (which writes nothing)."""
+    """The families and the optimizer once refused under a mesh: each
+    build's error (None where it builds), from the step builders, the
+    Engine and the launcher (which writes nothing)."""
     shape = ShapeSuite("t", 16, 4, "train")
     out = {}
     for name, cfg, opt in (
@@ -239,6 +248,37 @@ def _refusals(mesh, out_dir) -> dict:
     except NotImplementedError as e:
         out["launcher"] = [str(e)]
     out["launcher_wrote"] = root.exists()
+    return out
+
+
+def _meta_vs_real(mesh) -> dict:
+    """This rank's count of qwen3-8b's smoke train and prefill steps over
+    the mesh (`dryrun_lib.count_rank`), on its local meta shards and on
+    its real placed tensors: (FLOPs, collective result bytes by kind)
+    each."""
+    from repro_torch.launch import dryrun_lib as D
+    cfg = smoke_config(get_config("qwen3-8b"))
+    rng = np.random.default_rng(5)
+    toks = lambda: torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32))
+    params = materialize(get_model(cfg).specs(cfg),
+                         torch.Generator().manual_seed(0))
+    out = {}
+    for kind in ("train", "prefill"):
+        shape = ShapeSuite("t", 16, 4, kind)
+        meta = D.build_step(cfg, shape, "meta", mesh=mesh)
+        real = D.build_step(cfg, shape, "cpu", mesh=mesh)
+        sh = real.shardings
+        placed = SH.place_tree(tree_map(torch.clone, params), sh["params"])
+        if kind == "train":
+            opt = ST.default_optimizer(cfg)
+            args = (placed, ST.init_opt_state(opt, placed, sh["opt"]),
+                    {"tokens": toks(), "labels": toks()}, 0)
+        else:
+            args = (placed, {"tokens": toks()})
+        got = [D.count_rank(b, kind, mesh, args=a) for b, a in
+               ((meta, None), (real, args))]
+        out[kind] = [(c["flops"], c["collectives_raw"]) for c in got]
     return out
 
 
@@ -282,6 +322,7 @@ def mesh_run(rank, world, shape, inp, out):
         if rank == 0:
             (out / "ckpt_done").touch()
         res["refusals"] = _refusals(mesh, out)
+        res["meta_vs_real"] = _meta_vs_real(mesh)
     res["train"] = {k: _train_sharded(c, mesh)
                     for k, c in cases["train"].items()}
     res["serve"] = {k: serve_run(c, mesh) for k, c in cases["serve"].items()}

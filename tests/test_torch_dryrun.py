@@ -10,9 +10,14 @@ on meta as on real CPU tensors, at `--smoke` for each family.  The serve
 steps are the models' own `prefill` / `decode_step` (bitwise on the
 CPU), `run_cell` writes `status: ok` records, the reckoning of a long
 prefill is the count at the length it reckons, and `--mesh single|multi`
-refuses, naming ROADMAP item 17 (the dry-run of the sharded steps on a
-fake process group; the test keeps its name from when the refusal named
-item 13).
+counts rank 0 of the sharded step on the reference's 16 x 16 and 2 x 16 x
+16 meshes over a one-process fake process group (the test that pins it
+keeps its name from when those meshes were refused): the reference's own
+test cells, a smoke train_4k cell on each, and a rank's counts against
+the one-card counts divided by the split, for a pure-DP arch and a
+tensor-parallel one.  (That a rank's meta count is its count on real
+tensors in a gloo group is held in tests/test_torch_lm_sharded.py, whose
+groups run it.)
 """
 import json
 
@@ -241,15 +246,128 @@ def test_reckoned_long_prefill_equals_the_count_at_its_length(arch):
     assert r["peak_bytes"] == direct["peak_bytes"]
 
 
+# the reference's tests/test_dryrun.py cells, one a mesh
+REFERENCE_MESH_CELLS = {"single": ("rwkv6-3b", "long_500k"),
+                        "multi": ("recurrentgemma-9b", "long_500k")}
+
+
+def _mesh_record_ok(rec, mesh):
+    """What the reference's test asserts of a mesh record, and the port's
+    per-rank keys."""
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["mesh"] == mesh and rec["rank"] == 0
+    want = {"data": 16, "model": 16}
+    if mesh == "multi":
+        want = {"pod": 2, **want}
+    assert rec["mesh_shape"] == want
+    assert list(rec["mesh_shape"]) == list(want)
+    r = rec["roofline"]
+    assert r["n_chips"] == {"single": 256, "multi": 512}[mesh]
+    assert rec["cost_analysis"]["flops"] > 0 and rec["cost_analysis"]["bytes"] > 0
+    assert rec["collectives_raw"] and all(
+        v > 0 for v in rec["collectives_raw"].values())
+    assert set(rec["collectives_raw"]) == set(rec["collectives"])
+    assert r["collective_s"] == pytest.approx(
+        sum(rec["collectives_raw"].values()) / C.NVLINK_BYTES_S)
+    assert "lower bound" in r["basis"]
+    mem = rec["memory"]
+    assert mem["peak_bytes"] >= mem["argument_bytes"]["total"] > 0
+    assert mem["fits_one_card"] is (mem["peak_bytes"] <= C.CARD_BYTES)
+
+
 @pytest.mark.parametrize("mesh", ["single", "multi"])
-def test_the_reference_meshes_refuse_naming_item_13(mesh, tmp_path, capsys):
-    code = dryrun.main(["--arch", "rwkv6-3b", "--shape", "long_500k",
-                        "--mesh", mesh, "--out", str(tmp_path)])
-    err = capsys.readouterr().err
-    assert code != 0 and "item 17" in err and "fake process group" in err
-    assert not list(tmp_path.iterdir())
-    code = dryrun_all.main(["--mesh", mesh, "--out", str(tmp_path)])
-    assert code != 0 and "item 17" in capsys.readouterr().err
+def test_the_reference_meshes_refuse_naming_item_13(mesh, tmp_path,
+                                                     monkeypatch):
+    """`--mesh single|multi` counts rank 0 of the reference's own test cell
+    on its mesh and writes the record; `dryrun_all --mesh` sweeps every
+    cell of each mesh it names (the commands checked, not run here)."""
+    arch, cell = REFERENCE_MESH_CELLS[mesh]
+    code = dryrun.main(["--arch", arch, "--shape", cell, "--mesh", mesh,
+                        "--out", str(tmp_path), "--skip-parts"])
+    rec = json.loads((tmp_path / f"{arch}_{cell}_{mesh}.json").read_text())
+    assert code == 0
+    _mesh_record_ok(rec, mesh)
+    assert rec["memory"]["fits_one_card"] is True
+    seen = []
+    monkeypatch.setattr(dryrun_all, "run_one", lambda name, cmd, timeout: (
+        seen.append((name, cmd)) or (name, True, 0.0, ("", ""))))
+    for flag, meshes in ((mesh, (mesh,)), ("both", ("single", "multi"))):
+        seen.clear()
+        assert dryrun_all.main(["--mesh", flag, "--only", arch,
+                                "--out", str(tmp_path)]) == 0
+        assert [n for n, _ in seen] == [f"{arch}_{c}_{m}" for m in meshes
+                                        for c in cells_for(arch)]
+        assert all(cmd[cmd.index("--mesh") + 1] == n.rsplit("_", 1)[1]
+                   for n, cmd in seen)
+
+
+# the smoke cells of train_4k: attention in 1,024-position blocks (the
+# smoke config's 16 would run 65,536 block pairs a layer on meta)
+SMOKE_4K = {"attn_q_chunk": 1024, "attn_kv_chunk": 1024}
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_mesh_dryrun_of_a_smoke_train_cell(mesh, tmp_path):
+    """`python -m repro_torch.launch.dryrun --smoke --shape train_4k --mesh
+    single|multi` (gemma2-2b, its smoke config): status ok, the
+    reference's mesh keys, one rank's counts and collective bytes."""
+    code = dryrun.main(["--arch", "gemma2-2b", "--shape", "train_4k",
+                        "--mesh", mesh, "--smoke", "--out", str(tmp_path),
+                        "--set", *(f"{k}={v}" for k, v in SMOKE_4K.items())])
+    rec = json.loads((tmp_path / f"gemma2-2b_train_4k_{mesh}.json").read_text())
+    assert code == 0 and rec["smoke"] is True
+    _mesh_record_ok(rec, mesh)
+
+
+def _counts(arch, mesh, tmp, **over):
+    rec = D.run_cell(arch, "train_4k", str(tmp), smoke=True, mesh=mesh,
+                     cfg_overrides={**SMOKE_4K, **over}, with_parts=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    return rec
+
+
+def test_a_pure_dp_ranks_counts_are_the_card_counts_over_the_split(tmp_path):
+    """gemma2-2b (`train_pure_dp`) at smoke size, train_4k's 256 rows: on
+    16 x 16 every rank takes one row, and every product is per row, so
+    its FLOPs are the card's / 256 exactly; its parameters and optimizer
+    state are whole, so its argument bytes are the card's less 255/256
+    of the batch, and its bytes and peak lie between the card's / 256 and
+    the card's."""
+    card = _counts("gemma2-2b", "card", tmp_path)
+    rank = _counts("gemma2-2b", "single", tmp_path)
+    assert rank["cost_analysis"]["flops"] * 256 == card["cost_analysis"]["flops"]
+    ca, ra = card["memory"]["argument_bytes"], rank["memory"]["argument_bytes"]
+    assert ra["params"] == ca["params"] and ra["opt_state"] == ca["opt_state"]
+    for key in ("bytes",):
+        assert card["cost_analysis"][key] / 256 < rank["cost_analysis"][key] \
+            < card["cost_analysis"][key]
+    assert card["memory"]["peak_bytes"] / 256 < rank["memory"]["peak_bytes"] \
+        < card["memory"]["peak_bytes"]
+    # the gradients' sum over the 256 ranks and the loss's: all_reduces only
+    assert set(rank["collectives"]) == {"all_reduce_sum"}
+
+
+def test_a_tensor_parallel_ranks_counts_are_the_card_counts_over_the_split(
+        tmp_path):
+    """qwen3-8b at smoke size with 16 heads (16 KV heads), so that every
+    product splits 16 ways over 'model' (heads, d_ff, vocab) and the
+    batch 16 ways over 'data': a rank's FLOPs are the card's / 256
+    exactly.  At the smoke config's own 4 heads the attention stays
+    replicated over 'model' (its products split over 'data' only), and
+    the rank's FLOPs lie between the card's / 256 and that bound."""
+    heads = {"n_heads": 16, "n_kv_heads": 16}
+    card = _counts("qwen3-8b", "card", tmp_path, **heads)
+    rank = _counts("qwen3-8b", "single", tmp_path, **heads)
+    assert rank["cost_analysis"]["flops"] * 256 == card["cost_analysis"]["flops"]
+    assert card["memory"]["argument_bytes"]["params"] / 256 <= \
+        rank["memory"]["argument_bytes"]["params"] < \
+        card["memory"]["argument_bytes"]["params"] / 8
+    card4 = _counts("qwen3-8b", "card", tmp_path)
+    rank4 = _counts("qwen3-8b", "single", tmp_path)
+    f_card, f_rank = card4["cost_analysis"]["flops"], rank4["cost_analysis"]["flops"]
+    attn = C.attention_model_flops(
+        smoke_config(get_config("qwen3-8b")), SHAPES["train_4k"]) * 3
+    assert f_card / 256 < f_rank <= (f_card - attn) / 256 + attn / 16
 
 
 def test_dryrun_cli_writes_the_record(tmp_path):

@@ -72,10 +72,14 @@ TRAIN = {
     "qwen3-gqa": ("qwen3-8b", {"fsdp": True, "n_heads": 6,
                                "n_kv_heads": 3}, 4),
     "qwen3-8b-adamw": ("qwen3-8b", {"fsdp": True}, 4),
+    # adafactor's factored moments: TP, and pure DP with FSDP over 'data'
+    "qwen3-8b-adafactor": ("qwen3-8b", {"fsdp": True}, 4),
+    "gemma2-2b-adafactor": ("gemma2-2b", {"fsdp": True}, 4),
     # the VLM: its patch embeddings through the projector
     "internvl2-2b": ("internvl2-2b", {"fsdp": True}, 4),
 }
 ADAMW = ("qwen3-8b-adamw",)
+ADAFACTOR = ("qwen3-8b-adafactor", "gemma2-2b-adafactor")
 WITH_REFERENCE = ("rwkv6-3b", "gemma2-2b", "qwen3-8b")
 # name -> (arch, overrides, cache slots)
 SERVE = {
@@ -126,7 +130,8 @@ def _cases():
             (B, P, 4096)).astype(np.float32)}) if P else dict
         cases["train"][name] = {
             "arch": arch, "kw": kw, "params": _params(arch, kw),
-            "opt": "adamw" if name in ADAMW else "sgdm",
+            "opt": ("adamw" if name in ADAMW else "adafactor"
+                    if name in ADAFACTOR else "sgdm"),
             "batches": [{"tokens": rng.integers(0, V, (B, 16)),
                          "labels": rng.integers(-1, V, (B, 16)),
                          **patches()} for _ in range(3)]}
@@ -413,22 +418,46 @@ def test_launcher_over_a_process_group(run, tmp_path):
 
 
 def test_families_not_ported_under_a_mesh_refuse(run):
-    """Only adafactor's factored moments still wait under a mesh: its train
-    step raises NotImplementedError naming ROADMAP item 17.  The MoE
-    decoders, rglru and encdec build their train step, prefill step and
-    Engine over the mesh, and the launcher builds the MoE arch's run over
-    it without writing anything."""
+    """Nothing refuses under a mesh any more: the MoE decoders, rglru and
+    encdec build their train step, prefill step and Engine over the mesh,
+    adafactor its train step, and the launcher builds the MoE arch's run
+    over it without writing anything."""
     for r in run["ranks"][(1, 2)]:
         refusals = dict(r["refusals"])
         assert not refusals.pop("launcher_wrote")
         assert set(refusals) == {"moe", "rglru", "encdec", "adafactor",
                                  "launcher"}
         for name, msgs in refusals.items():
-            if name == "adafactor":
-                assert msgs and all(m is not None and "item 17" in m
-                                    for m in msgs), (name, msgs)
-            else:
-                assert msgs and all(m is None for m in msgs), (name, msgs)
+            assert msgs and all(m is None for m in msgs), (name, msgs)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("name", ADAFACTOR)
+def test_adafactor_moments_are_the_one_rank_moments_slices(run, mesh, name):
+    """adafactor over the mesh: each rank's factored moments gathered by
+    their placements equal the one-rank moments within 1e-5 (so each
+    shard is the slice of them); where the leaves are split (TP over
+    'model', FSDP over 'data'), so are the moments."""
+    one = run["one"]["train"][name]["opt"]
+    for r in run["ranks"][mesh]:
+        got = r["train"][name]
+        _trees_close(got["opt"], one, what=f"{name} {mesh} moments")
+        local, whole = map(sum, zip(*got["opt_numel"]))
+        split = not got["pure_dp"] or mesh[0] > 1
+        assert (local < whole) == split, (name, mesh, local, whole)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_a_ranks_meta_count_is_its_count_on_real_tensors(run, kind):
+    """The dry-run's per-rank count (`dryrun_lib.count_rank`) on the (1, 2)
+    mesh: qwen3-8b's smoke train and prefill steps on each rank's local
+    meta shards count the FLOPs and the collective result bytes, by kind,
+    that the same rank counts on its real placed tensors in the gloo
+    group."""
+    for r in run["ranks"][(1, 2)]:
+        (f_meta, c_meta), (f_real, c_real) = r["meta_vs_real"][kind]
+        assert f_meta == f_real > 0
+        assert c_meta == c_real and sum(c_real.values()) > 0
 
 
 @pytest.mark.parametrize("arch,kw", [(a, dict(k)) for a, k in DIGESTS])
