@@ -41,6 +41,7 @@ from repro_torch.cells import resolve_cell
 from repro_torch.core import cells, sparse_rtrl as SP, stacked_rtrl as ST
 from repro_torch.core.cells import EGRUConfig, StackedEGRUConfig
 from repro_torch.kernels import compact as CK, ops as kops
+from repro_torch.obs.trace import span
 from repro_torch import sharding as SH
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -956,14 +957,16 @@ class ScaledLearner(_LearnerBase):
         a, vals, idx = ((state[k][-1] for k in ("a", "vals", "idx"))
                         if self.stacked else
                         (state["a"], state["vals"], state["idx"]))
-        lt, logits, gout_t, cbar = self._inst_loss_and_grads(
-            params["out"], a, y_t, carry["t_total"], batch)
-        gw_t = CK.compact_grads(vals, idx, cbar)
+        with span("engine.readout"):
+            lt, logits, gout_t, cbar = self._inst_loss_and_grads(
+                params["out"], a, y_t, carry["t_total"], batch)
         new = dict(carry)
         new["state"] = state
-        new["gw"] = carry["gw"] + gw_t
-        new["gout"] = tree_map(torch.add, carry["gout"], gout_t)
-        new["loss"] = carry["loss"] + lt
+        with span("engine.grads"):
+            gw_t = CK.compact_grads(vals, idx, cbar)
+            new["gw"] = carry["gw"] + gw_t
+            new["gout"] = tree_map(torch.add, carry["gout"], gout_t)
+            new["loss"] = carry["loss"] + lt
         if "rw" in carry:
             new["last"] = {"x": x_t.float(), "y": y_t.int()}
         stats = {"overflow": overflow if self.stacked else overflow.max()}

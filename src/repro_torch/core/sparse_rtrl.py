@@ -37,6 +37,7 @@ import torch
 from repro_torch.cells.egru import cell_partials, cell_partials_full
 from repro_torch.core.cells import EGRUConfig
 from repro_torch.kernels import compact as CK, compact_fused as CF
+from repro_torch.obs.trace import span
 from repro_torch.tree import apply_mask_tree
 
 Tree = Any
@@ -703,21 +704,26 @@ def fused_step_operands(cfg: EGRUConfig, w: Tree, layout: FlatLayout,
     folded into mbar_rows in f32 before the launch, as the JAX package's
     kernel path does; the kernel is the same."""
     n, K = layout.n, idx_prev.shape[1]
-    a_new, hp, Jhat, Bhat, mbar = _partials(cfg, w, a_prev, x_t, below)
-    idx_new, count = CK.compact_rows(hp != 0.0, K)
-    safe_new = idx_new.clamp(0, n - 1)
-    hp_rows = hp.gather(1, safe_new.long()) * (idx_new >= 0)
-    count_prev = (idx_prev >= 0).sum(dim=1).int()
-    overflow = (count - K).clamp(min=0)
-    count_new = count.clamp(max=K)
-    # the kernel gathers its tiles from the dense J-hat (rnn: R^T broadcast)
-    mbar_rows = flat_mbar_rows_cols(cfg, layout, cl, mbar, safe_new,
-                                    layer=layer)
-    if below is not None:
-        mbar_rows = mbar_rows + _cross_term(cfg, w, Bhat, idx_new, below)
-    operands = (Jhat.float().contiguous(), vals, mbar_rows.contiguous(),
-                hp_rows.contiguous(), idx_new, idx_prev.int().contiguous(),
-                count_new, count_prev)
+    with span("engine.partials"):
+        a_new, hp, Jhat, Bhat, mbar = _partials(cfg, w, a_prev, x_t, below)
+    with span("engine.rows"):
+        idx_new, count = CK.compact_rows(hp != 0.0, K)
+        safe_new = idx_new.clamp(0, n - 1)
+        hp_rows = hp.gather(1, safe_new.long()) * (idx_new >= 0)
+        count_prev = (idx_prev >= 0).sum(dim=1).int()
+        overflow = (count - K).clamp(min=0)
+        count_new = count.clamp(max=K)
+    with span("engine.mbar_rows"):
+        # the kernel gathers its tiles from the dense J-hat (rnn: R^T
+        # broadcast)
+        mbar_rows = flat_mbar_rows_cols(cfg, layout, cl, mbar, safe_new,
+                                        layer=layer)
+        if below is not None:
+            mbar_rows = mbar_rows + _cross_term(cfg, w, Bhat, idx_new,
+                                                below)
+        operands = (Jhat.float().contiguous(), vals, mbar_rows.contiguous(),
+                    hp_rows.contiguous(), idx_new,
+                    idx_prev.int().contiguous(), count_new, count_prev)
     return a_new, hp, operands, overflow
 
 

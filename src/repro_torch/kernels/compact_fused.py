@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.kernels import _build, compact as CK
 from repro_torch.kernels._build import fold, is_transformed
+from repro_torch.obs.trace import span
 
 # gate-segment kinds on the compact column axis (see fused_segments)
 _DIAG, _RGATE, _THETA = "diag", "r", "theta"
@@ -166,8 +167,13 @@ def fused_update(Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev,
     Under `torch.func.vmap` (the stream fleet) the slots fold into the
     example axis (`kernels._build.fold`): one launch for every slot, counted
     once."""
-    args = (Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev, count_new,
-            count_prev)
+    with span("k1.launch"):
+        return _fused_update((Jhat, vals, mbar_rows, hp_rows, idx_new,
+                              idx_prev, count_new, count_prev))
+
+
+def _fused_update(args: tuple):
+    Jhat, vals, mbar_rows, hp_rows = args[:4]
     call = _last[0]
     if call is None or not call.matches(args):
         if is_transformed(vals):

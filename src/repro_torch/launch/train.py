@@ -63,8 +63,8 @@ clip factor, health) into one tensor, read back once a window, and DIR
 receives `events.jsonl` (a `window` event per update, `rewire`, `fault`,
 `rollback`, `recovery`, `quarantine` and `ckpt_write` events),
 `metrics.prom` and `manifest.json`; `--trace` adds `trace.json` (Chrome
-trace of the window / rewire / rollback_replay / ckpt_write spans, each
-also a `torch.profiler.record_function`).  Check DIR with `python -m
+trace of the window / rewire / rollback_replay / ckpt_write spans and the
+window's phases, on `torch.profiler`'s clock).  Check DIR with `python -m
 repro_torch.obs.validate DIR`.  A run with telemetry is bitwise the run
 without it.  Both paths end with the summary block of
 `obs.finish_run`, then the JSON summary line.

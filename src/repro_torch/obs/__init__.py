@@ -9,9 +9,9 @@ Three layers:
   histograms (interpolated p50/p95/p99), schema-versioned JSONL events,
   Prometheus text exposition (`repro_torch.obs.registry`,
   `repro_torch.obs.events`).
-- `Tracer` — nested wall-clock spans with Chrome-trace export and
-  optional `torch.profiler.record_function` passthrough
-  (`repro_torch.obs.trace`).
+- `Tracer` and `span` — nested wall-clock spans with Chrome-trace export
+  on the profiler's clock; under any `torch.profiler` session every span
+  is a host range of its name (`repro_torch.obs.trace`).
 
 `Telemetry` (`repro_torch.obs.telemetry`) bundles the host-side layers
 behind a facade with a no-op `null()` form, so the runtime instruments

@@ -30,10 +30,12 @@ def add_obs_args(ap):
                          "`python -m repro_torch.obs.validate <dir>`)")
     ap.add_argument("--trace", action="store_true",
                     help="record spans (window / rewire / rollback_replay / "
-                         "ckpt_write) and export Chrome-trace JSON to "
-                         "<metrics-dir>/trace.json — load in "
-                         "chrome://tracing; each span is also a "
-                         "torch.profiler record_function")
+                         "ckpt_write and the window's phases, trainer.* / "
+                         "engine.* / k1.launch) and export Chrome-trace "
+                         "JSON to <metrics-dir>/trace.json — load in "
+                         "chrome://tracing; stamped on torch.profiler's "
+                         "clock, whose traces show each span as a host "
+                         "range")
     return ap
 
 

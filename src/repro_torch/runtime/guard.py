@@ -66,6 +66,7 @@ import torch
 from repro_torch.collectives import all_reduce
 from repro_torch.obs import Telemetry
 from repro_torch.obs.metricpack import global_norm
+from repro_torch.obs.trace import span
 from repro_torch.runtime.online import stream_grads
 from repro_torch.runtime.trainer import InjectedFailure
 from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,
@@ -229,12 +230,13 @@ def guarded_update_chunk(learner, opt, carry: Tree, opt_state: Tree,
     health / loss / overflow beside every other telemetry scalar, so one
     readback serves the guard AND the exporters."""
     carry, loss, grads, stats = stream_grads(learner, carry, xs, ys)
-    gn = global_norm(grads)
-    factor = torch.minimum(torch.ones_like(gn), clip / (gn + 1e-12))
-    grads = tree_map(lambda g: g * factor, grads)
-    params, opt_state = opt.update(grads, opt_state,
-                                   learner.params_of(carry), upd)
-    carry = learner.reset_grads(carry, params)
+    with span("engine.update"):
+        gn = global_norm(grads)
+        factor = torch.minimum(torch.ones_like(gn), clip / (gn + 1e-12))
+        grads = tree_map(lambda g: g * factor, grads)
+        params, opt_state = opt.update(grads, opt_state,
+                                       learner.params_of(carry), upd)
+        carry = learner.reset_grads(carry, params)
     health = health_bits(loss, grads, carry)
     if pack is not None:
         packed = pack.pack({"loss": loss, "grads": grads, "stats": stats,
@@ -269,8 +271,10 @@ def advance_chunk(learner, carry: Tree, xs: torch.Tensor, ys: torch.Tensor):
     for t in range(xs.shape[0]):
         carry, out = learner.step(carry, xs[t], ys[t])
         per_step.append(out.stats)
-    stats = {k: torch.stack([s[k] for s in per_step]) for k in per_step[0]}
-    loss, _, stats = learner.read_window(carry, stats, grads=False)
+    with span("engine.read_window"):
+        stats = {k: torch.stack([s[k] for s in per_step])
+                 for k in per_step[0]}
+        loss, _, stats = learner.read_window(carry, stats, grads=False)
     carry = learner.reset_grads(carry, None)
     metrics = {"loss": loss, "health": health_bits(loss, (), carry)}
     if "overflow" in stats:

@@ -34,6 +34,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.ckpt import dtype_name
 from repro_torch.obs import MetricPack, Telemetry
+from repro_torch.obs.trace import span
 from repro_torch.runtime.trainer import (InjectedFailure, default_ckpt_dir,
                                          scalar_metrics)
 from repro_torch.tree import tree_leaves
@@ -52,8 +53,10 @@ def stream_grads(learner, carry: Tree, xs: torch.Tensor, ys: torch.Tensor):
     for t in range(xs.shape[0]):
         carry, out = learner.step(carry, xs[t], ys[t])
         per_step.append(out.stats)
-    stats = {k: torch.stack([s[k] for s in per_step]) for k in per_step[0]}
-    loss, grads, stats = learner.read_window(carry, stats)
+    with span("engine.read_window"):
+        stats = {k: torch.stack([s[k] for s in per_step])
+                 for k in per_step[0]}
+        loss, grads, stats = learner.read_window(carry, stats)
     return carry, loss, grads, stats
 
 
@@ -70,9 +73,10 @@ def online_update_chunk(learner, opt, carry: Tree, opt_state: Tree,
     values the chunk already computed, so the instrumented chunk's carry /
     opt_state are bit-identical to pack=None (tests/test_torch_obs.py)."""
     carry, loss, grads, stats = stream_grads(learner, carry, xs, ys)
-    params, opt_state = opt.update(grads, opt_state,
-                                   learner.params_of(carry), upd)
-    carry = learner.reset_grads(carry, params)
+    with span("engine.update"):
+        params, opt_state = opt.update(grads, opt_state,
+                                       learner.params_of(carry), upd)
+        carry = learner.reset_grads(carry, params)
     if pack is not None:
         packed = pack.pack({"loss": loss, "grads": grads, "stats": stats,
                             "carry": carry})
@@ -215,8 +219,9 @@ class OnlineTrainer:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _gather(self, start: int, k: int):
-        xs, ys = zip(*(self.stream(start + i) for i in range(k)))
-        return self._to(np.stack(xs)), self._to(np.stack(ys))
+        with self.obs.span("trainer.gather"):
+            xs, ys = zip(*(self.stream(start + i) for i in range(k)))
+            return self._to(np.stack(xs)), self._to(np.stack(ys))
 
     # -- checkpoint/restore: carry + opt + stream position ------------------
 
@@ -413,10 +418,11 @@ class OnlineTrainer:
                 self.learner, self.opt, self.carry, self.opt_state, xs, ys,
                 self.update, pack=self._pack)
             # THE window readback: blocks until the device finished it
-            if self._pack is not None:
-                self._last_packed = self._pack.unpack(m["packed"])
-                return True, _legacy_metrics(self._last_packed), {}
-            return True, scalar_metrics(m), {}
+            with self.obs.span("trainer.readback"):
+                if self._pack is not None:
+                    self._last_packed = self._pack.unpack(m["packed"])
+                    return True, _legacy_metrics(self._last_packed), {}
+                return True, scalar_metrics(m), {}
         if action == "skip_update":
             # the degraded advance keeps its own packed verdict
             carry, m = G.advance_chunk(self.learner, self.carry, xs, ys)
@@ -428,16 +434,17 @@ class OnlineTrainer:
             carry, opt_state, m = G.guarded_update_chunk(
                 self.learner, self.opt, self.carry, self.opt_state, xs, ys,
                 self.update, clip, pack=self._pack)
-        if "packed" in m:
-            # one readback serves guard AND telemetry: the guard gets the
-            # unpacked verdict as host floats
-            pk = self._pack.unpack(m["packed"])
-            m = {"health": pk["health"], "loss": pk["loss"],
-                 "overflow": pk["overflow"]}
-        else:
-            pk = None
-            m.pop("verdict")
-            m = scalar_metrics(m)
+        with self.obs.span("trainer.readback"):
+            if "packed" in m:
+                # one readback serves guard AND telemetry: the guard gets
+                # the unpacked verdict as host floats
+                pk = self._pack.unpack(m["packed"])
+                m = {"health": pk["health"], "loss": pk["loss"],
+                     "overflow": pk["overflow"]}
+            else:
+                pk = None
+                m.pop("verdict")
+                m = scalar_metrics(m)
         fault = g.check(m, self.update)
         if fault is not None:
             g.on_fault(self, fault)
@@ -469,6 +476,37 @@ class OnlineTrainer:
                 self.ckpt.wait()
             raise
 
+    def _after_window(self, start: int, k: int, dt: float, m: dict,
+                      guard_rec: dict):
+        """The bookkeeping between a completed window and the next: its
+        records, the rewire event, the guard's commit, the checkpoint and
+        the log."""
+        cfg = self.cfg
+        self._watch_straggler(dt)
+        self.step = start + k
+        self.update += 1
+        self.windows.append({"update": self.update, "ms": dt * 1e3, **m,
+                             **guard_rec})
+        self.obs.record_window(self.update, self.step, dt * 1e3,
+                               packed=self._last_packed, **guard_rec)
+        rewire_rec = self._maybe_rewire()
+        if self.guard is not None:
+            # commit AFTER rewire, so that snapshots carry the post-event
+            # masks and the matching event counter
+            self.guard.commit(self, start)
+        if self._fault_plan is not None:
+            self._fault_plan.maybe_corrupt(self)
+        if self.ckpt is not None and self.update % cfg.ckpt_every == 0:
+            self.save()
+        if (rewire_rec or guard_rec or self.update % cfg.log_every == 0
+                or self.step >= cfg.total_steps):
+            rec = {"update": self.update, "step": self.step,
+                   "dt_s": round(dt, 4), **rewire_rec, **guard_rec, **m}
+            self.metrics.append(rec)
+            if cfg.metrics_path:
+                with open(cfg.metrics_path, "a") as f:
+                    f.write(json.dumps(rec) + "\n")
+
     def run(self) -> dict:
         cfg = self.cfg
         if self.guard is not None and not self.guard.ring:
@@ -483,30 +521,8 @@ class OnlineTrainer:
             if not ok:
                 continue                  # rolled back; the window replays
             dt = time.perf_counter() - t0
-            self._watch_straggler(dt)
-            self.step = start + k
-            self.update += 1
-            self.windows.append({"update": self.update, "ms": dt * 1e3, **m,
-                                 **guard_rec})
-            self.obs.record_window(self.update, self.step, dt * 1e3,
-                                   packed=self._last_packed, **guard_rec)
-            rewire_rec = self._maybe_rewire()
-            if self.guard is not None:
-                # commit AFTER rewire, so that snapshots carry the
-                # post-event masks and the matching event counter
-                self.guard.commit(self, start)
-            if self._fault_plan is not None:
-                self._fault_plan.maybe_corrupt(self)
-            if self.ckpt is not None and self.update % cfg.ckpt_every == 0:
-                self.save()
-            if (rewire_rec or guard_rec or self.update % cfg.log_every == 0
-                    or self.step >= cfg.total_steps):
-                rec = {"update": self.update, "step": self.step,
-                       "dt_s": round(dt, 4), **rewire_rec, **guard_rec, **m}
-                self.metrics.append(rec)
-                if cfg.metrics_path:
-                    with open(cfg.metrics_path, "a") as f:
-                        f.write(json.dumps(rec) + "\n")
+            with self.obs.span("trainer.record"):
+                self._after_window(start, k, dt, m, guard_rec)
         self.save()
         if self.ckpt is not None:
             self.ckpt.wait()
