@@ -487,6 +487,7 @@ ROOT = Path(__file__).resolve().parent
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core FLOP/s
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12    # dense, tensor cores
 BF16_FLOP_S = 989e12     # dense bf16 on the tensor cores
 F32_REL = 1e-5
 BF16_STEP = 2.0 ** -7
@@ -592,10 +593,18 @@ def fmt_path(path):
         f"; launch floor (empty kernel, same route) {path['launch floor']:.2f} us")
 
 
-def k1_bound(torch, ops):
+def k1_branch(CF, ops) -> str:
+    """The kernel's branch on these operands (`fused_update`'s rule)."""
+    B, K, Pc = ops[1].shape
+    return ("tensor cores (3xTF32)" if CF.tensor_cores(K, ops[1].dtype)
+            else "CUDA cores")
+
+
+def k1_bound(torch, ops, tensor_cores=False):
     """Least time (ms) for the fused update on these inputs: the larger of
-    the bytes it must move over HBM bandwidth and its f32 FMA work over the
-    CUDA-core peak, counting only what the live counts need."""
+    the bytes it must move over HBM bandwidth and its work at the branch's
+    peak (f32 FMA on the CUDA cores; with `tensor_cores` three TF32
+    products at the TF32 peak), counting only what the live counts need."""
     J, vals, mbar, hp, idx_new, idx_prev, cn, cp = ops
     B, K, Pc = vals.shape
     es = vals.element_size()
@@ -607,8 +616,10 @@ def k1_bound(torch, ops):
                    + cn.sum() * 4 + 2 * B * K * 4 + 2 * B * 4   # hp, idx, counts
                    + B * K * Pc * es)            # every output row, written
     flops = float((2 * cn * cp * Pc).sum() + 2 * cn.sum() * Pc)
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOP_S
-    by = "bytes" if t_bytes >= t_ops else "operations"
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = 3 * flops / TF32_FLOP_S if tensor_cores else flops / F32_FLOP_S
+    by = "bytes" if t_bytes >= t_ops else (
+        "3xTF32 operations" if tensor_cores else "operations")
     return max(t_bytes, t_ops) * 1e3, by, nbytes, flops
 
 
@@ -669,9 +680,11 @@ def compare_k1(torch, CF, ops, label, out=None):
     rows = torch.arange(K, device=o.device)[None, :]
     dead = rows >= ops[6].clamp(max=K)[:, None]
     check(bool((o[dead] == 0).all()), f"{label}: dead rows not exactly zero")
-    log(f"K1 {label}: max_abs_err {float(err.max()):.3e} "
-        f"(scale {scale:.3e}), dead rows exactly 0: "
-        f"{int(dead.sum())} rows")
+    log(f"K1 {label}: {k1_branch(CF, ops)}, max_abs_err "
+        f"{float(err.max()):.3e} (scale {scale:.3e}: "
+        f"{float(err.max()) / scale:.2e} of it"
+        f"{', limit 1e-05' if ops[1].dtype == torch.float32 else ''}), "
+        f"dead rows exactly 0: {int(dead.sum())} rows")
     return float(err.max())
 
 
@@ -691,8 +704,10 @@ def time_k1(torch, CF, CK, ops, iters, alt_iters, host=False):
     library = lambda: torch.baddbmm(mbar, Jgg, vf)
     lib = time_ms(torch, library, iters)
     alt = time_alternating(torch, {"ms": call, "lib": library}, alt_iters)
-    bound, by, nbytes, flops = k1_bound(torch, ops)
-    out = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+    bound, by, nbytes, flops = k1_bound(
+        torch, ops, CF.tensor_cores(vals.shape[1], vals.dtype))
+    out = {"branch": k1_branch(CF, ops), "ms": ms, "plain_ms": plain,
+           "library_ms": lib,
            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
            "flops": flops, "alt_ms": alt["ms"], "alt_library_ms": alt["lib"],
            "device_us": device_us(torch, call),
@@ -723,8 +738,10 @@ def k1_launch_shape(CF, ops):
     one line."""
     B, K, Pc = ops[1].shape
     geo = CF.geometry(B, K, Pc, ops[1].dtype, ops[1].device)
-    return (f"grid {geo['grid']} CTAs of {geo['threads']} threads "
-            f"({geo['warps']} warps, {geo['rows']} rows x 128 columns), "
+    return (f"{'tensor cores' if geo['tensor_cores'] else 'CUDA cores'}: "
+            f"grid {geo['grid']} CTAs of {geo['threads']} threads "
+            f"({geo['warps']} warps, {geo['rows']} rows x {geo['cols']} "
+            f"columns), "
             f"{geo['smem_bytes']} shared bytes a CTA, {geo['registers']} "
             f"registers and {geo['spill_bytes']} spilled bytes a thread, "
             f"{geo['ctas_per_sm']} CTAs an SM, {geo['stages']} ring stages")
@@ -4901,7 +4918,7 @@ def scaled_k1(torch, SR, SP, CF, CK, dev):
                "(s2) n=1024 step 5 bf16")
     t = time_k1(torch, CF, CK, ops, 5, 3)
     shape = k1_launch_shape(CF, ops)
-    log(f"K1 time (s2) n=1024: kernel {t['ms']:.4f} ms, plain "
+    log(f"K1 time (s2) n=1024 ({t['branch']}): kernel {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, baddbmm on pre-gathered tiles "
         f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
         f"({t['bound_by']}: {t['bytes']:.0f} B, {t['flops']:.0f} FLOP; "
@@ -7169,7 +7186,7 @@ def run_phases(torch, job, sharded_job):
              "(b) n=256 f32": time_k1(torch, CF, CK, big_ops, 20, 50),
              "(b) n=256 bf16": time_k1(torch, CF, CK, big_bf16, 20, 50)}
     for label, t in times.items():
-        log(f"K1 time {label}: kernel {t['ms']:.4f} ms, plain "
+        log(f"K1 time {label} ({t['branch']}): kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, baddbmm on pre-gathered tiles "
             f"(partial yardstick) {t['library_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']:.0f} B, "

@@ -13,16 +13,23 @@ and rows r >= count_new[b] are exactly 0.  Accumulation is f32; the carry
 
   * `fused_update` — the wrapper the engine calls.  On a CUDA tensor it
     launches the hand-written kernel (`csrc/compact_fused.cu`, built at
-    first use by `kernels._build`; one CTA per (16, 32 or 64 new rows,
-    128 columns, example), 8 rows x 4 columns a thread, 2 x 4 at K <= 16,
-    previous rows through a cp.async ring) through `_build.KernelCall`, or
-    raises; on a CPU tensor it runs `fused_reference`.
-    `fused_update.launches` counts kernel launches.
+    first use by `kernels._build`) through `_build.KernelCall`, or raises;
+    on a CPU tensor it runs `fused_reference`.  The kernel has two
+    branches, chosen by the capacity K and the carry's dtype alone
+    (`tensor_cores`): an f32 carry at 256 < K <= 4096 takes the tensor
+    cores (one CTA per (128 new rows, 128 columns, example), the product in
+    3xTF32 wgmma with each chunk of 32 previous rows summed in registers of
+    its own and added to the total in rounded f32); K <= 256, and a bf16
+    carry at every K, keep the CUDA cores (one CTA per (16, 32 or 64 new
+    rows, 128 columns, example), 8 rows x 4 columns a thread, 2 x 4 at
+    K <= 16, previous rows through a cp.async ring).
+    `fused_update.launches` counts kernel launches and
+    `fused_update.tc_launches` those on the tensor cores.
   * `fused_reference` — the plain PyTorch version, with the JAX oracle's
     blockwise (bl=8) f32 accumulation and its zeroing of rows past
     count_new.
-  * `geometry` — the kernel's launch shape (grid, threads, shared bytes,
-    registers, residency) at a capacity.
+  * `geometry` — the kernel's launch shape (branch, grid, threads, shared
+    bytes, registers, residency) at a capacity.
 
 The JAX package's XLA lowering (`fused_update_blocks`, with its capacity
 ladder) has no counterpart: the plain version and the kernel fill its role.
@@ -119,6 +126,9 @@ def fused_reference(Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev,
 # ---------------------------------------------------------------------------
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# the capacities of the tensor-core branch, for an f32 carry (csrc/
+# compact_fused.cu, tc::kMinK and tc::kMaxK)
+TC_MIN_K, TC_MAX_K = 257, 4096
 _CALLS: dict = {}
 _last: list = [None]        # the last call's KernelCall, tried first
 
@@ -142,7 +152,15 @@ def _call(B, n, K, Pc, dtype, device) -> _build.KernelCall:
         call = _CALLS[key] = _build.KernelCall(
             "fused_update", device, entries, lib, lib.repro_fused_update,
             (B, n, K, Pc, int(dtype == torch.bfloat16)), n_ptrs=9)
+        call.tensor_cores = tensor_cores(K, dtype)
     return call
+
+
+def tensor_cores(K: int, dtype) -> bool:
+    """Whether the kernel takes its tensor-core branch at capacity K for a
+    carry of this dtype: an f32 carry at 256 < K <= 4096 (below, the CUDA
+    cores were faster on the card at K 72, 128 and 256)."""
+    return dtype == torch.float32 and TC_MIN_K <= K <= TC_MAX_K
 
 
 def fused_update(Jhat, vals, mbar_rows, hp_rows, idx_new, idx_prev,
@@ -206,24 +224,29 @@ def _fused_update(args: tuple):
     out = torch.empty_like(vals)
     call.launch(*ptrs, out.data_ptr())
     fused_update.launches += 1
+    fused_update.tc_launches += call.tensor_cores
     return out
 
 
 fused_update.launches = 0
+fused_update.tc_launches = 0
 
 
 def geometry(B: int, K: int, Pc: int, dtype, device) -> dict:
     """The kernel's launch for B examples of capacity K and Pc columns:
-    warps, threads and rows a CTA, dynamic shared bytes a CTA, registers
-    and spilled bytes a thread, CTAs resident on an SM (the card's own
-    occupancy count), ring stages, and the grid."""
+    warps, threads, rows and columns a CTA, dynamic shared bytes a CTA,
+    registers and spilled bytes a thread, CTAs resident on an SM (the card's
+    own occupancy count), ring stages, the branch (`tensor_cores`) and the
+    grid."""
     lib = _build.load("compact_fused")
-    out = (ctypes.c_longlong * 8)()
+    out = (ctypes.c_longlong * 10)()
     with torch.cuda.device(device):
         err = lib.repro_fused_geometry(K, int(dtype == torch.bfloat16), out)
     if err != 0:
         raise RuntimeError(f"fused_update: {_build.error_string(lib, err)}")
     geo = dict(zip(("warps", "threads", "rows", "smem_bytes", "registers",
-                    "spill_bytes", "ctas_per_sm", "stages"), out))
-    geo["grid"] = B * -(-K // geo["rows"]) * -(-Pc // 128)
+                    "spill_bytes", "ctas_per_sm", "stages", "tensor_cores",
+                    "cols"), out))
+    geo["tensor_cores"] = bool(geo["tensor_cores"])
+    geo["grid"] = B * -(-K // geo["rows"]) * -(-Pc // geo["cols"])
     return geo

@@ -8,7 +8,9 @@ oracle on the same numpy operands.  Tolerances: float32 results agree to
 results to one bf16 rounding step (2^-7 relative) on top of that, since an
 f32 difference at a rounding boundary flips the last bf16 bit.  The CUDA
 kernel itself is held against the plain version on the card by
-tests/test_torch_cuda.py and by chip_smoke.py.
+tests/test_torch_cuda.py and by chip_smoke.py; the arithmetic of its
+tensor-core branch (3xTF32) is modelled here, bit for bit in its roundings,
+and held to the f32 tolerance the card's tests use.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -146,6 +148,86 @@ def test_reference_tail_block_when_K_not_multiple_of_bl():
                       for l in range(cp[b]))
             want[b, r] = hp[b, r] * (acc + mbar[b, r])
     _assert_f32_close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core branch's arithmetic (3xTF32), modelled on the CPU
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, by bit arithmetic on its f32 view (finite x): cvt.rna.tf32.f32."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_tf32(x):
+    """x = hi + lo + a residue below 2^-22 |x|, hi and lo TF32 values."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _tensor_core_model(ops, products):
+    """The branch's output with its roundings and no other: J-hat and V split
+    into TF32 hi + lo, the products V_lo J_hi + V_hi J_lo + V_hi J_hi
+    (`products` 3; 1 keeps V_hi J_hi alone, 1xTF32) summed exactly over
+    l < count_prev, then hp * (sum + M-bar), rows past count_new zero."""
+    Jhat, vals, mbar, hp, idx_new, idx_prev, cn, cp = ops
+    out = np.zeros(vals.shape, np.float32)
+    for b in range(vals.shape[0]):
+        rows, prev = idx_new[b, :cn[b]], idx_prev[b, :cp[b]]
+        Jg = np.where((rows[:, None] >= 0) & (prev[None, :] >= 0),
+                      Jhat[b][np.ix_(rows, prev)], 0.0).astype(np.float32)
+        jh, jl = (m.astype(np.float64) for m in _split_tf32(Jg))
+        vh, vl = (m.astype(np.float64) for m in _split_tf32(vals[b, :cp[b]]))
+        acc = jh @ vh if products == 1 else jh @ vl + jl @ vh + jh @ vh
+        out[b, :cn[b]] = hp[b, :cn[b], None] * (acc + mbar[b, :cn[b]])
+    return out
+
+
+@pytest.mark.parametrize("seed,Pc_pad,empty_prev", [
+    (0, 64, False), (1, 64, True), (2, 136, False)])
+def test_tensor_core_arithmetic_holds_the_f32_tolerance(seed, Pc_pad,
+                                                        empty_prev):
+    """At K = n = 1,024 on ragged operands, 3xTF32 agrees with the plain
+    version to 1e-6 of the largest magnitude; 1xTF32 is at least 10x
+    further off, so the two small products are what holds the tolerance."""
+    ops = _ragged_np(seed, B=3, K=1024, n=1024, Pc_pad=Pc_pad,
+                     empty_prev=empty_prev)
+    ref = _f32(CF.fused_reference(*_torch_args(ops)))
+    scale = float(np.abs(ref).max())
+    err3 = float(np.abs(_tensor_core_model(ops, 3) - ref).max())
+    err1 = float(np.abs(_tensor_core_model(ops, 1) - ref).max())
+    assert err3 <= 1e-6 * scale, (err3, scale)
+    assert err1 >= 10 * err3, (err1, err3)
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    """The model's rounding on hand-picked f32 values: below, at and above
+    the halfway point of the 13 dropped bits, for both signs."""
+    one_ulp = 2.0 ** -10                      # TF32's step at 1.0
+    x = np.array([1.0 + one_ulp / 2 - 2.0 ** -23, 1.0 + one_ulp / 2,
+                  1.0 + one_ulp / 2 + 2.0 ** -23], np.float32)
+    np.testing.assert_array_equal(_tf32(x), [1.0, 1.0 + one_ulp,
+                                             1.0 + one_ulp])
+    np.testing.assert_array_equal(_tf32(-x), -_tf32(x))
+    pi = np.array([np.pi], np.float32)
+    hi, lo = _split_tf32(pi)
+    assert hi[0] != pi[0] and abs(float(hi[0]) + float(lo[0]) - float(pi[0])) \
+        <= 2.0 ** -22 * np.pi
+
+
+def test_tensor_core_branch_is_chosen_by_capacity_and_dtype():
+    """The branch the wrapper counts in `tc_launches`: an f32 carry at
+    TC_MIN_K <= K <= TC_MAX_K; K <= 64 and every bf16 carry keep the CUDA
+    cores."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert 64 < CF.TC_MIN_K <= 512 <= CF.TC_MAX_K
+    lo, hi = CF.TC_MIN_K, CF.TC_MAX_K
+    assert [CF.tensor_cores(K, f32) for K in (16, 64, lo - 1, lo, 1024, hi,
+                                              hi + 1)] == \
+        [False, False, False, True, True, True, False]
+    assert not any(CF.tensor_cores(K, bf16) for K in (16, 128, 1024))
 
 
 # ---------------------------------------------------------------------------

@@ -85,23 +85,73 @@ def _check_fused(ops, dtype):
                                       (3, 256, 256, 1024), (4, 20, 20, 200),
                                       (3, 72, 80, 264),       # a partial 2nd row tile
                                       (3, 512, 512, 384),     # 16 ring chunks
-                                      (8, 256, 256, 4352)])   # 1,088 CTAs
+                                      (8, 256, 256, 4352),    # 1,088 CTAs
+                                      # f32 on the tensor cores: partial
+                                      # column tiles (264, a rank's 57,920)
+                                      (3, 128, 160, 264), (3, 1024, 1024, 264),
+                                      (3, 512, 512, 57920)])
 def test_kernel_matches_plain_version(cuda, dtype, B, K, n, Pc):
     _check_fused(_operands(cuda, dtype, B, K, n, Pc), dtype)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("counts", [
+@pytest.mark.parametrize("K,n,Pc,counts", [
     # count_new 8 / 9: a dead warp and a one-row warp in a live tile; 72 / 65:
     # the partial 2nd tile full and one row; count_prev at the ring chunks'
     # edges (31, 32, 33) and past two chunks (65)
-    ([8, 9, 72, 65], [31, 32, 33, 65]),
+    (72, 80, 256, ([8, 9, 72, 65], [31, 32, 33, 65])),
     # an example with no live row (its first tile dead), one with no
     # previous row
-    ([9, 0, 1, 64], [65, 32, 0, 31])])
-def test_kernel_at_tile_and_ring_edges(cuda, dtype, counts):
-    _check_fused(_operands(cuda, dtype, 4, 72, 80, 256, counts=counts), dtype)
+    (72, 80, 256, ([9, 0, 1, 64], [65, 32, 0, 31])),
+    # the tensor cores' 128-row tiles (f32): 65 live rows (N 128) and 64
+    # (N 64), no live row; count_prev not a multiple of 8, and 0
+    (128, 160, 264, ([128, 65, 64, 0], [127, 33, 0, 7])),
+    # a dead 2nd row tile (100), a 2nd tile with one live row (129), Pc a
+    # rank's 57,920 columns
+    (256, 300, 57920, ([100, 129, 0, 256], [255, 100, 9, 0])),
+    (512, 600, 264, ([512, 300, 385, 1], [511, 0, 200, 512])),
+    (1024, 1024, 264, ([1000, 0, 513, 1024], [1024, 7, 1000, 0]))])
+def test_kernel_at_tile_and_ring_edges(cuda, dtype, K, n, Pc, counts):
+    _check_fused(_operands(cuda, dtype, 4, K, n, Pc, counts=counts), dtype)
+
+
+@pytest.mark.cuda
+def test_tensor_core_branch_is_bitwise_run_to_run(cuda):
+    ops = _operands(cuda, torch.float32, 4, 512, 512, 2048, seed=3)
+    assert torch.equal(CF.fused_update(*ops), CF.fused_update(*ops))
+
+
+@pytest.mark.cuda
+def test_tensor_core_branch_on_a_column_slice_is_bitwise(cuda):
+    """Each half of 115,840 columns launched alone reads the full launch's
+    bits: the second half, a rank's shard, starts half a CTA's 128 columns
+    into the full launch's tile, so no column's arithmetic may depend on
+    where it falls in its tile."""
+    ops = _operands(cuda, torch.float32, 3, 512, 600, 2 * 57920, seed=4)
+    full = CF.fused_update(*ops)
+    for lo, hi in ((0, 57920), (57920, 2 * 57920)):
+        part = list(ops)
+        part[1] = ops[1][:, :, lo:hi].contiguous()
+        part[2] = ops[2][:, :, lo:hi].contiguous()
+        assert torch.equal(CF.fused_update(*part), full[:, :, lo:hi])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,dtype,branch", [
+    (16, torch.float32, False), (64, torch.float32, False),
+    (CF.TC_MIN_K - 1, torch.float32, False), (CF.TC_MIN_K, torch.float32, True),
+    (1024, torch.float32, True),
+    (128, torch.bfloat16, False), (1024, torch.bfloat16, False)])
+def test_tc_launches_count_the_tensor_core_branch(cuda, K, dtype, branch):
+    """`tc_launches` counts the launches that took the tensor cores (an f32
+    carry from K = TC_MIN_K on), as `geometry` reports the branch."""
+    ops = _operands(cuda, dtype, 3, K, K + 8, 256)
+    before = CF.fused_update.launches, CF.fused_update.tc_launches
+    CF.fused_update(*ops)
+    assert (CF.fused_update.launches - before[0],
+            CF.fused_update.tc_launches - before[1]) == (1, int(branch))
+    assert CF.geometry(3, K, 256, dtype, cuda)["tensor_cores"] == branch
 
 
 @pytest.mark.cuda
